@@ -1,0 +1,227 @@
+"""CAM/GETAM inference: flip TTA, class slots, npy CAM dicts.
+
+Counterpart of ``acr_wsss_tpu/infer_cam.py`` (``build_infer_fn``
+``:43-110``, ``process_image`` / ``process_images_batched`` ``:113-310``).
+Both TTA views (identity, hflip) run as one batch; one forward serves GETAM
+and the per-patch CAM head; the present classes are backpropagated in
+slots; the per-image native-size resize and min-max normalization run on
+the host.
+
+    python -m acr_wsss_tpu_torch.infer_cam --weights W.npz \
+        --LISTpath L.txt --IMpath JPEGs --cls_labels labels.npy \
+        --out_cam out/cam_npy
+
+CRF, PAMR, heatmaps, the data-parallel mesh and the scanned trunk of the
+JAX CLI are not part of this module yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from acr_wsss_tpu_torch.configs import InferConfig, ModelConfig, parse_bool
+from acr_wsss_tpu_torch.data import transforms
+from acr_wsss_tpu_torch.getam import getam_cams, make_forward_for_getam, tap_config
+from acr_wsss_tpu_torch.models.acr import ACR
+from acr_wsss_tpu_torch.models.convert import flax_to_state_dict
+from acr_wsss_tpu_torch.ops import imops
+from acr_wsss_tpu_torch.utils.checkpoint import load_params_npz
+
+
+def build_infer_fn(model: ACR, crop_size: int, start_layer: int, getam_func: str,
+                   use_aff: bool, num_classes: int, class_slots: int = 0):
+    """(B, crop, crop, 3) views[, class ids] -> dict of tensors: cams
+    (K, B, grid*grid), patch_cam (B, grid*grid, C) and logits (B, C)."""
+    spec = model.spec
+    n_tokens = (crop_size // 16) ** 2 + spec.num_prefix_tokens
+    off_start, export = tap_config(model, start_layer, getam_func)
+    model.requires_grad_(False).eval()
+    device = next(model.parameters()).device
+
+    def infer(x, class_ids=None):
+        x = torch.as_tensor(np.asarray(x, np.float32)).to(device)
+        if class_ids is None:
+            class_ids = range(class_slots or num_classes)
+        forward = make_forward_for_getam(model, x, export=export, with_patch_cam=True)
+        cams, logits, _, patch_cam = getam_cams(
+            forward, (spec.depth - off_start, x.shape[0], spec.num_heads,
+                      n_tokens, n_tokens),
+            num_classes=num_classes, start_layer=start_layer, func=getam_func,
+            start_index=spec.num_prefix_tokens, use_aff=use_aff,
+            class_ids=class_ids, offsets_start=off_start, device=device)
+        return {"cams": cams, "patch_cam": patch_cam, "logits": logits}
+
+    infer.class_slots = class_slots
+    return infer
+
+
+def _run_views(fn, batch: np.ndarray, present: Sequence[int], num_classes: int,
+               grid: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(cams (C, V, grid*grid), patch_cam (V, grid*grid, C)) for the views,
+    sweeping only ``present`` in slots of ``fn.class_slots`` when set."""
+    slots = fn.class_slots
+    if not slots:
+        out = fn(batch)
+        return out["cams"].cpu().numpy(), out["patch_cam"].cpu().numpy()
+    cams = np.zeros((num_classes, len(batch), grid * grid), np.float32)
+    for pos in range(0, len(present), slots):
+        chunk = list(present[pos:pos + slots])
+        ids = chunk + [chunk[-1]] * (slots - len(chunk))
+        out = fn(batch, ids)
+        got = out["cams"].cpu().numpy()
+        for row, cls in enumerate(chunk):
+            cams[cls] = got[row]
+    return cams, out["patch_cam"].cpu().numpy()
+
+
+def process_images_batched(infer_fn, img_paths: Sequence[str],
+                           labels_list: Sequence[np.ndarray], crop_size: int,
+                           flip_tta: bool = True, scales: Sequence[float] = (1.0,),
+                           infer_fns_by_scale: Optional[Dict[float, object]] = None):
+    """V images per pass; returns [(cam_dict, patch_cam_dict, rgb)] per image.
+    Class slots sweep the union of the group's present classes."""
+    V = len(img_paths)
+    rgbs = [transforms.load_image_rgb(p) for p in img_paths]
+    num_classes = labels_list[0].shape[0]
+    present_sets = [[c for c in range(num_classes) if lab[c] > 1e-5]
+                    for lab in labels_list]
+    union_present = sorted(set().union(*map(set, present_sets)))
+    if not union_present:
+        return [({}, {}, rgb) for rgb in rgbs]
+
+    cam_accs: list = [None] * V
+    patch_accs: list = [None] * V
+    for scale in scales:
+        size = int(crop_size * scale)
+        fn = (infer_fns_by_scale or {}).get(scale, infer_fn)
+        xs = [transforms.val_transform(rgb, size) for rgb in rgbs]
+        views = xs + ([x[:, ::-1] for x in xs] if flip_tta else [])
+        grid = size // 16
+        cams, patch = _run_views(fn, np.stack(views), union_present, num_classes, grid)
+        cams = cams.reshape(num_classes, len(views), grid, grid)
+        patch = patch.transpose(0, 2, 1).reshape(len(views), num_classes, grid, grid)
+        for v in range(V):
+            cam_v, patch_v = cams[:, v], patch[v]
+            if flip_tta:
+                cam_v = cam_v + cams[:, V + v, :, ::-1]
+                patch_v = patch_v + patch[V + v, :, :, ::-1]
+            H, W = rgbs[v].shape[:2]
+            cam_up = imops.resize_bilinear_np(cam_v, (H, W), align_corners=True)
+            patch_up = imops.resize_bilinear_np(patch_v, (H, W), align_corners=False)
+            cam_accs[v] = cam_up if cam_accs[v] is None else cam_accs[v] + cam_up
+            patch_accs[v] = patch_up if patch_accs[v] is None else patch_accs[v] + patch_up
+
+    results = []
+    for v in range(V):
+        if not present_sets[v]:
+            results.append(({}, {}, rgbs[v]))
+            continue
+        mask = (labels_list[v] > 1e-5)[:, None, None]
+        norm_cam = imops.minmax_normalize(cam_accs[v] * mask)
+        patch_norm = imops.minmax_normalize(patch_accs[v] * mask, eps=1e-5)
+        results.append((
+            {c: norm_cam[c].astype(np.float32) for c in present_sets[v]},
+            {c: patch_norm[c].astype(np.float32) for c in present_sets[v]},
+            rgbs[v],
+        ))
+    return results
+
+
+def process_image(infer_fn, img_path: str, label: np.ndarray, crop_size: int,
+                  flip_tta: bool = True, scales: Sequence[float] = (1.0,),
+                  infer_fns_by_scale: Optional[Dict[float, object]] = None):
+    """(getam cam_dict, patch cam_dict, RGB image) of one image."""
+    return process_images_batched(infer_fn, [img_path], [label], crop_size,
+                                  flip_tta, scales, infer_fns_by_scale)[0]
+
+
+def load_model(cfg: InferConfig) -> ACR:
+    """The ACR of ``cfg.model`` on ``cfg.device`` with the npz weights."""
+    model = ACR(num_classes=cfg.model.num_classes, backbone_name=cfg.model.backbone,
+                dtype=getattr(torch, cfg.model.compute_dtype),
+                attn_impl=cfg.model.attn_impl)
+    path = cfg.weights if cfg.weights.endswith(".npz") else cfg.weights + ".npz"
+    model.load_state_dict(flax_to_state_dict(load_params_npz(path), model.state_dict()))
+    return model.to(cfg.device)
+
+
+def run(cfg: InferConfig) -> None:
+    model = load_model(cfg)
+    infer_fns = {
+        scale: build_infer_fn(model, int(cfg.crop_size * scale), cfg.start_layer,
+                              cfg.getam_func, cfg.use_aff, cfg.model.num_classes,
+                              class_slots=cfg.class_slots)
+        for scale in cfg.scales
+    }
+    with open(cfg.infer_list) as f:
+        lines = [line for line in f if line.strip()]
+    # Bare-id lists, or VOC path-pair lines whose id is chars 12:23.
+    names = ([line[12:23] for line in lines] if lines and lines[0].startswith("/")
+             else [line.strip() for line in lines])
+    labels = np.load(cfg.cls_labels_path, allow_pickle=True).item()
+    if cfg.out_cam:
+        os.makedirs(cfg.out_cam, exist_ok=True)
+    V = max(1, cfg.batch_images)
+    print("generating cam...", flush=True)
+    for gi in range(0, len(names), V):
+        group = names[gi:gi + V]
+        results = process_images_batched(
+            infer_fns[cfg.scales[0]],
+            [os.path.join(cfg.image_dir, f"{n}.jpg") for n in group],
+            [labels[n] for n in group], cfg.crop_size, cfg.flip_tta,
+            scales=cfg.scales, infer_fns_by_scale=infer_fns)
+        for name, (cam_dict, _, _) in zip(group, results):
+            if cfg.out_cam:
+                np.save(os.path.join(cfg.out_cam, f"{name}.npy"), cam_dict)
+        if gi % 50 < V:
+            print(gi, flush=True)
+
+
+def parse_args(argv=None) -> InferConfig:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--weights", required=True)
+    parser.add_argument("--backbone", default="vitb_hybrid")
+    parser.add_argument("--LISTpath", default="voc12/train_id.txt")
+    parser.add_argument("--IMpath", default="voc/image/path")
+    parser.add_argument("--cls_labels", default="voc12/cls_labels.npy")
+    parser.add_argument("--out_cam", default="")
+    parser.add_argument("--start_layer", default=10, type=int)
+    parser.add_argument("--getam_func", default="grad",
+                        choices=["grad", "grad_s", "cam_grad", "cam_grad_s"])
+    parser.add_argument("--aff", default=True, type=parse_bool)
+    parser.add_argument("--crop_size", default=384, type=int)
+    parser.add_argument("--attn_impl", default="kernel", choices=["kernel", "plain"])
+    parser.add_argument("--class_slots", default=4, type=int,
+                        help="present-class backprop slots per pass (0 = all classes)")
+    parser.add_argument("--batch_images", default=4, type=int,
+                        help="images per pass")
+    parser.add_argument("--scales", default="1.0",
+                        help="comma-separated multi-scale TTA factors; each "
+                             "crop_size*scale must be a multiple of 16")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    scales = tuple(float(s) for s in args.scales.split(",") if s.strip())
+    for s in scales:
+        if int(args.crop_size * s) % 16:
+            parser.error(f"--scales {s}: crop_size*scale is not a multiple of 16")
+    return InferConfig(
+        model=ModelConfig(backbone=args.backbone, attn_impl=args.attn_impl),
+        weights=args.weights, crop_size=args.crop_size,
+        start_layer=args.start_layer, getam_func=args.getam_func,
+        use_aff=args.aff, scales=scales, out_cam=args.out_cam,
+        image_dir=args.IMpath, infer_list=args.LISTpath,
+        cls_labels_path=args.cls_labels, class_slots=args.class_slots,
+        batch_images=args.batch_images, device=args.device)
+
+
+def main(argv=None) -> None:
+    run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -45,6 +45,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavy suite (torch oracles, mesh equivalence, e2e loops) — "
         "skipped unless --runslow")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card and nvcc (the port's hand-written kernels); "
+        "skipped where torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,9 +1,10 @@
-"""The configuration the inference slice reads.
+"""The configuration that CAM inference and training read.
 
-Own copy of the fields of ``acr_wsss_tpu/configs.py`` that CAM inference
-uses, with the same defaults (``ModelConfig``, ``InferConfig``). The
-attention choice is named for the port: ``"kernel"`` (the hand-written
-CUDA forward for untapped blocks) or ``"plain"`` (PyTorch everywhere).
+Own copy of the fields of ``acr_wsss_tpu/configs.py`` that the port uses,
+with the same defaults (``ModelConfig``, ``TrainConfig``, ``InferConfig``).
+The attention choice is named for the port: ``"kernel"`` (the hand-written
+CUDA kernels) or ``"plain"`` (PyTorch everywhere); the JAX package's
+``"pallas"`` and ``"xla"``. Entry points run on ``device="cuda"``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,46 @@ class ModelConfig:
     num_classes: int = 20
     compute_dtype: str = "bfloat16"
     attn_impl: str = "kernel"          # kernel | plain
+    # Compute the consistency L1 terms inside the attention kernel
+    # (training only; needs attn_impl="kernel" and aligned_mirror): the
+    # head-mean probs never reach device memory. False: the per-layer
+    # export path.
+    fuse_consistency: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """VOC training (reference ``train_acr.py:49-117``, ``train_acr.sh``)."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    crop_size: int = 384
+    batch_size: int = 4            # global batch (reference: 1/GPU x 4 GPUs)
+    max_epochs: int = 10
+    lr: float = 0.05
+    weight_decay: float = 5e-4
+    momentum: float = 0.9
+    poly_power: float = 0.9        # lr * (1 - step/max_step) ** power
+    alpha: float = 125.0           # consistency-loss weight (train_acr.sh:16)
+    seed: int = 0
+    log_every: int = 50
+    val_every: int = 5000
+    checkpoint_dir: str = "weight"
+    session_name: str = "acr_tpu"
+    image_dir: str = "voc/image/path"
+    train_list: str = "voc12/train_aug_id.txt"
+    val_list: str = "voc12/val_id.txt"
+    cls_labels_path: str = "voc12/cls_labels.npy"
+    num_workers: int = 8
+    # Reference quirk: PolyOptimizer passes weight_decay into torch SGD's
+    # momentum slot (tool/torchutils.py:12). True reproduces it.
+    reference_optimizer_quirk: bool = False
+    clip_grad_norm: float = 0.0    # global-norm clipping, 0 = off
+    accum_steps: int = 1           # gradient accumulation micro-steps per update
+    cache_decoded: bool = False
+    # Un-mirror the flipped view's token order once after the pos-embed
+    # instead of un-flipping every layer's (B, N, N) export in the loss.
+    aligned_mirror: bool = True
+    device: str = "cuda"
 
 
 @dataclasses.dataclass(frozen=True)

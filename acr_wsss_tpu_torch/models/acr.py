@@ -3,7 +3,7 @@
 Counterpart of ``acr_wsss_tpu/models/acr.py``: the ``BACKBONES`` table and
 aliases (``:42-90``), the head on the CLS token and on the mean of the
 patch tokens of the last tap taken before the final norm (``:147-152``),
-and ``forward_cls`` / ``forward_cam`` (``:159-196``).
+and ``forward_cls`` / ``forward_cam`` / ``forward_mirror`` (``:159-216``).
 """
 
 from __future__ import annotations
@@ -86,11 +86,18 @@ class ACR(nn.Module):
                 self.cls_head(layer4[:, self.start_index:].mean(dim=1)))
 
     def forward_cls(self, x: torch.Tensor, probs_offsets: Optional[torch.Tensor] = None,
-                    export: str = "mean") -> Dict[str, Any]:
-        out = self.trunk(x, probs_offsets=probs_offsets, export=export)
+                    export: str = "mean", mirror_second_half=False) -> Dict[str, Any]:
+        """logits, patch_logits, probs, probs_layers, consistency_sums,
+        n_tokens, taps, grid. ``mirror_second_half`` (training, both views
+        on the batch axis) un-mirrors the flipped view's token order once
+        after the pos-embed, so its probs come out aligned with view 1's."""
+        out = self.trunk(x, probs_offsets=probs_offsets, export=export,
+                         mirror_second_half=mirror_second_half)
         logits, patch_logits = self._heads(out["taps"][self.spec.taps[-1]])
         return {"logits": logits, "patch_logits": patch_logits,
-                "probs": out["probs"], "taps": out["taps"], "grid": out["grid"]}
+                "probs": out.get("probs"), "probs_layers": out.get("probs_layers"),
+                "consistency_sums": out.get("consistency_sums"),
+                "n_tokens": out["n_tokens"], "taps": out["taps"], "grid": out["grid"]}
 
     def forward_cam(self, x: torch.Tensor, probs_offsets: Optional[torch.Tensor] = None,
                     export: str = "mean") -> Dict[str, Any]:
@@ -101,6 +108,26 @@ class ACR(nn.Module):
         patch_cam = F.relu(self.cls_head(layer4[:, self.start_index:].float()))
         return {"logits": logits, "patch_logits": patch_logits,
                 "probs": out["probs"], "patch_cam": patch_cam, "grid": out["grid"]}
+
+    def forward_mirror(self, x1: torch.Tensor, x2: torch.Tensor, export: str = "mean"
+                       ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """Siamese forward on (view, flipped view) as one doubled batch;
+        returns the two views' halves of ``forward_cls`` (taps left out).
+        Only tensors and tuples of tensors are split: the JAX method also
+        splits the ``grid`` tuple of ints, which raises."""
+        b = x1.shape[0]
+        out = self.forward_cls(torch.cat([x1, x2], dim=0), export=export)
+
+        def view(v, sl):
+            if isinstance(v, torch.Tensor):
+                return v[sl]
+            if isinstance(v, tuple) and v and isinstance(v[0], torch.Tensor):
+                return tuple(p[sl] for p in v)
+            return v
+
+        items = [(k, v) for k, v in out.items() if k != "taps"]
+        return ({k: view(v, slice(None, b)) for k, v in items},
+                {k: view(v, slice(b, None)) for k, v in items})
 
     forward = forward_cls
 

@@ -1,9 +1,11 @@
-"""Carry the JAX package's weights over to the port, with numpy alone.
+"""Carry weights between the JAX package and the port, with numpy alone.
 
-One function: a flat ``{flax_path: np.ndarray}`` dict in (exactly what
-``np.load`` of a ``save_params_npz`` file gives; see
-``utils/checkpoint.py``), the port's ``state_dict`` out. The port's module
-names follow the flax ones, so a path maps one to one:
+``flax_to_state_dict``: a flat ``{flax_path: np.ndarray}`` dict in
+(exactly what ``np.load`` of a ``save_params_npz`` file gives; see
+``utils/checkpoint.py``), the port's ``state_dict`` out;
+``state_dict_to_flax`` is its inverse, so that weights the port trains load
+in the JAX package. The port's module names follow the flax ones, so a
+path maps one to one:
 
 * ``params/`` in front is optional; "/" becomes "."; ``blocks_<i>`` of the
   trunk becomes ``blocks.<i>``;
@@ -21,6 +23,9 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+import torch.nn as nn
+
+from acr_wsss_tpu_torch.models.layers import GroupNormAct, WSConv
 
 _TRUNK_BLOCK = re.compile(r"^trunk/blocks_(\d+)/")
 
@@ -71,3 +76,28 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray],
                          f"{sorted(unused)[:8]} ({len(unused)}), missing "
                          f"{missing[:8]} ({len(missing)})")
     return out
+
+
+def state_dict_to_flax(module: nn.Module) -> Dict[str, np.ndarray]:
+    """The flat ``{flax_path: np.ndarray}`` dict of ``module``'s parameters,
+    "params/"-prefixed as the JAX trainer saves them: the inverse of
+    :func:`flax_to_state_dict`. Module types decide the leaf names
+    (GroupNorm one level down, ``kernel`` for Dense and conv weights)."""
+    kinds = {name: type(m) for name, m in module.named_modules()}
+    flat: Dict[str, np.ndarray] = {}
+    for key, tensor in module.state_dict().items():
+        owner, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+        value = tensor.detach().cpu().float().numpy()
+        kind = kinds.get(owner)
+        if leaf == "weight" and kind in (nn.Linear,):
+            leaf, value = "kernel", value.T
+        elif leaf == "weight" and kind in (nn.Conv2d, WSConv):
+            leaf, value = "kernel", value.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and kind is nn.LayerNorm:
+            leaf = "scale"
+        elif kind is GroupNormAct:
+            owner, leaf = owner + ".GroupNorm_0", "scale" if leaf == "weight" else leaf
+        path = (owner + "." + leaf if owner else leaf).replace(".", "/")
+        path = re.sub(r"^trunk/blocks/(\d+)/", r"trunk/blocks_\1/", path)
+        flat["params/" + path] = np.ascontiguousarray(value)
+    return flat

@@ -1,8 +1,8 @@
 """Vision Transformer trunk that returns its attention probabilities.
 
-Counterpart of ``acr_wsss_tpu/models/vit.py`` (``:77-517``) for inference:
-the trunk returns the token taps (block outputs before the final norm) and
-each block's exported probabilities, and takes an optional stack of
+Counterpart of ``acr_wsss_tpu/models/vit.py`` (``:77-517``): the trunk
+returns the token taps (block outputs before the final norm) and each
+block's exported probabilities, and takes an optional stack of
 ``probs_offsets``, the post-softmax gradient taps GETAM differentiates.
 
 Truncated taps (``:438-451``): ``probs_offsets`` may cover only the last
@@ -10,11 +10,20 @@ layers. Blocks below the first tapped layer take no offset, so no backward
 is ever built through them; with ``attn_impl="kernel"`` their attention is
 the CUDA forward of ``ops/attn_cuda.py`` (export "mean" or "none"), and
 they run under ``torch.no_grad()`` when taps are given. Tapped blocks take
-the plain attention with the offset.
+the plain attention with the offset. Without taps the kernel path takes a
+gradient through the backward kernel (training).
 
-Training-only options of the JAX trunk (``scan_blocks``,
-``mirror_second_half``, ``pair_l1`` export, remat) are not part of this
-module.
+Training (``:351-390``, ``:97-112``): ``mirror_second_half`` un-mirrors the
+flipped view's patch tokens once, after the pos-embed, so that every
+layer's probs come out index-aligned with the first view's; ``True`` for
+views stacked on the batch axis (rows [b:2b] mirror rows [0:b]),
+``"interleaved"`` for (view, mirror) pairs on adjacent rows. Export
+``"pair_l1"`` (kernel impl, no offsets) runs the pair-consistency entry
+of ``ops/attn_pair.py`` on interleaved pairs and returns each layer's
+per-pair L1 sums as ``consistency_sums``.
+
+``scan_blocks``, remat and the bkg token of the JAX trunk are not part of
+this module.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch.nn.functional as F
 from acr_wsss_tpu_torch.models.layers import Mlp, linear, resize_bilinear
 from acr_wsss_tpu_torch.ops.attention import attention_with_probs
 from acr_wsss_tpu_torch.ops.attn_cuda import fused_attention_qkv_cols
+from acr_wsss_tpu_torch.ops.attn_pair import fused_attention_pair_consistency
 
 ATTN_IMPLS = ("kernel", "plain")
 
@@ -48,6 +58,13 @@ class Attention(nn.Module):
                 export: str = "mean") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         B, N, C = x.shape
         qkv = linear(x, self.qkv)
+        if export == "pair_l1":
+            if self.attn_impl != "kernel" or probs_offset is not None:
+                raise ValueError("export='pair_l1' needs attn_impl='kernel' and no "
+                                 "probs_offset (training-only fused consistency)")
+            out, cls_s, aff_s = fused_attention_pair_consistency(qkv, self.scale,
+                                                                 self.num_heads)
+            return linear(out, self.proj), (cls_s, aff_s)
         if (self.attn_impl == "kernel" and probs_offset is None
                 and export in ("mean", "none")):
             out, probs = fused_attention_qkv_cols(qkv, self.scale, self.num_heads,
@@ -134,10 +151,12 @@ class VisionTransformer(nn.Module):
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
     def forward(self, x: torch.Tensor, probs_offsets: Optional[torch.Tensor] = None,
-                export: str = "mean") -> Dict[str, Any]:
+                export: str = "mean", mirror_second_half=False) -> Dict[str, Any]:
         """x: (B, H, W, 3) NHWC image. ``probs_offsets``: (L', B, heads, N, N)
         taps for the last L' blocks. Returns taps, probs (B, L, N, N) or
-        (B, L, heads, N, N) and the final-norm tokens."""
+        (B, L, heads, N, N) and per layer (``probs_layers``), or the per-layer
+        ``consistency_sums`` for export "pair_l1", the final-norm tokens and
+        ``n_tokens``."""
         B, H, W, _ = x.shape
         gh, gw = H // self.patch_size, W // self.patch_size
         x = x.permute(0, 3, 1, 2).to(self.dtype)
@@ -150,6 +169,8 @@ class VisionTransformer(nn.Module):
         x = torch.cat([p.to(x.dtype) for p in prefix] + [x], dim=1)
         pe = resize_pos_embed(self.pos_embed, self.num_prefix_tokens, (gh, gw))
         x = x + pe.to(x.dtype)
+        if mirror_second_half:
+            x = self._unmirror(x, (gh, gw), mirror_second_half)
 
         off_start = self.depth - (probs_offsets.shape[0] if probs_offsets is not None else 0)
         taps: Dict[int, torch.Tensor] = {}
@@ -166,9 +187,31 @@ class VisionTransformer(nn.Module):
                 probs_list.append(probs_i)
             if i in self.taps:
                 taps[i] = x
-        return {
-            "taps": taps,
-            "probs": torch.stack(probs_list, dim=1) if probs_list else None,
-            "tokens": self.norm(x.float()),
-            "grid": (gh, gw),
-        }
+        out = {"taps": taps, "tokens": self.norm(x.float()), "grid": (gh, gw),
+               "n_tokens": x.shape[1]}
+        if export == "pair_l1":
+            out["consistency_sums"] = tuple(probs_list)
+        else:
+            out["probs"] = torch.stack(probs_list, dim=1) if probs_list else None
+            out["probs_layers"] = tuple(probs_list) if probs_list else None
+        return out
+
+    def _unmirror(self, x: torch.Tensor, grid: Tuple[int, int], mode) -> torch.Tensor:
+        """Reverse the patch-grid columns of the mirror rows' patch tokens:
+        rows [b:2b] for ``True``, the odd rows for ``"interleaved"``."""
+        if x.shape[0] % 2:
+            raise ValueError("mirror_second_half expects views stacked on the batch "
+                             f"axis (even batch), got {x.shape[0]}")
+        b2, n, dim = x.shape[0] // 2, x.shape[1], x.shape[2]
+        start = self.num_prefix_tokens
+
+        def unflip(t):
+            return torch.flip(t.reshape(-1, grid[0], grid[1], dim), dims=(2,)).reshape(
+                -1, grid[0] * grid[1], dim)
+
+        if mode == "interleaved":
+            xp = x.reshape(b2, 2, n, dim)
+            mirror = torch.cat([xp[:, 1, :start], unflip(xp[:, 1, start:])], dim=1)
+            return torch.stack([xp[:, 0], mirror], dim=1).reshape(-1, n, dim)
+        mirror = torch.cat([x[b2:, :start], unflip(x[b2:, start:])], dim=1)
+        return torch.cat([x[:b2], mirror], dim=0)

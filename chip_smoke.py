@@ -8,18 +8,31 @@ non-zero without one. Imports nothing of JAX and nothing of the JAX
 package. Phases, each of which fails the run when it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``nvcc`` builds every kernel of the path into build/torch_kernels/;
+2. build: ``nvcc`` builds every kernel into build/torch_kernels/, all at
+   once, with the ``-Xptxas -v`` lines printed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shape and at a ragged one, with and without export;
-4. main path: GETAM CAM inference as a user runs it (vitb_hybrid, crop 384,
-   ``grad`` from layer 10, affinity refinement, flip TTA, 4 class slots)
-   on two seeded VOC-sized images, with the weights of
+   the main paths' shapes and at a ragged one: K1f/K1n (export "mean" and
+   "none"), K2f, K2b (fed K2f's own sign tile) and K1b (with and without
+   a dense de);
+4. inference path: GETAM CAM inference as a user runs it (vitb_hybrid,
+   crop 384, ``grad`` from layer 10, affinity refinement, flip TTA, 4
+   class slots) on two seeded VOC-sized images, with the weights of
    bench_artifacts/stability_r3/stability_r3_last.npz when present, else
    seeded random ones; launches counted; CAM dicts written to a temporary
    directory and scored by the port's ``evaluate``; CAMs checked against
    the same run with plain attention;
-5. timing: per-image latency, a device-time breakdown, each kernel's time
-   beside its plain version, one library call and its bound.
+5. training path: ``train.train`` as a user runs it (vitb_hybrid, crop
+   384, batch 4, the recipe: lr 0.05, alpha 125, fused consistency) from
+   seeded random weights on a seeded synthetic VOC fixture of 375x500
+   JPEGs, a few steps and a validation pass; launches counted; every loss
+   part finite; the final npz read by the port's ``infer_cam``;
+6. one train step of the kernel path against the plain path from the same
+   weights and batch, for the fused branch and the per-layer branch (which
+   launches K1f and K1b): step-0 loss parts and parameters after the
+   update;
+7. timing: per-image latency, train step time and images/s, device time
+   breakdowns, each kernel's time beside its plain version, a library
+   call and its bound.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object with one entry per kernel; the last line is
@@ -28,6 +41,7 @@ object with one entry per kernel; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -46,12 +60,24 @@ import torch.nn.functional as F  # noqa: E402
 from PIL import Image  # noqa: E402
 
 from acr_wsss_tpu_torch import evaluate  # noqa: E402
+from acr_wsss_tpu_torch import infer_cam  # noqa: E402
+from acr_wsss_tpu_torch import train as train_mod  # noqa: E402
+from acr_wsss_tpu_torch.configs import InferConfig, ModelConfig, TrainConfig  # noqa: E402
+from acr_wsss_tpu_torch.data import voc as voc_data  # noqa: E402
 from acr_wsss_tpu_torch.infer_cam import build_infer_fn, process_image  # noqa: E402
 from acr_wsss_tpu_torch.models.acr import ACR, init_random_  # noqa: E402
 from acr_wsss_tpu_torch.models.convert import flax_to_state_dict  # noqa: E402
-from acr_wsss_tpu_torch.ops import _build  # noqa: E402
-from acr_wsss_tpu_torch.ops.attn_cuda import (KERNEL, attention_qkv_cols_plain,  # noqa: E402
+from acr_wsss_tpu_torch.ops import _build, attn_pair  # noqa: E402
+from acr_wsss_tpu_torch.ops.attn_cuda import (BWD_KERNEL, KERNEL,  # noqa: E402
+                                              attention_qkv_cols_backward,
+                                              attention_qkv_cols_backward_plain,
+                                              attention_qkv_cols_forward,
+                                              attention_qkv_cols_plain,
                                               fused_attention_qkv_cols)
+from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_backward,  # noqa: E402
+                                              pair_consistency_backward_plain,
+                                              pair_consistency_forward,
+                                              pair_consistency_forward_plain)
 from acr_wsss_tpu_torch.utils.checkpoint import load_params_npz  # noqa: E402
 
 WEIGHTS = os.path.join(ROOT, "bench_artifacts", "stability_r3", "stability_r3_last.npz")
@@ -71,6 +97,32 @@ OUT_RTOL, OUT_ATOL = 2.0 ** -7, 2.0 ** -8
 # path, both bf16 through 12 blocks: the rounding differences above, carried
 # through blocks 0-9 and the GETAM backward of blocks 10-11.
 CAM_MAX_ABS, CAM_MEAN_ABS = 0.05, 0.005
+# K2f sums of |delta|: float32 over up to N^2 terms in another order ->
+# rtol 1e-5. Sign tile: equal wherever the plain |delta| exceeds SIGN_EPS,
+# above the float32 error of two 12-term head means of probabilities <= 1
+# (24 roundings of at most 2^-24 each). K2b and K1b dqkv: float32
+# arithmetic in another order, then one bf16 rounding on each side -> one
+# bf16 ulp (2^-7 relative), plus 1e-4 of the tensor's largest value for
+# entries that cancel to near zero (sums of up to N terms).
+SUM_RTOL, SIGN_EPS = 1e-5, 1e-5
+GRAD_RTOL, GRAD_ATOL_FRAC = 2.0 ** -7, 1e-4
+# Training path: the recipe at batch 4, 16 training and 4 validation
+# images, one epoch: 4 updates, so 5 train steps (range(0, max_step + 1)).
+TRAIN_BATCH, TRAIN_IMAGES, VAL_IMAGES = 4, 16, 4
+TRAIN_SIZES = ((375, 500), (500, 375), (333, 500), (375, 500))
+# One train step, kernel path against plain path, both bf16 through the
+# stem and 12 blocks: bf16 rounding (2^-8 relative) of each block's output
+# carried to the logits and the probabilities -> step-0 loss parts within
+# 2e-2 relative. After the update, each parameter tensor's update p1 - p0
+# within 5e-2 of the plain path's in L2 norm (the relative tolerance of
+# the hybrid's one-step test against the reference, tests/
+# test_train_parity.py): the two backward formulations round to bf16 at
+# other places (the kernels' backward is float32 on a recomputed p), and
+# weight standardization in the stem amplifies gradients about 12x, so
+# an element-wise bound on parameters would be set by the largest
+# updates, not by the error.
+LOSS_RTOL, UPDATE_REL = 2e-2, 5e-2
+KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL)
 
 
 def log(msg: str) -> None:
@@ -95,25 +147,98 @@ def check_close(name, got, ref, rtol, atol) -> float:
     return max_err
 
 
-def phase_kernels(device) -> dict:
-    """Kernel against plain version; returns max abs err at the main shape."""
+def check_k1(device, errs) -> None:
     gen = torch.Generator(device=device).manual_seed(0)
-    errs = {}
-    for B, N in ((2, N_TOKENS), (3, 37)):
+    for B, N in ((2, N_TOKENS), (4, N_TOKENS), (3, 37)):
         qkv = torch.randn((B, N, 3 * HEADS * HEAD_DIM), generator=gen, device=device,
                           dtype=torch.float32).to(torch.bfloat16)
         for export in ("mean", "none"):
             out, probs = fused_attention_qkv_cols(qkv, HEAD_DIM ** -0.5, HEADS, export)
             ref_out, ref_probs = attention_qkv_cols_plain(qkv, HEAD_DIM ** -0.5, HEADS, export)
             torch.cuda.synchronize()
-            log(f"  B={B} N={N} export={export}")
+            log(f"  K1 forward B={B} N={N} export={export}")
             err = check_close("out", out, ref_out, OUT_RTOL, OUT_ATOL)
             if export == "mean":
                 err = max(err, check_close("probs", probs, ref_probs, 0.0, PROBS_ATOL))
             elif probs is not None:
                 raise AssertionError("export='none' returned probs")
-            errs[(B, N, export)] = err
+            errs[("K1", B, N, export)] = err
+
+
+def check_grad(name, got, ref) -> float:
+    atol = GRAD_ATOL_FRAC * ref.float().abs().max().item()
+    return check_close(name, got, ref, GRAD_RTOL, atol)
+
+
+def check_k2_k1b(device, errs) -> None:
+    gen = torch.Generator(device=device).manual_seed(1)
+    scale = HEAD_DIM ** -0.5
+    for B, N in ((2 * TRAIN_BATCH, N_TOKENS), (2, 37)):
+        qkv = torch.randn((B, N, 3 * HEADS * HEAD_DIM), generator=gen,
+                          device=device).to(torch.bfloat16)
+        g = torch.randn((B, N, HEADS * HEAD_DIM), generator=gen,
+                        device=device).to(torch.bfloat16)
+        log(f"  K2f B={B} N={N}")
+        out, cls_s, aff_s, sign = pair_consistency_forward(qkv, scale, HEADS)
+        ref_out, ref_cls, ref_aff, ref_sign = pair_consistency_forward_plain(qkv, scale, HEADS)
+        _, probs = attention_qkv_cols_plain(qkv, scale, HEADS, "mean")
+        torch.cuda.synchronize()
+        err = check_close("out", out, ref_out, OUT_RTOL, OUT_ATOL)
+        err = max(err, check_close("cls_sums", cls_s, ref_cls, SUM_RTOL, 0.0))
+        err = max(err, check_close("aff_sums", aff_s, ref_aff, SUM_RTOL, 0.0))
+        clear = (probs[0::2] - probs[1::2]).abs() > SIGN_EPS
+        flips = int((sign != ref_sign).sum())
+        bad = int((sign != ref_sign)[clear].sum())
+        log(f"  sign tile: {flips} of {sign.numel()} entries differ from the plain "
+            f"version, {bad} of them where |delta| > {SIGN_EPS}")
+        if bad or sign.dtype != torch.int8:
+            raise AssertionError("K2f sign tile disagrees with the plain version")
+        errs[("K2f", B, N)] = err
+
+        log(f"  K2b B={B} N={N} (plain version fed the kernel's sign tile)")
+        g_cls = torch.rand(B // 2, generator=gen, device=device) * 100
+        g_aff = torch.rand(B // 2, generator=gen, device=device) * 100
+        got = pair_consistency_backward(qkv, g, sign, g_cls, g_aff, scale, HEADS)
+        ref = pair_consistency_backward_plain(qkv, g, sign, g_cls, g_aff, scale, HEADS)
+        torch.cuda.synchronize()
+        errs[("K2b", B, N)] = check_grad("dqkv", got, ref)
+
+        for with_de in (True, False):
+            de = torch.randn((B, N, N), generator=gen, device=device) if with_de else None
+            log(f"  K1b B={B} N={N} de={'dense' if with_de else 'none'}")
+            got = attention_qkv_cols_backward(qkv, g, de, scale, HEADS)
+            ref = attention_qkv_cols_backward_plain(qkv, g, de, scale, HEADS)
+            torch.cuda.synchronize()
+            errs[("K1b", B, N, with_de)] = check_grad("dqkv", got, ref)
+
+
+def phase_kernels(device) -> dict:
+    """Kernel against plain version; returns max abs errs by case."""
+    errs: dict = {}
+    check_k1(device, errs)
+    check_k2_k1b(device, errs)
     return errs
+
+
+def zero_counts() -> dict:
+    return {"K1f": 0, "K1n": 0, "K1b": 0, "K2f": 0, "K2b": 0}
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    fused_attention_qkv_cols.launches = 0
+    fused_attention_qkv_cols.launches_noexport = 0
+    attention_qkv_cols_backward.launches = 0
+    pair_consistency_forward.launches = 0
+    pair_consistency_backward.launches = 0
+
+
+def read_counts() -> dict:
+    noexport = fused_attention_qkv_cols.launches_noexport
+    return {"K1f": fused_attention_qkv_cols.launches - noexport, "K1n": noexport,
+            "K1b": attention_qkv_cols_backward.launches,
+            "K2f": pair_consistency_forward.launches,
+            "K2b": pair_consistency_backward.launches}
 
 
 def make_images(tmp: str, seed: int):
@@ -158,14 +283,14 @@ def phase_main_path(device, tmp):
     infer = build_infer_fn(model, CROP, START_LAYER, "grad", True, 20, class_slots=CLASS_SLOTS)
     passes = sum(math.ceil(int((lab > 0).sum()) / CLASS_SLOTS) for lab in labels)
 
-    fused_attention_qkv_cols.launches = 0
+    reset_counts()
     cams = [process_image(infer, p, lab, CROP)[0] for p, lab in zip(paths, labels)]
     torch.cuda.synchronize()
-    launches = {KERNEL: fused_attention_qkv_cols.launches}
+    launches = read_counts()
     log(f"  launches: {launches} over {passes} trunk passes "
-        f"({launches[KERNEL] / passes:g} per pass, blocks 0-{START_LAYER - 1})")
-    if launches[KERNEL] != START_LAYER * passes:
-        raise AssertionError(f"expected {START_LAYER} launches per pass")
+        f"({launches['K1f'] / passes:g} K1f per pass, blocks 0-{START_LAYER - 1})")
+    if launches != {**zero_counts(), "K1f": START_LAYER * passes}:
+        raise AssertionError(f"expected {START_LAYER} K1f launches per pass and no other")
 
     for name, lab, cam, (h, w) in zip(names, labels, cams, IMAGE_SIZES):
         present = sorted(np.flatnonzero(lab).tolist())
@@ -197,6 +322,241 @@ def phase_main_path(device, tmp):
         raise AssertionError("kernel and plain paths disagree")
     del plain, plain_infer
     return infer, paths, labels, launches
+
+
+def make_train_fixture(root: str, seed: int) -> TrainConfig:
+    """A seeded synthetic VOC fixture (375x500-class JPEGs, 1-3 labels each,
+    cls_labels.npy, train and val lists) and the recipe's config over it."""
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "JPEGImages")
+    os.makedirs(img_dir)
+    names, labels = [], {}
+    for i in range(TRAIN_IMAGES + VAL_IMAGES):
+        h, w = TRAIN_SIZES[i % len(TRAIN_SIZES)]
+        name = f"2007_{i:06d}"
+        coarse = rng.integers(0, 256, (h // 25, w // 25, 3), dtype=np.uint8)
+        Image.fromarray(coarse).resize((w, h), Image.BILINEAR).save(
+            os.path.join(img_dir, f"{name}.jpg"), quality=90)
+        label = np.zeros(20, np.float32)
+        label[rng.choice(20, size=int(rng.integers(1, 4)), replace=False)] = 1.0
+        names.append(name)
+        labels[name] = label
+    np.save(os.path.join(root, "cls_labels.npy"), labels)
+    with open(os.path.join(root, "train.txt"), "w") as f:
+        f.write("\n".join(names[:TRAIN_IMAGES]) + "\n")
+    with open(os.path.join(root, "val.txt"), "w") as f:
+        f.write("\n".join(names[TRAIN_IMAGES:]) + "\n")
+    return TrainConfig(
+        model=ModelConfig(backbone="vitb_hybrid", attn_impl="kernel", fuse_consistency=True),
+        crop_size=CROP, batch_size=TRAIN_BATCH, max_epochs=1, log_every=1,
+        val_every=TRAIN_IMAGES // TRAIN_BATCH, checkpoint_dir=os.path.join(root, "weight"),
+        session_name="smoke", image_dir=img_dir,
+        train_list=os.path.join(root, "train.txt"), val_list=os.path.join(root, "val.txt"),
+        cls_labels_path=os.path.join(root, "cls_labels.npy"), num_workers=4,
+        device="cuda")
+
+
+def phase_train_path(device, root):
+    """train.train as a user runs it; returns (config, launches, state)."""
+    cfg = make_train_fixture(root, seed=0)
+    log(f"  recipe: {cfg.model.backbone}, crop {cfg.crop_size}, batch {cfg.batch_size} "
+        f"({2 * cfg.batch_size} images through the trunk), lr {cfg.lr}, alpha {cfg.alpha}, "
+        f"wd {cfg.weight_decay}, momentum {cfg.momentum}, fused consistency; "
+        f"weights: seeded random init (seed {cfg.seed}); {TRAIN_IMAGES} training and "
+        f"{VAL_IMAGES} validation images")
+    reset_counts()
+    state = train_mod.train(cfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    depth = state.model.spec.depth
+    val_passes = math.ceil(VAL_IMAGES / cfg.batch_size)
+    expected = {**zero_counts(), "K2f": depth * state.steps, "K2b": depth * state.steps,
+                "K1n": depth * val_passes}
+    log(f"  launches: {launches} over {state.steps} train steps and {val_passes} "
+        f"validation batch (expected {expected})")
+    if launches != expected:
+        raise AssertionError("the training path did not launch the kernels as expected")
+    for step, parts in enumerate(state.history):
+        log(f"  step {step}: " + ", ".join(f"{k} {v:.6g}" for k, v in parts.items()))
+        if not all(math.isfinite(v) for v in parts.values()):
+            raise AssertionError(f"step {step}: a loss part is not finite")
+    npz = os.path.join(cfg.checkpoint_dir, f"{cfg.session_name}_last.npz")
+    model = infer_cam.load_model(InferConfig(weights=npz, device="cuda"))
+    infer = build_infer_fn(model, CROP, START_LAYER, "grad", True, 20, class_slots=CLASS_SLOTS)
+    name = voc_data.read_file(cfg.val_list)[0]
+    labels = voc_data.load_cls_labels(cfg.cls_labels_path)
+    cam, _, rgb = process_image(infer, os.path.join(cfg.image_dir, f"{name}.jpg"),
+                                labels[name], CROP)
+    if not cam or not all(np.isfinite(m).all() and m.shape == rgb.shape[:2]
+                          for m in cam.values()):
+        raise AssertionError("infer_cam on the trained npz gave no or non-finite CAMs")
+    log(f"  {os.path.basename(npz)} ({os.path.getsize(npz) / 1e6:.1f} MB) read by the "
+        f"port's infer_cam: {len(cam)} finite CAMs at {rgb.shape[0]}x{rgb.shape[1]}")
+    del model, infer
+    return cfg, launches, state
+
+
+def _attn_inputs(model):
+    """Forward hooks that keep each block's attention input."""
+    inputs, handles = [], []
+    for block in model.trunk.blocks:
+        handles.append(block.attn.register_forward_hook(
+            lambda mod, args, out: inputs.append((mod, args[0].detach()))))
+    return inputs, handles
+
+
+@torch.no_grad()
+def kernel_signs(model, x):
+    """The K2f sign tiles of the fused forward of ``model`` on the
+    interleaved pairs of ``x`` and its flip, one per layer."""
+    xi = torch.stack([x, torch.flip(x, dims=(2,))], dim=1).reshape((-1,) + x.shape[1:])
+    inputs, handles = _attn_inputs(model)
+    try:
+        model.forward_cls(xi, export="pair_l1", mirror_second_half="interleaved")
+    finally:
+        for h in handles:
+            h.remove()
+    return [pair_consistency_forward(F.linear(a, m.qkv.weight.to(a.dtype),
+                                              m.qkv.bias.to(a.dtype)),
+                                     m.scale, m.num_heads)[3] for m, a in inputs]
+
+
+@torch.no_grad()
+def plain_signs(model, x):
+    """sign(mean_h p1 - mean_h p2) of the plain per-layer aligned forward."""
+    b = x.shape[0]
+    out = model.forward_cls(torch.cat([x, torch.flip(x, dims=(2,))]), mirror_second_half=True)
+    cls_mask, aff_mask = attn_pair.pair_masks(out["n_tokens"], x.device)
+    return [torch.where(cls_mask | aff_mask, torch.sign(p[:b] - p[b:]), 0.0).to(torch.int8)
+            for p in out["probs_layers"]]
+
+
+def one_step(cfg, attn_impl, fuse, state_dict, batch, grid):
+    """(model, optimizer, step-0 parts, parameters before, after) of one
+    train step from ``state_dict`` on ``batch``."""
+    tcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, attn_impl=attn_impl, fuse_consistency=fuse))
+    model = train_mod.build_model(tcfg.model)
+    model.load_state_dict(state_dict)
+    model.to(cfg.device)
+    opt = train_mod.make_optimizer(model.parameters(), tcfg.lr, TRAIN_IMAGES // TRAIN_BATCH,
+                                   tcfg.weight_decay, tcfg.momentum, tcfg.poly_power)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    parts = train_mod.make_train_step(model, opt, tcfg, grid)(batch)
+    parts = {k: float(v) for k, v in parts.items()}
+    after = {k: v.detach().clone() for k, v in model.named_parameters()}
+    return model, opt, parts, before, after
+
+
+def compare_steps(name, got, ref) -> None:
+    """Step-0 loss parts and parameters after one update, against the
+    plain path's."""
+    _, _, parts, p0, p1 = got
+    _, _, ref_parts, _, ref_p1 = ref
+    for k in ref_parts:
+        rel = abs(parts[k] - ref_parts[k]) / max(abs(ref_parts[k]), 1e-30)
+        log(f"    {k}: {parts[k]:.7g} vs plain {ref_parts[k]:.7g} (rel {rel:.3g}, "
+            f"tolerance {LOSS_RTOL})")
+        if rel > LOSS_RTOL:
+            raise AssertionError(f"{name}: step-0 {k} disagrees with the plain path")
+    rel = {}
+    for k in ref_p1:
+        ref_u = ref_p1[k] - p0[k]
+        rel[k] = float((p1[k] - p0[k] - ref_u).norm() / ref_u.norm().clamp_min(1e-30))
+    worst = sorted(rel, key=rel.get, reverse=True)
+    attn = [k for k in rel if ".attn.qkv." in k]
+    log(f"    update p1 - p0 against the plain path's, relative L2 per tensor: worst "
+        + ", ".join(f"{k} {rel[k]:.3g}" for k in worst[:3])
+        + f"; attention qkv weights at most {max(rel[k] for k in attn):.3g} "
+        f"(tolerance {UPDATE_REL})")
+    if rel[worst[0]] > UPDATE_REL:
+        raise AssertionError(f"{name}: parameter updates disagree with the plain path")
+
+
+def phase_step_compare(device, cfg):
+    """One train step, kernel path against plain path, from the same seeded
+    weights and the first training batch. Returns (fused kernel step's
+    model, optimizer, batch, per-layer launches, max abs err)."""
+    grid = (cfg.crop_size // 16, cfg.crop_size // 16)
+    weights = init_random_(train_mod.build_model(cfg.model), seed=cfg.seed).state_dict()
+    labels = voc_data.load_cls_labels(cfg.cls_labels_path)
+    it = voc_data.TrainIterator(
+        voc_data.VOCClassificationSource(cfg.image_dir, labels, cfg.crop_size),
+        voc_data.read_file(cfg.train_list), cfg.batch_size, seed=cfg.seed, num_workers=4)
+    batch = next(it)
+    it.close()
+
+    plain = one_step(cfg, "plain", False, weights, batch, grid)
+    fused = one_step(cfg, "kernel", True, weights, batch, grid)
+    log("  fused branch (K2f, K2b) against the plain per-layer path:")
+    compare_steps("fused branch", fused, plain)
+    x = torch.as_tensor(batch["image"]).to(device)
+    model_k = train_mod.build_model(cfg.model).to(device)
+    model_k.load_state_dict(weights)
+    model_p = train_mod.build_model(dataclasses.replace(cfg.model, attn_impl="plain")).to(device)
+    model_p.load_state_dict(weights)
+    ks, ps = kernel_signs(model_k, x), plain_signs(model_p, x)
+    differ = sum(int((a != b).sum()) for a, b in zip(ks, ps))
+    total = sum(a.numel() for a in ks)
+    log(f"  sign-tile entries that differ between the kernel and the plain path at step 0: "
+        f"{differ} of {total} ({100 * differ / total:.4f}%), over {len(ks)} layers")
+    del model_k, model_p
+
+    reset_counts()
+    per_layer = one_step(cfg, "kernel", False, weights, batch, grid)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    depth = per_layer[0].spec.depth
+    log(f"  per-layer branch (K1f, K1b) against the plain per-layer path; launches "
+        f"{launches}")
+    if launches != {**zero_counts(), "K1f": depth, "K1b": depth}:
+        raise AssertionError(f"expected {depth} K1f and {depth} K1b launches, no other")
+    compare_steps("per-layer branch", per_layer, plain)
+    del plain, per_layer
+    return fused[0], fused[1], batch, launches
+
+
+def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
+    """Host-clock step time (synchronized) of the fused kernel step: median
+    of ``reps`` after a warm-up; then a profiler window of 2 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    grid = (cfg.crop_size // 16, cfg.crop_size // 16)
+    step = train_mod.make_train_step(model, opt, cfg, grid)
+    step(batch)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(times))
+    log(f"  train step (fused branch, batch {cfg.batch_size}, crop {cfg.crop_size}), "
+        f"median of {reps} after a warm-up: {step_ms:.2f} ms (all: "
+        f"{', '.join(f'{t:.2f}' for t in times)}), {cfg.batch_size / step_ms * 1e3:.2f} "
+        f"images/s [{card}]")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+            and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / 2 if rows else float("nan")
+    if rows:
+        log(f"  device busy per step (sum of kernel times, profiler, 2 steps): "
+            f"{busy_ms:.2f} ms of {window_ms / 2:.2f} ms under the profiler "
+            f"({100 * busy_ms / (window_ms / 2):.1f}%) [{card}]; top kernels per step:")
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+            log(f"    {e.self_device_time_total / 2e3:9.3f} ms  {e.count // 2:5d} x  "
+                f"{e.key[:90]}")
+    else:
+        log("  device busy per step: not measured (profiler saw no device activity)")
+    return {"step_ms": step_ms, "images_per_s": cfg.batch_size / step_ms * 1e3,
+            "busy_ms": busy_ms}
 
 
 def time_image(infer, path, label, reps=5) -> float:
@@ -262,33 +622,97 @@ def time_call(fn, reps=50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_kernel_timing(device, card) -> dict:
-    B, N, H, D = 2, N_TOKENS, HEADS, HEAD_DIM
-    gen = torch.Generator(device=device).manual_seed(1)
-    qkv = torch.randn((B, N, 3 * H * D), generator=gen, device=device).to(torch.bfloat16)
-    q, k, v = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    scale = D ** -0.5
-    kernel = lambda: fused_attention_qkv_cols(qkv, scale, H, "mean")  # noqa: E731
-    plain = lambda: attention_qkv_cols_plain(qkv, scale, H, "mean")  # noqa: E731
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
-    # plain, kernel, kernel, plain: one card, in turns.
-    plain_ms = [time_call(plain)]
-    kernel_ms = [time_call(kernel), time_call(kernel)]
-    plain_ms.append(time_call(plain))
-    library_ms = time_call(sdpa)
-    nbytes = qkv.numel() * 2 + B * N * H * D * 2 + B * N * N * 4
-    flops = 4 * B * H * N * N * D
+def time_kernel(label, kernel, plain, library, nbytes, flops, reps, card,
+                library_name) -> dict:
+    """plain, kernel, kernel, plain in turns on one card (CUDA events over
+    ``reps`` launches each), then the library call; the bound from the
+    bytes moved once and the operations at the bf16 peak."""
+    plain_ms = [time_call(plain, reps)]
+    kernel_ms = [time_call(kernel, reps), time_call(kernel, reps)]
+    plain_ms.append(time_call(plain, reps))
+    library_ms = time_call(library, reps)
     bytes_ms, flops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     res = {"ms": float(np.mean(kernel_ms)), "plain_ms": float(np.mean(plain_ms)),
            "library_ms": library_ms, "bound_ms": max(bytes_ms, flops_ms),
            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
-    log(f"  {KERNEL} at B={B} N={N} H={H} D={D} bf16 (CUDA events, 50 launches each): "
-        f"kernel {kernel_ms[0]*1e3:.1f} / {kernel_ms[1]*1e3:.1f} us, plain "
-        f"{plain_ms[0]*1e3:.1f} / {plain_ms[1]*1e3:.1f} us, SDPA (output only) "
+    log(f"  {label} (CUDA events, {reps} launches each): kernel "
+        f"{kernel_ms[0]*1e3:.1f} / {kernel_ms[1]*1e3:.1f} us, plain "
+        f"{plain_ms[0]*1e3:.1f} / {plain_ms[1]*1e3:.1f} us, {library_name} "
         f"{library_ms*1e3:.1f} us; bound {res['bound_ms']*1e3:.2f} us by {res['bound_by']} "
         f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP) [{card}]")
     return res
+
+
+def phase_kernel_timing(device, card) -> dict:
+    """Each kernel's time at its main path's shape: K1f at B=2 (inference),
+    K1n at B=2 and B=4 (validation), K2f, K2b and K1b at B=8 (training)."""
+    H, D, N = HEADS, HEAD_DIM, N_TOKENS
+    scale = D ** -0.5
+    gen = torch.Generator(device=device).manual_seed(1)
+    out = {}
+
+    def inputs(B):
+        qkv = torch.randn((B, N, 3 * H * D), generator=gen, device=device).to(torch.bfloat16)
+        q, k, v = (t.contiguous() for t in qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4))
+        return qkv, q, k, v
+
+    def sdpa(q, k, v):
+        return lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+    def sdpa_fwd_bwd(q, k, v, g):
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+        def run():
+            F.scaled_dot_product_attention(q, k, v, scale=scale).backward(g)
+        return run
+
+    qkv, q, k, v = inputs(2)
+    io = qkv.numel() * 2 + 2 * N * H * D * 2
+    out["K1f"] = time_kernel(
+        f"{KERNEL} (K1f) at B=2 N={N} H={H} D={D} bf16, export mean",
+        lambda: attention_qkv_cols_forward(qkv, scale, H, "mean"),
+        lambda: attention_qkv_cols_plain(qkv, scale, H, "mean"), sdpa(q, k, v),
+        io + 2 * N * N * 4, 4 * 2 * H * N * N * D, 50, card, "SDPA (output only)")
+    for B in (2, 4):
+        qkv, q, k, v = inputs(B)
+        out[f"K1n_B{B}"] = time_kernel(
+            f"{KERNEL} (K1n) at B={B}, export none",
+            lambda: attention_qkv_cols_forward(qkv, scale, H, "none"),
+            lambda: attention_qkv_cols_plain(qkv, scale, H, "none"), sdpa(q, k, v),
+            qkv.numel() * 2 + B * N * H * D * 2, 4 * B * H * N * N * D, 20, card,
+            "SDPA (the same function)")
+
+    B = 2 * TRAIN_BATCH
+    pairs = B // 2
+    qkv, q, k, v = inputs(B)
+    g = torch.randn((B, N, H * D), generator=gen, device=device).to(torch.bfloat16)
+    g_heads = g.reshape(B, N, H, D).transpose(1, 2).contiguous()
+    g_cls = torch.rand(pairs, generator=gen, device=device)
+    g_aff = torch.rand(pairs, generator=gen, device=device)
+    de = torch.randn((B, N, N), generator=gen, device=device)
+    sign = pair_consistency_forward(qkv, scale, H)[3]
+    fwd_flops, bwd_flops = 4 * B * H * N * N * D, 10 * B * H * N * N * D
+    out["K2f"] = time_kernel(
+        f"{attn_pair.KERNEL} (K2f) at B={B} ({pairs} pairs)",
+        lambda: pair_consistency_forward(qkv, scale, H),
+        lambda: pair_consistency_forward_plain(qkv, scale, H), sdpa(q, k, v),
+        qkv.numel() * 2 + B * N * H * D * 2 + sign.numel() + 2 * pairs * 4, fwd_flops, 10,
+        card, "SDPA (output only)")
+    out["K2b"] = time_kernel(
+        f"{BWD_KERNEL} (K2b, sign tile) at B={B}",
+        lambda: pair_consistency_backward(qkv, g, sign, g_cls, g_aff, scale, H),
+        lambda: pair_consistency_backward_plain(qkv, g, sign, g_cls, g_aff, scale, H),
+        sdpa_fwd_bwd(q, k, v, g_heads),
+        2 * qkv.numel() * 2 + g.numel() * 2 + sign.numel() + 2 * pairs * 4, bwd_flops, 10,
+        card, "SDPA forward+backward (no de)")
+    out["K1b"] = time_kernel(
+        f"{BWD_KERNEL} (K1b, dense de) at B={B}",
+        lambda: attention_qkv_cols_backward(qkv, g, de, scale, H),
+        lambda: attention_qkv_cols_backward_plain(qkv, g, de, scale, H),
+        sdpa_fwd_bwd(q, k, v, g_heads),
+        2 * qkv.numel() * 2 + g.numel() * 2 + de.numel() * 4, bwd_flops, 10,
+        card, "SDPA forward+backward (no de)")
+    return out
 
 
 def main() -> int:
@@ -301,28 +725,39 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/5] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/7] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    reports = _build.build([KERNEL])
-    log(f"[2/5] build: {time.perf_counter() - t0:.1f} s with nvcc into "
-        f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/")
+    reports = _build.build(list(KERNELS))
+    log(f"[2/7] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+        f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/5] kernels against their plain versions on the card")
+    log("[3/7] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
-    log("[4/5] main path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images")
     with tempfile.TemporaryDirectory() as tmp:
+        log("[4/7] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images")
         t0 = time.perf_counter()
-        infer, paths, labels, launches = phase_main_path(device, tmp)
-        log(f"  main path phase: {time.perf_counter() - t0:.1f} s")
+        infer, paths, labels, infer_launches = phase_main_path(device, tmp)
+        log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[5/5] timing on {card}")
+        log("[5/7] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        t0 = time.perf_counter()
+        cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
+        del state
+        log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
+
+        log("[6/7] one train step, kernel path against plain path, same weights and batch")
+        t0 = time.perf_counter()
+        model, opt, batch, layer_launches = phase_step_compare(device, cfg)
+        log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
+
+        log(f"[7/7] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "
@@ -332,16 +767,33 @@ def main() -> int:
             f"{pass_ms:.2f} ms; host decode, resize and normalization: "
             f"{image_ms - pass_ms:.2f} ms [{card}]")
         device_breakdown(infer, paths[0], labels[0], image_ms, card)
+        del infer
+        time_train_step(model, opt, cfg, batch, card)
+        del model, opt
+    torch.cuda.empty_cache()
     timing = phase_kernel_timing(device, card)
 
-    kernels = [{
-        "name": KERNEL, "route": "cuda",
-        "source": "acr_wsss_tpu_torch/csrc/attn_fwd_headmean.cu",
-        "replaces": "acr_wsss_tpu/ops/attn_pallas.py:380",
-        "launches": launches[KERNEL],
-        "max_abs_err": errs[(2, N_TOKENS, "mean")],
-        **timing,
-    }]
+    src, tpu = "acr_wsss_tpu_torch/csrc/", "acr_wsss_tpu/ops/attn_pallas.py:"
+    n = N_TOKENS
+    b_train = 2 * TRAIN_BATCH
+    kernels = [
+        {"name": KERNEL, "route": "cuda", "source": src + "attn_fwd_headmean.cu",
+         "replaces": tpu + "380", "launches": infer_launches["K1f"],
+         "max_abs_err": errs[("K1", 2, n, "mean")], **timing["K1f"]},
+        {"name": KERNEL + " (export none)", "route": "cuda",
+         "source": src + "attn_fwd_headmean.cu", "replaces": tpu + "873",
+         "launches": train_launches["K1n"], "max_abs_err": errs[("K1", 4, n, "none")],
+         **timing["K1n_B4"]},
+        {"name": BWD_KERNEL + " (dense de)", "route": "cuda", "source": src + "attn_bwd.cu",
+         "replaces": tpu + "421", "launches": layer_launches["K1b"],
+         "max_abs_err": errs[("K1b", b_train, n, True)], **timing["K1b"]},
+        {"name": attn_pair.KERNEL, "route": "cuda", "source": src + "attn_pair_fwd.cu",
+         "replaces": tpu + "1028", "launches": train_launches["K2f"],
+         "max_abs_err": errs[("K2f", b_train, n)], **timing["K2f"]},
+        {"name": BWD_KERNEL + " (sign tile)", "route": "cuda", "source": src + "attn_bwd.cu",
+         "replaces": tpu + "1075", "launches": train_launches["K2b"],
+         "max_abs_err": errs[("K2b", b_train, n)], **timing["K2b"]},
+    ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

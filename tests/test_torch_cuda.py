@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: they need a CUDA card and ``nvcc`` and skip elsewhere.
-On the card's machine: ``python -m pytest tests/test_torch_cuda.py``.
+On the card's machine, which has no JAX (``tests/conftest.py`` imports
+it): ``python -m pytest --noconftest tests/test_torch_cuda.py``. Covers
+K1f/K1n, K1b, K2f and K2b, their launch counters and what they refuse.
 Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
@@ -52,4 +54,128 @@ def test_attn_fwd_headmean_raises_on_what_it_does_not_take(device):
         fused_attention_qkv_cols(qkv, D ** -0.5, 2 * H)
     with pytest.raises(ValueError, match="shared-memory"):
         fused_attention_qkv_cols(torch.zeros((1, 8192, 3 * H * D), device=device,
+                                             dtype=torch.bfloat16), D ** -0.5, H)
+
+
+# --- K1b, K2f, K2b --------------------------------------------------------
+# Sums of |delta|: float32, another summation order -> rtol 1e-5. Sign tile:
+# equal wherever |delta| of the plain version exceeds SIGN_EPS, above the
+# float32 error of two 12-term head means of probabilities <= 1. dqkv:
+# float32 arithmetic in another order, then one bf16 rounding on each side
+# -> one bf16 ulp (2^-7 relative), plus 1e-4 of the tensor's largest value
+# for entries that cancel to near zero (sums of up to N terms).
+SUM_RTOL, SIGN_EPS = 1e-5, 1e-5
+GRAD_RTOL, GRAD_ATOL_FRAC = 2.0 ** -7, 1e-4
+
+
+def _qkv(device, batch, n, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, n, 3 * H * D), generator=gen, device=device).bfloat16()
+
+
+def _assert_grad_close(got, ref):
+    torch.testing.assert_close(got.float(), ref.float(), rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL_FRAC * ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("batch,n", [(8, 577), (2, 37), (2, 1)])
+def test_attn_pair_fwd_matches_plain(device, batch, n):
+    from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_forward,
+                                                  pair_consistency_forward_plain)
+
+    qkv = _qkv(device, batch, n, seed=n + 1)
+    before = pair_consistency_forward.launches
+    out, cls_s, aff_s, sign = pair_consistency_forward(qkv, D ** -0.5, H)
+    ref_out, ref_cls, ref_aff, ref_sign = pair_consistency_forward_plain(qkv, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert pair_consistency_forward.launches == before + 1
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=OUT_RTOL, atol=OUT_ATOL)
+    torch.testing.assert_close(cls_s, ref_cls, rtol=SUM_RTOL, atol=1e-7)
+    torch.testing.assert_close(aff_s, ref_aff, rtol=SUM_RTOL, atol=1e-7)
+    _, probs = attention_qkv_cols_plain(qkv, D ** -0.5, H, "mean")
+    clear = (probs[0::2] - probs[1::2]).abs() > SIGN_EPS
+    assert torch.equal(sign[clear], ref_sign[clear])
+    assert sign.dtype == torch.int8 and not sign[:, :, 0].any()
+
+
+@pytest.mark.parametrize("batch,n", [(8, 577), (2, 37)])
+def test_attn_pair_bwd_matches_plain_with_the_kernels_sign(device, batch, n):
+    from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_backward,
+                                                  pair_consistency_backward_plain,
+                                                  pair_consistency_forward)
+
+    qkv = _qkv(device, batch, n, seed=n + 2)
+    gen = torch.Generator(device=device).manual_seed(n + 3)
+    g = torch.randn((batch, n, H * D), generator=gen, device=device).bfloat16()
+    g_cls = torch.rand(batch // 2, generator=gen, device=device) * 100
+    g_aff = torch.rand(batch // 2, generator=gen, device=device) * 100
+    _, _, _, sign = pair_consistency_forward(qkv, D ** -0.5, H)
+    before = pair_consistency_backward.launches
+    got = pair_consistency_backward(qkv, g, sign, g_cls, g_aff, D ** -0.5, H)
+    ref = pair_consistency_backward_plain(qkv, g, sign, g_cls, g_aff, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert pair_consistency_backward.launches == before + 1
+    _assert_grad_close(got, ref)
+
+
+@pytest.mark.parametrize("with_de", [True, False])
+@pytest.mark.parametrize("batch,n", [(8, 577), (2, 37), (1, 1)])
+def test_attn_bwd_dense_matches_plain(device, batch, n, with_de):
+    from acr_wsss_tpu_torch.ops.attn_cuda import (attention_qkv_cols_backward,
+                                                  attention_qkv_cols_backward_plain)
+
+    qkv = _qkv(device, batch, n, seed=n + 4)
+    gen = torch.Generator(device=device).manual_seed(n + 5)
+    g = torch.randn((batch, n, H * D), generator=gen, device=device).bfloat16()
+    de = torch.randn((batch, n, n), generator=gen, device=device) if with_de else None
+    before = attention_qkv_cols_backward.launches
+    got = attention_qkv_cols_backward(qkv, g, de, D ** -0.5, H)
+    ref = attention_qkv_cols_backward_plain(qkv, g, de, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert attention_qkv_cols_backward.launches == before + 1
+    _assert_grad_close(got, ref)
+
+
+def test_attn_fwd_headmean_takes_a_gradient(device):
+    from acr_wsss_tpu_torch.ops.attn_cuda import attention_qkv_cols_backward
+
+    qkv = _qkv(device, 2, 37, seed=6).requires_grad_(True)
+    before = attention_qkv_cols_backward.launches
+    out, probs = fused_attention_qkv_cols(qkv, D ** -0.5, H, "mean")
+    (out.float().sum() + probs.sum()).backward()
+    torch.cuda.synchronize()
+    assert qkv.grad is not None and torch.isfinite(qkv.grad.float()).all()
+    assert attention_qkv_cols_backward.launches == before + 1
+
+
+def test_backward_kernels_raise_on_what_they_do_not_take(device):
+    from acr_wsss_tpu_torch.ops.attn_cuda import attention_qkv_cols_backward
+    from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_backward,
+                                                  pair_consistency_forward)
+
+    qkv = torch.zeros((2, 5, 3 * H * D), device=device, dtype=torch.bfloat16)
+    g = torch.zeros((2, 5, H * D), device=device, dtype=torch.bfloat16)
+    sign = torch.zeros((1, 5, 5), device=device, dtype=torch.int8)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention_qkv_cols_backward(qkv.float(), g, None, D ** -0.5, H)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention_qkv_cols_backward(qkv, g.float(), None, D ** -0.5, H)
+    with pytest.raises(TypeError, match="float32"):
+        attention_qkv_cols_backward(qkv, g, torch.zeros((2, 5, 5), device=device,
+                                                        dtype=torch.bfloat16), D ** -0.5, H)
+    with pytest.raises(ValueError, match="head dim"):
+        attention_qkv_cols_backward(qkv, g, None, D ** -0.5, 2 * H)
+    with pytest.raises(ValueError, match="contiguous"):
+        pair_consistency_forward(torch.zeros((2, 5, 6 * H * D), device=device,
+                                             dtype=torch.bfloat16)[..., ::2], D ** -0.5, H)
+    with pytest.raises(ValueError, match="even batch"):
+        pair_consistency_forward(qkv[:1], D ** -0.5, H)
+    with pytest.raises(TypeError, match="bfloat16"):
+        pair_consistency_forward(qkv.float(), D ** -0.5, H)
+    with pytest.raises(ValueError, match="head dim"):
+        pair_consistency_forward(qkv, D ** -0.5, 2 * H)
+    with pytest.raises(TypeError, match="int8"):
+        pair_consistency_backward(qkv, g, sign.float(), None, None, D ** -0.5, H)
+    with pytest.raises(ValueError, match="shared-memory"):
+        pair_consistency_forward(torch.zeros((2, 8192, 3 * H * D), device=device,
                                              dtype=torch.bfloat16), D ** -0.5, H)

@@ -3,7 +3,9 @@
 The card's machine has no JAX, flax, optax or orbax. In a fresh interpreter
 whose import system refuses those packages and ``acr_wsss_tpu`` (the exact
 name and its submodules, not ``acr_wsss_tpu_torch``), every module of the
-port and ``chip_smoke`` must import.
+port and ``chip_smoke`` must import: the inference modules and the
+training ones (``train``, ``losses``, ``data/voc``, ``ops/attn_pair``,
+``utils/{schedule,meters}``).
 """
 
 import os
@@ -36,6 +38,7 @@ SCRIPT = textwrap.dedent("""
     loaded = [m for m in sys.modules
               if any(m == r or m.startswith(r + ".") for r in REFUSED)]
     assert not loaded, loaded
+    print(" ".join(names))
     print(len(names), "modules")
 """)
 
@@ -47,4 +50,7 @@ def test_port_and_chip_smoke_import_without_jax():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count = int(proc.stdout.split()[-2])
-    assert count >= 18, proc.stdout
+    assert count >= 26, proc.stdout
+    for name in ("train", "losses", "data.voc", "ops.attn_pair", "utils.schedule",
+                 "utils.meters"):
+        assert f"acr_wsss_tpu_torch.{name}" in proc.stdout, name

@@ -1,7 +1,8 @@
-"""The configuration that CAM inference and training read.
+"""The configuration that training, CAM inference and evaluation read.
 
 Own copy of the fields of ``acr_wsss_tpu/configs.py`` that the port uses,
-with the same defaults (``ModelConfig``, ``TrainConfig``, ``InferConfig``).
+with the same defaults (``ModelConfig``, ``TrainConfig``, ``InferConfig``,
+``EvalConfig``).
 The attention choice is named for the port: ``"kernel"`` (the hand-written
 CUDA kernels) or ``"plain"`` (PyTorch everywhere); the JAX package's
 ``"pallas"`` and ``"xla"``. Entry points run on ``device="cuda"``.
@@ -10,7 +11,7 @@ CUDA kernels) or ``"plain"`` (PyTorch everywhere); the JAX package's
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 VOC_CLASSES: Tuple[str, ...] = (
     "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
@@ -98,4 +99,25 @@ class InferConfig:
     cls_labels_path: str = "voc12/cls_labels.npy"
     class_slots: int = 4
     batch_images: int = 1
+    # PAMR refinement iterations (0 = off, the reference behavior). When on,
+    # each TTA view's CAM is refined at crop resolution by the crop's
+    # pixel-adaptive affinities (``ops/pamr.py``) before TTA summation.
+    pamr_iters: int = 0
+    pamr_dilations: Sequence[int] = (1, 2, 4, 8, 12, 24)
     device: str = "cuda"
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Pseudo-mask mIoU evaluation (reference ``evaluation.py:106-133``)."""
+
+    predict_dir: str = "output/cam_npy"
+    gt_dir: str = "VOC2012/SegmentationClass"
+    name_list: str = "voc12/train_id.txt"
+    logfile: str = "evallog.txt"
+    comment: str = ""
+    input_type: str = "npy"        # npy | png
+    threshold: Optional[float] = None
+    curve: bool = False
+    num_classes: int = 21
+    num_workers: int = 8

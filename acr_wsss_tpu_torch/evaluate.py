@@ -103,10 +103,19 @@ def do_python_eval_curve(
 def do_python_eval(predict_folder: str, gt_folder: str,
                    name_list: Sequence[str], num_cls: int = 21,
                    input_type: str = "png", threshold: float = 1.0,
-                   num_workers: int = 8) -> Dict[str, float]:
-    """Single-threshold evaluation."""
-    return do_python_eval_curve(predict_folder, gt_folder, name_list, num_cls,
-                                input_type, [threshold], num_workers)[0]
+                   num_workers: int = 8, printlog: bool = False) -> Dict[str, float]:
+    """Single-threshold evaluation; ``printlog`` prints the per-class IoU
+    table (reference ``evaluation.py:78-93``)."""
+    loglist = do_python_eval_curve(predict_folder, gt_folder, name_list, num_cls,
+                                   input_type, [threshold], num_workers)[0]
+    if printlog:
+        cats = VOC_CATEGORIES if num_cls == 21 else [str(i) for i in range(num_cls)]
+        for i in range(num_cls):
+            end = "\t" if i % 2 != 1 else "\n"
+            print("%11s:%7.3f%%" % (cats[i], loglist[cats[i]]), end=end)
+        print("\n======================================================")
+        print("%11s:%7.3f%%" % ("mIoU", loglist["mIoU"]))
+    return loglist
 
 
 def writelog(filepath: str, metric: Dict, comment: str) -> None:
@@ -116,6 +125,12 @@ def writelog(filepath: str, metric: Dict, comment: str) -> None:
         logfile.write("\t%s\n" % comment)
         logfile.write("".join("%s:%s  " % kv for kv in metric.items()) + "\n")
         logfile.write("=====================================\n")
+
+
+def read_name_list(path: str) -> List[str]:
+    """The non-empty, stripped lines of a name list."""
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
 
 
 def main(argv=None) -> None:
@@ -132,8 +147,7 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if args.type == "npy" and args.t is None and not args.curve:
         parser.error("--type npy needs --t or --curve True")
-    with open(args.list) as f:
-        names = [line.strip() for line in f if line.strip()]
+    names = read_name_list(args.list)
     if not args.curve:
         loglist = do_python_eval(args.predict_dir, args.gt_dir, names, 21,
                                  args.type, args.t, args.num_workers)

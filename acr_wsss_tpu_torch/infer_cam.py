@@ -2,17 +2,18 @@
 
 Counterpart of ``acr_wsss_tpu/infer_cam.py`` (``build_infer_fn``
 ``:43-110``, ``process_image`` / ``process_images_batched`` ``:113-310``).
-Both TTA views (identity, hflip) run as one batch; one forward serves GETAM
-and the per-patch CAM head; the present classes are backpropagated in
-slots; the per-image native-size resize and min-max normalization run on
-the host.
+Both TTA views (identity, hflip) run as one batch, uploaded once; one
+forward serves GETAM and the per-patch CAM head; the present classes are
+backpropagated in slots; with ``--pamr N`` each view's CAM is refined on
+the device at crop resolution (``ops/pamr.py``); the per-image native-size
+resize and min-max normalization run on the host.
 
     python -m acr_wsss_tpu_torch.infer_cam --weights W.npz \
         --LISTpath L.txt --IMpath JPEGs --cls_labels labels.npy \
-        --out_cam out/cam_npy
+        --out_cam out/cam_npy [--pamr 10]
 
-CRF, PAMR, heatmaps, the data-parallel mesh and the scanned trunk of the
-JAX CLI are not part of this module yet.
+CRF, heatmaps, the data-parallel mesh and the scanned trunk of the JAX CLI
+are not part of this module yet.
 """
 
 from __future__ import annotations
@@ -30,13 +31,15 @@ from acr_wsss_tpu_torch.getam import getam_cams, make_forward_for_getam, tap_con
 from acr_wsss_tpu_torch.models.acr import ACR
 from acr_wsss_tpu_torch.models.convert import flax_to_state_dict
 from acr_wsss_tpu_torch.ops import imops
+from acr_wsss_tpu_torch.ops.pamr import make_pamr_fn
 from acr_wsss_tpu_torch.utils.checkpoint import load_params_npz
 
 
 def build_infer_fn(model: ACR, crop_size: int, start_layer: int, getam_func: str,
                    use_aff: bool, num_classes: int, class_slots: int = 0):
-    """(B, crop, crop, 3) views[, class ids] -> dict of tensors: cams
-    (K, B, grid*grid), patch_cam (B, grid*grid, C) and logits (B, C)."""
+    """(B, crop, crop, 3) views, a host array or a tensor[, class ids] ->
+    dict of tensors on the model's device (``infer.device``): cams (K, B,
+    grid*grid), patch_cam (B, grid*grid, C) and logits (B, C)."""
     spec = model.spec
     n_tokens = (crop_size // 16) ** 2 + spec.num_prefix_tokens
     off_start, export = tap_config(model, start_layer, getam_func)
@@ -44,7 +47,7 @@ def build_infer_fn(model: ACR, crop_size: int, start_layer: int, getam_func: str
     device = next(model.parameters()).device
 
     def infer(x, class_ids=None):
-        x = torch.as_tensor(np.asarray(x, np.float32)).to(device)
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
         if class_ids is None:
             class_ids = range(class_slots or num_classes)
         forward = make_forward_for_getam(model, x, export=export, with_patch_cam=True)
@@ -57,34 +60,39 @@ def build_infer_fn(model: ACR, crop_size: int, start_layer: int, getam_func: str
         return {"cams": cams, "patch_cam": patch_cam, "logits": logits}
 
     infer.class_slots = class_slots
+    infer.device = device
     return infer
 
 
-def _run_views(fn, batch: np.ndarray, present: Sequence[int], num_classes: int,
-               grid: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(cams (C, V, grid*grid), patch_cam (V, grid*grid, C)) for the views,
-    sweeping only ``present`` in slots of ``fn.class_slots`` when set."""
+def _run_views(fn, batch: torch.Tensor, present: Sequence[int], num_classes: int,
+               grid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cams (C, V, grid*grid), patch_cam (V, grid*grid, C)) on the device
+    for the views, sweeping only ``present`` in slots of ``fn.class_slots``
+    when set; the rows of the other classes are zero."""
     slots = fn.class_slots
     if not slots:
         out = fn(batch)
-        return out["cams"].cpu().numpy(), out["patch_cam"].cpu().numpy()
-    cams = np.zeros((num_classes, len(batch), grid * grid), np.float32)
+        return out["cams"], out["patch_cam"]
+    cams = torch.zeros((num_classes, len(batch), grid * grid), dtype=torch.float32,
+                       device=batch.device)
     for pos in range(0, len(present), slots):
         chunk = list(present[pos:pos + slots])
         ids = chunk + [chunk[-1]] * (slots - len(chunk))
         out = fn(batch, ids)
-        got = out["cams"].cpu().numpy()
-        for row, cls in enumerate(chunk):
-            cams[cls] = got[row]
-    return cams, out["patch_cam"].cpu().numpy()
+        cams[chunk] = out["cams"][:len(chunk)].float()
+    return cams, out["patch_cam"]
 
 
 def process_images_batched(infer_fn, img_paths: Sequence[str],
                            labels_list: Sequence[np.ndarray], crop_size: int,
                            flip_tta: bool = True, scales: Sequence[float] = (1.0,),
-                           infer_fns_by_scale: Optional[Dict[float, object]] = None):
+                           infer_fns_by_scale: Optional[Dict[float, object]] = None,
+                           pamr_fn=None):
     """V images per pass; returns [(cam_dict, patch_cam_dict, rgb)] per image.
-    Class slots sweep the union of the group's present classes."""
+    Class slots sweep the union of the group's present classes.
+    ``pamr_fn`` (``ops.pamr.make_pamr_fn``) refines every view's CAM rows
+    at crop resolution, guided by the normalized views already on the
+    device, before the flip and the TTA sum."""
     V = len(img_paths)
     rgbs = [transforms.load_image_rgb(p) for p in img_paths]
     num_classes = labels_list[0].shape[0]
@@ -102,9 +110,15 @@ def process_images_batched(infer_fn, img_paths: Sequence[str],
         xs = [transforms.val_transform(rgb, size) for rgb in rgbs]
         views = xs + ([x[:, ::-1] for x in xs] if flip_tta else [])
         grid = size // 16
-        cams, patch = _run_views(fn, np.stack(views), union_present, num_classes, grid)
+        batch = torch.as_tensor(np.stack(views), device=fn.device)
+        cams, patch = _run_views(fn, batch, union_present, num_classes, grid)
         cams = cams.reshape(num_classes, len(views), grid, grid)
-        patch = patch.transpose(0, 2, 1).reshape(len(views), num_classes, grid, grid)
+        if pamr_fn is not None:
+            refined = pamr_fn(batch.permute(0, 3, 1, 2), cams.transpose(0, 1))
+            cams = refined.transpose(0, 1)
+        cams = cams.cpu().numpy()
+        patch = patch.cpu().numpy().transpose(0, 2, 1).reshape(
+            len(views), num_classes, grid, grid)
         for v in range(V):
             cam_v, patch_v = cams[:, v], patch[v]
             if flip_tta:
@@ -134,10 +148,11 @@ def process_images_batched(infer_fn, img_paths: Sequence[str],
 
 def process_image(infer_fn, img_path: str, label: np.ndarray, crop_size: int,
                   flip_tta: bool = True, scales: Sequence[float] = (1.0,),
-                  infer_fns_by_scale: Optional[Dict[float, object]] = None):
+                  infer_fns_by_scale: Optional[Dict[float, object]] = None,
+                  pamr_fn=None):
     """(getam cam_dict, patch cam_dict, RGB image) of one image."""
     return process_images_batched(infer_fn, [img_path], [label], crop_size,
-                                  flip_tta, scales, infer_fns_by_scale)[0]
+                                  flip_tta, scales, infer_fns_by_scale, pamr_fn)[0]
 
 
 def load_model(cfg: InferConfig) -> ACR:
@@ -158,6 +173,9 @@ def run(cfg: InferConfig) -> None:
                               class_slots=cfg.class_slots)
         for scale in cfg.scales
     }
+    # One function serves every scale: the kernels take any (H, W).
+    pamr_fn = (make_pamr_fn(cfg.pamr_iters, cfg.pamr_dilations) if cfg.pamr_iters
+               else None)
     with open(cfg.infer_list) as f:
         lines = [line for line in f if line.strip()]
     # Bare-id lists, or VOC path-pair lines whose id is chars 12:23.
@@ -174,7 +192,7 @@ def run(cfg: InferConfig) -> None:
             infer_fns[cfg.scales[0]],
             [os.path.join(cfg.image_dir, f"{n}.jpg") for n in group],
             [labels[n] for n in group], cfg.crop_size, cfg.flip_tta,
-            scales=cfg.scales, infer_fns_by_scale=infer_fns)
+            scales=cfg.scales, infer_fns_by_scale=infer_fns, pamr_fn=pamr_fn)
         for name, (cam_dict, _, _) in zip(group, results):
             if cfg.out_cam:
                 np.save(os.path.join(cfg.out_cam, f"{name}.npy"), cam_dict)
@@ -200,6 +218,12 @@ def parse_args(argv=None) -> InferConfig:
                         help="present-class backprop slots per pass (0 = all classes)")
     parser.add_argument("--batch_images", default=4, type=int,
                         help="images per pass")
+    parser.add_argument("--pamr", default=0, type=int, metavar="ITERS",
+                        help="PAMR refinement iterations (0 = off, the "
+                             "reference behavior; it imports PAMR but "
+                             "never calls it). 10 is the usual setting.")
+    parser.add_argument("--pamr_dilations", default="1,2,4,8,12,24",
+                        help="comma-separated PAMR dilation list")
     parser.add_argument("--scales", default="1.0",
                         help="comma-separated multi-scale TTA factors; each "
                              "crop_size*scale must be a multiple of 16")
@@ -216,7 +240,9 @@ def parse_args(argv=None) -> InferConfig:
         use_aff=args.aff, scales=scales, out_cam=args.out_cam,
         image_dir=args.IMpath, infer_list=args.LISTpath,
         cls_labels_path=args.cls_labels, class_slots=args.class_slots,
-        batch_images=args.batch_images, device=args.device)
+        batch_images=args.batch_images, pamr_iters=args.pamr,
+        pamr_dilations=tuple(int(d) for d in args.pamr_dilations.split(",") if d.strip()),
+        device=args.device)
 
 
 def main(argv=None) -> None:

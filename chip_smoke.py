@@ -12,15 +12,20 @@ package. Phases, each of which fails the run when it fails:
    once, with the ``-Xptxas -v`` lines printed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at a ragged one: K1f/K1n (export "mean" and
-   "none"), K2f, K2b (fed K2f's own sign tile) and K1b (with and without
-   a dense de);
+   "none"), K2f, K2b (fed K2f's own sign tile), K1b (with and without
+   a dense de), K3 and K4 chained over 10 iterations (at B=2 and B=8 views
+   of 384x384 with the default dilations, and 17x13 with a dilation beyond
+   the image);
 4. inference path: GETAM CAM inference as a user runs it (vitb_hybrid,
    crop 384, ``grad`` from layer 10, affinity refinement, flip TTA, 4
    class slots) on two seeded VOC-sized images, with the weights of
    bench_artifacts/stability_r3/stability_r3_last.npz when present, else
    seeded random ones; launches counted; CAM dicts written to a temporary
    directory and scored by the port's ``evaluate``; CAMs checked against
-   the same run with plain attention;
+   the same run with plain attention; then the same with ``--pamr 10``
+   (K3 once and K4 10 times per image), PAMR alone checked against its
+   plain version on the same CAMs, and the whole path against plain
+   attention with plain PAMR;
 5. training path: ``train.train`` as a user runs it (vitb_hybrid, crop
    384, batch 4, the recipe: lr 0.05, alpha 125, fused consistency) from
    seeded random weights on a seeded synthetic VOC fixture of 375x500
@@ -30,9 +35,14 @@ package. Phases, each of which fails the run when it fails:
    weights and batch, for the fused branch and the per-layer branch (which
    launches K1f and K1b): step-0 loss parts and parameters after the
    update;
-7. timing: per-image latency, train step time and images/s, device time
-   breakdowns, each kernel's time beside its plain version, a library
-   call and its bound.
+7. pipeline: ``pipeline.main`` as a user runs it, train -> infer with
+   ``--pamr 10`` -> 100-threshold eval (vitb_hybrid, crop 384, the
+   recipe) on the training fixture with seeded label PNGs; launches
+   counted; the npz, one CAM dict per name and the evallog checked;
+8. timing: per-image latency with and without PAMR, the PAMR step's device
+   time, train step time and images/s, device time breakdowns, each
+   kernel's time beside its plain version, a library call where one
+   computes the same function, and its bound.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object with one entry per kernel; the last line is
@@ -42,6 +52,7 @@ object with one entry per kernel; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -61,6 +72,7 @@ from PIL import Image  # noqa: E402
 
 from acr_wsss_tpu_torch import evaluate  # noqa: E402
 from acr_wsss_tpu_torch import infer_cam  # noqa: E402
+from acr_wsss_tpu_torch import pipeline  # noqa: E402
 from acr_wsss_tpu_torch import train as train_mod  # noqa: E402
 from acr_wsss_tpu_torch.configs import InferConfig, ModelConfig, TrainConfig  # noqa: E402
 from acr_wsss_tpu_torch.data import voc as voc_data  # noqa: E402
@@ -68,6 +80,7 @@ from acr_wsss_tpu_torch.infer_cam import build_infer_fn, process_image  # noqa: 
 from acr_wsss_tpu_torch.models.acr import ACR, init_random_  # noqa: E402
 from acr_wsss_tpu_torch.models.convert import flax_to_state_dict  # noqa: E402
 from acr_wsss_tpu_torch.ops import _build, attn_pair  # noqa: E402
+from acr_wsss_tpu_torch.ops import pamr as pamr_ops  # noqa: E402
 from acr_wsss_tpu_torch.ops.attn_cuda import (BWD_KERNEL, KERNEL,  # noqa: E402
                                               attention_qkv_cols_backward,
                                               attention_qkv_cols_backward_plain,
@@ -78,14 +91,18 @@ from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_backward,  # noqa
                                               pair_consistency_backward_plain,
                                               pair_consistency_forward,
                                               pair_consistency_forward_plain)
+from acr_wsss_tpu_torch.ops.pamr import (make_pamr_fn, pamr_affinity,  # noqa: E402
+                                         pamr_affinity_plain, pamr_plain, pamr_update,
+                                         pamr_update_plain)
 from acr_wsss_tpu_torch.utils.checkpoint import load_params_npz  # noqa: E402
 
 WEIGHTS = os.path.join(ROOT, "bench_artifacts", "stability_r3", "stability_r3_last.npz")
-CROP, START_LAYER, CLASS_SLOTS, HEADS, HEAD_DIM = 384, 10, 4, 12, 64
+CROP, START_LAYER, CLASS_SLOTS, HEADS, HEAD_DIM, DEPTH = 384, 10, 4, 12, 64, 12
 N_TOKENS = (CROP // 16) ** 2 + 1
 IMAGE_SIZES = ((375, 500), (333, 500))
-# Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
-PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W): bf16
+# on the tensor cores, fp32 on the CUDA cores, device memory.
+PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # Kernel against its plain version, both bf16 in / bf16 out on the card.
 # probs: float32 on both sides, logits summed in another order -> ~1e-7
 # relative on p <= 1. out: p is rounded to bf16 before p @ v on both sides,
@@ -122,7 +139,20 @@ TRAIN_SIZES = ((375, 500), (500, 375), (333, 500), (375, 500))
 # an element-wise bound on parameters would be set by the largest
 # updates, not by the error.
 LOSS_RTOL, UPDATE_REL = 2e-2, 5e-2
-KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL)
+# PAMR as ``--pamr 10`` runs it: 10 iterations over the default dilations
+# (P = 48 neighbours), 20 class rows, guidance 3 x 384 x 384 per view.
+# K3 and K4 against their plain versions, float32 on both sides: the taps
+# and the neighbours are summed in the same order, so only the softmax's
+# sum and the scalar divisions may round otherwise -> the JAX package's
+# own tolerance between its Pallas kernels and its XLA formulation
+# (tests/test_pamr.py), also after 10 chained K4 steps (each step is a
+# convex combination, which does not grow an error).
+PAMR_ITERS, PAMR_DILATIONS, NUM_CLASSES = 10, (1, 2, 4, 8, 12, 24), 20
+PAMR_RTOL, PAMR_ATOL = 2e-5, 2e-6
+# Pipeline phase: 8 of the training fixture's images (2 updates, 3 train
+# steps) and its 4 validation images as the inference and eval list.
+PIPE_TRAIN_IMAGES = 8
+KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL, pamr_ops.KERNEL)
 
 
 def log(msg: str) -> None:
@@ -212,16 +242,40 @@ def check_k2_k1b(device, errs) -> None:
             errs[("K1b", B, N, with_de)] = check_grad("dqkv", got, ref)
 
 
+def check_pamr(device, errs) -> None:
+    """K3, and K4 chained over PAMR_ITERS launches on the same affinity,
+    against their plain versions: B=2 and B=8 views of 384x384 with the
+    default dilations, and a ragged 17x13 image with dilation 24."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    for B, H, W, dils in ((2, CROP, CROP, PAMR_DILATIONS), (8, CROP, CROP, PAMR_DILATIONS),
+                          (1, 17, 13, (1, 24))):
+        x = torch.randn((B, 3, H, W), generator=gen, device=device)
+        m = torch.rand((B, NUM_CLASSES, H, W), generator=gen, device=device)
+        log(f"  K3 B={B} {H}x{W} dilations {dils}")
+        aff = pamr_affinity(x, dils)
+        ref = pamr_affinity_plain(x, dils)
+        torch.cuda.synchronize()
+        errs[("K3", B, H, W)] = check_close("aff", aff, ref, PAMR_RTOL, PAMR_ATOL)
+        log(f"  K4 B={B} C={NUM_CLASSES} {H}x{W}, {PAMR_ITERS} chained launches")
+        got = pamr_update(m, aff, dils, PAMR_ITERS)
+        ref = m
+        for _ in range(PAMR_ITERS):
+            ref = pamr_update_plain(ref, aff, dils)
+        torch.cuda.synchronize()
+        errs[("K4", B, H, W)] = check_close("mask", got, ref, PAMR_RTOL, PAMR_ATOL)
+
+
 def phase_kernels(device) -> dict:
     """Kernel against plain version; returns max abs errs by case."""
     errs: dict = {}
     check_k1(device, errs)
     check_k2_k1b(device, errs)
+    check_pamr(device, errs)
     return errs
 
 
 def zero_counts() -> dict:
-    return {"K1f": 0, "K1n": 0, "K1b": 0, "K2f": 0, "K2b": 0}
+    return {"K1f": 0, "K1n": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K3": 0, "K4": 0}
 
 
 def reset_counts() -> None:
@@ -231,6 +285,8 @@ def reset_counts() -> None:
     attention_qkv_cols_backward.launches = 0
     pair_consistency_forward.launches = 0
     pair_consistency_backward.launches = 0
+    pamr_affinity.launches = 0
+    pamr_update.launches = 0
 
 
 def read_counts() -> dict:
@@ -238,7 +294,8 @@ def read_counts() -> dict:
     return {"K1f": fused_attention_qkv_cols.launches - noexport, "K1n": noexport,
             "K1b": attention_qkv_cols_backward.launches,
             "K2f": pair_consistency_forward.launches,
-            "K2b": pair_consistency_backward.launches}
+            "K2b": pair_consistency_backward.launches,
+            "K3": pamr_affinity.launches, "K4": pamr_update.launches}
 
 
 def make_images(tmp: str, seed: int):
@@ -277,10 +334,36 @@ def load_model(device, attn_impl, state=None) -> ACR:
     return model.to(device)
 
 
+def check_cams(names, labels, cams, sizes) -> None:
+    """One CAM per present class, finite, in [0, 1], at native size."""
+    for name, lab, cam, (h, w) in zip(names, labels, cams, sizes):
+        present = sorted(np.flatnonzero(lab).tolist())
+        if sorted(cam) != present:
+            raise AssertionError(f"{name}: CAM classes {sorted(cam)} != labels {present}")
+        for c, m in cam.items():
+            if m.shape != (h, w) or not np.isfinite(m).all() or m.min() < 0 or m.max() > 1:
+                raise AssertionError(f"{name} class {c}: shape {m.shape}, range "
+                                     f"[{m.min()}, {m.max()}]")
+
+
+def compare_cams(what, cams, refs) -> None:
+    diffs = [np.abs(cam[c] - ref[c]) for cam, ref in zip(cams, refs) for c in cam]
+    max_abs = max(d.max() for d in diffs)
+    mean_abs = float(np.mean([d.mean() for d in diffs]))
+    log(f"  {what}: max abs {max_abs:.4g} (tolerance {CAM_MAX_ABS}), mean abs "
+        f"{mean_abs:.4g} (tolerance {CAM_MEAN_ABS})")
+    if max_abs > CAM_MAX_ABS or mean_abs > CAM_MEAN_ABS:
+        raise AssertionError(f"{what}: the kernel and plain paths disagree")
+
+
 def phase_main_path(device, tmp):
+    """The inference path without and with ``--pamr 10``. Returns (infer
+    fn, image paths, labels, launches, launches with PAMR, PAMR fn, PAMR's
+    first input (guidance, CAMs))."""
     model = load_model(device, "kernel")
     names, paths, labels = make_images(tmp, seed=0)
-    infer = build_infer_fn(model, CROP, START_LAYER, "grad", True, 20, class_slots=CLASS_SLOTS)
+    infer = build_infer_fn(model, CROP, START_LAYER, "grad", True, NUM_CLASSES,
+                           class_slots=CLASS_SLOTS)
     passes = sum(math.ceil(int((lab > 0).sum()) / CLASS_SLOTS) for lab in labels)
 
     reset_counts()
@@ -291,15 +374,8 @@ def phase_main_path(device, tmp):
         f"({launches['K1f'] / passes:g} K1f per pass, blocks 0-{START_LAYER - 1})")
     if launches != {**zero_counts(), "K1f": START_LAYER * passes}:
         raise AssertionError(f"expected {START_LAYER} K1f launches per pass and no other")
-
-    for name, lab, cam, (h, w) in zip(names, labels, cams, IMAGE_SIZES):
-        present = sorted(np.flatnonzero(lab).tolist())
-        if sorted(cam) != present:
-            raise AssertionError(f"{name}: CAM classes {sorted(cam)} != labels {present}")
-        for c, m in cam.items():
-            if m.shape != (h, w) or not np.isfinite(m).all() or m.min() < 0 or m.max() > 1:
-                raise AssertionError(f"{name} class {c}: shape {m.shape}, range "
-                                     f"[{m.min()}, {m.max()}]")
+    check_cams(names, labels, cams, IMAGE_SIZES)
+    for name, cam in zip(names, cams):
         np.save(os.path.join(tmp, f"{name}.npy"), cam)
     log(f"  CAMs: {sum(len(c) for c in cams)} maps, finite, in [0, 1], native size")
     curve = evaluate.do_python_eval_curve(tmp, os.path.join(tmp, "gt"), names, num_workers=1)
@@ -307,21 +383,49 @@ def phase_main_path(device, tmp):
     log(f"  evaluate: mIoU curve of {len(curve)} thresholds on seeded labels, "
         f"best {curve[best]['mIoU']:.3f}% at {best / 100:.2f}")
 
+    pamr_fn = make_pamr_fn(PAMR_ITERS, PAMR_DILATIONS)
+    inputs = []
+
+    def keep_inputs(x, mask):
+        inputs.append((x.clone(), mask.clone()))
+        return pamr_fn(x, mask)
+
+    reset_counts()
+    cams_pamr = [process_image(infer, p, lab, CROP, pamr_fn=keep_inputs)[0]
+                 for p, lab in zip(paths, labels)]
+    torch.cuda.synchronize()
+    pamr_launches = read_counts()
+    log(f"  with --pamr {PAMR_ITERS} (dilations {PAMR_DILATIONS}): launches {pamr_launches} "
+        f"over {len(paths)} images, one scale")
+    if pamr_launches != {**zero_counts(), "K1f": START_LAYER * passes, "K3": len(paths),
+                         "K4": PAMR_ITERS * len(paths)}:
+        raise AssertionError(f"expected {START_LAYER} K1f per pass, 1 K3 and {PAMR_ITERS} "
+                             f"K4 per image, and no other")
+    check_cams(names, labels, cams_pamr, IMAGE_SIZES)
+    log(f"  CAMs with PAMR: {sum(len(c) for c in cams_pamr)} maps, finite, in [0, 1], "
+        f"native size")
+    # PAMR alone, kernels against plain on the same CAMs; the CAMs are not
+    # in [0, 1], so the absolute part of the tolerance scales with them.
+    for x, mask in inputs:
+        ref = pamr_plain(x, mask, PAMR_ITERS, PAMR_DILATIONS)
+        got = pamr_fn(x, mask)
+        torch.cuda.synchronize()
+        log(f"  PAMR alone on the inference path's CAMs {tuple(mask.shape)} -> "
+            f"{tuple(ref.shape)}, |CAM| <= {ref.abs().max().item():.4g}")
+        check_close("refined CAMs", got, ref, PAMR_RTOL, PAMR_ATOL * ref.abs().max().item())
+
     plain = load_model(device, "plain", state=model.state_dict())
-    plain_infer = build_infer_fn(plain, CROP, START_LAYER, "grad", True, 20,
+    plain_infer = build_infer_fn(plain, CROP, START_LAYER, "grad", True, NUM_CLASSES,
                                  class_slots=CLASS_SLOTS)
-    diffs = []
-    for p, lab, cam in zip(paths, labels, cams):
-        ref = process_image(plain_infer, p, lab, CROP)[0]
-        diffs += [np.abs(cam[c] - ref[c]) for c in cam]
-    max_abs = max(d.max() for d in diffs)
-    mean_abs = float(np.mean([d.mean() for d in diffs]))
-    log(f"  kernel path vs plain path CAMs: max abs {max_abs:.4g} (tolerance "
-        f"{CAM_MAX_ABS}), mean abs {mean_abs:.4g} (tolerance {CAM_MEAN_ABS})")
-    if max_abs > CAM_MAX_ABS or mean_abs > CAM_MEAN_ABS:
-        raise AssertionError("kernel and plain paths disagree")
+    plain_pamr = functools.partial(pamr_plain, num_iter=PAMR_ITERS, dilations=PAMR_DILATIONS)
+    refs = [process_image(plain_infer, p, lab, CROP)[0] for p, lab in zip(paths, labels)]
+    refs_pamr = [process_image(plain_infer, p, lab, CROP, pamr_fn=plain_pamr)[0]
+                 for p, lab in zip(paths, labels)]
+    compare_cams("kernel path vs plain path CAMs", cams, refs)
+    compare_cams(f"with --pamr {PAMR_ITERS}, kernel path vs plain attention and plain PAMR",
+                 cams_pamr, refs_pamr)
     del plain, plain_infer
-    return infer, paths, labels, launches
+    return infer, paths, labels, launches, pamr_launches, pamr_fn, inputs[0]
 
 
 def make_train_fixture(root: str, seed: int) -> TrainConfig:
@@ -516,6 +620,68 @@ def phase_step_compare(device, cfg):
     return fused[0], fused[1], batch, launches
 
 
+def phase_pipeline(cfg: TrainConfig, root: str) -> dict:
+    """``pipeline.main`` on the training fixture of ``cfg``: train on its
+    first PIPE_TRAIN_IMAGES images, infer with ``--pamr 10`` and evaluate
+    on its validation images, whose seeded label PNGs are written here.
+    Returns the launches."""
+    names = voc_data.read_file(cfg.train_list)[:PIPE_TRAIN_IMAGES]
+    train_list = os.path.join(root, "pipe_train.txt")
+    with open(train_list, "w") as f:
+        f.write("\n".join(names) + "\n")
+    val_names = voc_data.read_file(cfg.val_list)
+    labels = voc_data.load_cls_labels(cfg.cls_labels_path)
+    gt_dir = os.path.join(root, "gt")
+    os.makedirs(gt_dir)
+    rng = np.random.default_rng(1)
+    sizes = []
+    for name in val_names:
+        h, w = Image.open(os.path.join(cfg.image_dir, f"{name}.jpg")).size[::-1]
+        sizes.append((h, w))
+        gt = rng.choice(np.concatenate([[0], np.flatnonzero(labels[name]) + 1]),
+                        size=(h // 25, w // 25))
+        Image.fromarray(gt.astype(np.uint8)).resize((w, h), Image.NEAREST).save(
+            os.path.join(gt_dir, f"{name}.png"))
+    out_cam, logfile = os.path.join(root, "pipe_cams"), os.path.join(root, "evallog.txt")
+    argv = ["--session_name", "smoke_pipe", "--IMpath", cfg.image_dir, "--gt_dir", gt_dir,
+            "--cls_labels", cfg.cls_labels_path, "--train_list", train_list,
+            "--val_list", cfg.val_list, "--infer_list", cfg.val_list, "--max_epoches", "1",
+            "--pamr", str(PAMR_ITERS), "--weight_dir", os.path.join(root, "pipe_weight"),
+            "--out_cam", out_cam, "--logfile", logfile]
+    log("  python -m acr_wsss_tpu_torch.pipeline " + " ".join(argv))
+    reset_counts()
+    pipeline.main(argv)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    steps = len(names) // cfg.batch_size + 1
+    union = sorted(set().union(*(np.flatnonzero(labels[n]).tolist() for n in val_names)))
+    passes = math.ceil(len(union) / CLASS_SLOTS)
+    expected = {**zero_counts(), "K2f": DEPTH * steps, "K2b": DEPTH * steps,
+                "K1f": START_LAYER * passes, "K3": 1, "K4": PAMR_ITERS}
+    log(f"  launches: {launches} (expected {expected}: {steps} train steps, no validation "
+        f"at the default val_every; {len(val_names)} images in one inference pass of "
+        f"{2 * len(val_names)} views, {passes} class-slot passes)")
+    if launches != expected:
+        raise AssertionError("the pipeline did not launch the kernels as expected")
+
+    npz = os.path.join(root, "pipe_weight", "smoke_pipe_last.npz")
+    flat = load_params_npz(npz)
+    if not all(np.isfinite(v).all() for v in flat.values()):
+        raise AssertionError(f"{npz}: non-finite weights")
+    check_cams(val_names, [labels[n] for n in val_names],
+               [np.load(os.path.join(out_cam, f"{n}.npy"), allow_pickle=True).item()
+                for n in val_names], sizes)
+    with open(logfile) as f:
+        text = f.read()
+    record = text.split("mIoU:[")[1].split("]")[0].split(",") if "mIoU:[" in text else []
+    if "smoke_pipe" not in text or len(record) != 100:
+        raise AssertionError(f"{logfile}: no 100-threshold mIoU record of the session")
+    log(f"  {os.path.basename(npz)}: {len(flat)} finite arrays; {len(val_names)} CAM dicts, "
+        f"finite, in [0, 1], native size; evallog: 100-threshold mIoU record, best "
+        f"{max(float(v) for v in record):.3f}%")
+    return launches
+
+
 def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
     """Host-clock step time (synchronized) of the fused kernel step: median
     of ``reps`` after a warm-up; then a profiler window of 2 steps."""
@@ -559,13 +725,13 @@ def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
             "busy_ms": busy_ms}
 
 
-def time_image(infer, path, label, reps=5) -> float:
-    process_image(infer, path, label, CROP)          # warm-up
+def time_image(infer, path, label, pamr_fn=None, reps=5) -> float:
+    process_image(infer, path, label, CROP, pamr_fn=pamr_fn)          # warm-up
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        process_image(infer, path, label, CROP)
+        process_image(infer, path, label, CROP, pamr_fn=pamr_fn)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
@@ -590,12 +756,12 @@ def time_getam_pass(infer, path, label, reps=5) -> float:
     return float(np.median(times[1:]))
 
 
-def device_breakdown(infer, path, label, image_ms, card, top=12) -> None:
+def device_breakdown(infer, path, label, image_ms, card, pamr_fn=None, top=12) -> None:
     """Device time of one image by kernel name (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        process_image(infer, path, label, CROP)
+        process_image(infer, path, label, CROP, pamr_fn=pamr_fn)
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
             and e.self_device_time_total > 0]
@@ -623,22 +789,24 @@ def time_call(fn, reps=50) -> float:
 
 
 def time_kernel(label, kernel, plain, library, nbytes, flops, reps, card,
-                library_name) -> dict:
+                library_name, peak_flops=PEAK_BF16_FLOPS) -> dict:
     """plain, kernel, kernel, plain in turns on one card (CUDA events over
-    ``reps`` launches each), then the library call; the bound from the
-    bytes moved once and the operations at the bf16 peak."""
+    ``reps`` launches each), then the library call where there is one; the
+    bound from the bytes moved once and the operations at ``peak_flops``."""
     plain_ms = [time_call(plain, reps)]
     kernel_ms = [time_call(kernel, reps), time_call(kernel, reps)]
     plain_ms.append(time_call(plain, reps))
-    library_ms = time_call(library, reps)
-    bytes_ms, flops_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    library_ms = None if library is None else time_call(library, reps)
+    bytes_ms, flops_ms = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     res = {"ms": float(np.mean(kernel_ms)), "plain_ms": float(np.mean(plain_ms)),
            "library_ms": library_ms, "bound_ms": max(bytes_ms, flops_ms),
            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+    library_text = (f"{library_name} {library_ms*1e3:.1f} us" if library is not None
+                    else f"library: {library_name}")
     log(f"  {label} (CUDA events, {reps} launches each): kernel "
         f"{kernel_ms[0]*1e3:.1f} / {kernel_ms[1]*1e3:.1f} us, plain "
-        f"{plain_ms[0]*1e3:.1f} / {plain_ms[1]*1e3:.1f} us, {library_name} "
-        f"{library_ms*1e3:.1f} us; bound {res['bound_ms']*1e3:.2f} us by {res['bound_by']} "
+        f"{plain_ms[0]*1e3:.1f} / {plain_ms[1]*1e3:.1f} us, {library_text}; bound "
+        f"{res['bound_ms']*1e3:.2f} us by {res['bound_by']} "
         f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP) [{card}]")
     return res
 
@@ -712,7 +880,50 @@ def phase_kernel_timing(device, card) -> dict:
         sdpa_fwd_bwd(q, k, v, g_heads),
         2 * qkv.numel() * 2 + g.numel() * 2 + de.numel() * 4, bwd_flops, 10,
         card, "SDPA forward+backward (no de)")
+    del qkv, q, k, v, g, g_heads, de, sign
+    out.update(pamr_kernel_timing(device, card))
     return out
+
+
+def pamr_kernel_timing(device, card) -> dict:
+    """K3 and one K4 launch at B=2 views (one image, ``--pamr``) and B=8
+    (four images per pass, the pipeline's ``--infer_batch_images 4``),
+    384x384, the default dilations, 20 class rows."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    dils, P, C = PAMR_DILATIONS, 8 * len(PAMR_DILATIONS), NUM_CLASSES
+    n = 9 * len(dils)
+    out = {}
+    for B in (2, 8):
+        x = torch.randn((B, 3, CROP, CROP), generator=gen, device=device)
+        m = torch.rand((B, C, CROP, CROP), generator=gen, device=device)
+        aff = pamr_affinity(x, dils)
+        pixels = B * CROP * CROP
+        # per pixel and channel: the 9n-tap sum, the variance (sub, mul,
+        # add per tap), sqrt and the divisions, 4 operations per neighbour;
+        # then the softmax over P (6 operations each)
+        k3_flops = pixels * (3 * (n + 3 * n + 4 * P + 5) + 6 * P)
+        out[f"K3_B{B}"] = time_kernel(
+            f"{pamr_ops.KERNEL} affinity (K3) at B={B} K=3 {CROP}x{CROP} P={P} fp32",
+            lambda: pamr_affinity(x, dils), lambda: pamr_affinity_plain(x, dils), None,
+            (x.numel() + aff.numel()) * 4, k3_flops, 20, card,
+            "none (a dilated 48-tap stencil with replicated edges)", PEAK_FP32_FLOPS)
+        out[f"K4_B{B}"] = time_kernel(
+            f"{pamr_ops.KERNEL} update (K4), one step, at B={B} C={C} {CROP}x{CROP} P={P} fp32",
+            lambda: pamr_update(m, aff, dils), lambda: pamr_update_plain(m, aff, dils), None,
+            (2 * m.numel() + aff.numel()) * 4, 2 * P * pixels * C, 20, card,
+            "none (per-pixel weights over a dilated 48-tap stencil)", PEAK_FP32_FLOPS)
+        del x, m, aff
+    return out
+
+
+def time_pamr_step(pamr_fn, x, mask, card, reps=20) -> float:
+    """Device time of ``pamr_fn`` on one image's views (CUDA events): the
+    mask's resize to crop resolution, one K3 and PAMR_ITERS K4 launches."""
+    ms = time_call(lambda: pamr_fn(x, mask), reps)
+    log(f"  PAMR step (resize + K3 + {PAMR_ITERS} K4) on {tuple(x.shape)} guidance and "
+        f"{tuple(mask.shape)} CAMs, CUDA events over {reps} calls: {ms * 1e3:.1f} us "
+        f"[{card}]")
+    return ms
 
 
 def main() -> int:
@@ -725,55 +936,70 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/7] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/8] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/7] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/8] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/7] kernels against their plain versions on the card")
+    log("[3/8] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/7] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images")
+        log("[4/8] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+            f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
-        infer, paths, labels, infer_launches = phase_main_path(device, tmp)
+        (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
+         pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/7] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/8] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/7] one train step, kernel path against plain path, same weights and batch")
+        log("[6/8] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
         model, opt, batch, layer_launches = phase_step_compare(device, cfg)
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[7/7] timing on {card}")
+        log(f"[7/8] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+            f"crop 384, the recipe")
+        t0 = time.perf_counter()
+        phase_pipeline(cfg, os.path.join(tmp, "train"))
+        log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
+
+        log(f"[8/8] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "
             f"[{card}]")
+        pamr_image_ms = time_image(infer, paths[0], labels[0], pamr_fn)
+        log(f"  per-image latency with --pamr {PAMR_ITERS}, the same image: "
+            f"{pamr_image_ms:.2f} ms (+{pamr_image_ms - image_ms:.2f} ms) [{card}]")
+        time_pamr_step(pamr_fn, *pamr_input, card)
         pass_ms = time_getam_pass(infer, paths[0], labels[0])
         log(f"  of which the GETAM pass (infer_fn on the 2 views, host arrays in and out): "
             f"{pass_ms:.2f} ms; host decode, resize and normalization: "
             f"{image_ms - pass_ms:.2f} ms [{card}]")
         device_breakdown(infer, paths[0], labels[0], image_ms, card)
-        del infer
+        log(f"  with --pamr {PAMR_ITERS}:")
+        device_breakdown(infer, paths[0], labels[0], pamr_image_ms, card, pamr_fn)
+        del infer, pamr_input
         time_train_step(model, opt, cfg, batch, card)
         del model, opt
     torch.cuda.empty_cache()
     timing = phase_kernel_timing(device, card)
 
     src, tpu = "acr_wsss_tpu_torch/csrc/", "acr_wsss_tpu/ops/attn_pallas.py:"
+    tpu_pamr = "acr_wsss_tpu/ops/pamr_pallas.py:"
     n = N_TOKENS
     b_train = 2 * TRAIN_BATCH
     kernels = [
@@ -793,6 +1019,12 @@ def main() -> int:
         {"name": BWD_KERNEL + " (sign tile)", "route": "cuda", "source": src + "attn_bwd.cu",
          "replaces": tpu + "1075", "launches": train_launches["K2b"],
          "max_abs_err": errs[("K2b", b_train, n)], **timing["K2b"]},
+        {"name": pamr_ops.KERNEL + " (affinity)", "route": "cuda", "source": src + "pamr.cu",
+         "replaces": tpu_pamr + "85", "launches": pamr_launches["K3"],
+         "max_abs_err": errs[("K3", 2, CROP, CROP)], **timing["K3_B2"]},
+        {"name": pamr_ops.KERNEL + " (update)", "route": "cuda", "source": src + "pamr.cu",
+         "replaces": tpu_pamr + "125", "launches": pamr_launches["K4"],
+         "max_abs_err": errs[("K4", 2, CROP, CROP)], **timing["K4_B2"]},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -3,7 +3,8 @@
 Marked ``cuda``: they need a CUDA card and ``nvcc`` and skip elsewhere.
 On the card's machine, which has no JAX (``tests/conftest.py`` imports
 it): ``python -m pytest --noconftest tests/test_torch_cuda.py``. Covers
-K1f/K1n, K1b, K2f and K2b, their launch counters and what they refuse.
+K1f/K1n, K1b, K2f, K2b, K3 and K4, their launch counters and what they
+refuse.
 Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
@@ -179,3 +180,69 @@ def test_backward_kernels_raise_on_what_they_do_not_take(device):
     with pytest.raises(ValueError, match="shared-memory"):
         pair_consistency_forward(torch.zeros((2, 8192, 3 * H * D), device=device,
                                              dtype=torch.bfloat16), D ** -0.5, H)
+
+
+# --- K3, K4 ---------------------------------------------------------------
+# float32 on both sides with the taps and neighbours summed in the same
+# order; the softmax's sum and the scalar divisions may round otherwise ->
+# JAX's own Pallas-against-XLA tolerance (tests/test_pamr.py).
+PAMR_RTOL, PAMR_ATOL = 2e-5, 2e-6
+PRODUCTION = (1, 2, 4, 8, 12, 24)
+
+
+@pytest.mark.parametrize("batch,k,h,w,dilations", [
+    (2, 3, 384, 384, PRODUCTION), (8, 3, 384, 384, PRODUCTION), (2, 3, 37, 29, (1, 2)),
+    (1, 3, 17, 13, (1, 24)), (1, 1, 5, 300, tuple(range(1, 9))),
+])
+def test_pamr_kernels_match_plain(device, batch, k, h, w, dilations):
+    from acr_wsss_tpu_torch.ops import pamr
+
+    gen = torch.Generator(device=device).manual_seed(h * w)
+    x = torch.randn((batch, k, h, w), generator=gen, device=device)
+    m = torch.rand((batch, 20, h, w), generator=gen, device=device)
+    before = (pamr.pamr_affinity.launches, pamr.pamr_update.launches)
+    aff = pamr.pamr_affinity(x, dilations)
+    out = pamr.pamr_update(m, aff, dilations, num_iter=10)
+    ref_aff = pamr.pamr_affinity_plain(x, dilations)
+    ref = m
+    for _ in range(10):
+        ref = pamr.pamr_update_plain(ref, aff, dilations)
+    torch.cuda.synchronize()
+    assert (pamr.pamr_affinity.launches, pamr.pamr_update.launches) == (
+        before[0] + 1, before[1] + 10)
+    torch.testing.assert_close(aff, ref_aff, rtol=PAMR_RTOL, atol=PAMR_ATOL)
+    torch.testing.assert_close(out, ref, rtol=PAMR_RTOL, atol=PAMR_ATOL)
+    torch.testing.assert_close(pamr.pamr(x, m[:, :, ::4, ::4], 3, dilations),
+                               pamr.pamr_plain(x, m[:, :, ::4, ::4], 3, dilations),
+                               rtol=PAMR_RTOL, atol=PAMR_ATOL)
+
+
+def test_pamr_flat_guidance_on_the_card(device):
+    from acr_wsss_tpu_torch.ops import pamr
+
+    aff = pamr.pamr_affinity(torch.full((1, 3, 40, 50), 0.5, device=device), PRODUCTION)
+    torch.cuda.synchronize()
+    assert torch.isfinite(aff).all()
+    torch.testing.assert_close(aff, torch.full_like(aff, 1.0 / 48), rtol=1e-6, atol=0)
+
+
+def test_pamr_kernels_raise_on_what_they_do_not_take(device):
+    from acr_wsss_tpu_torch.ops import pamr
+
+    x = torch.zeros((1, 3, 16, 16), device=device)
+    m = torch.zeros((1, 4, 16, 16), device=device)
+    aff = pamr.pamr_affinity(x, (1,))
+    with pytest.raises(TypeError, match="float32"):
+        pamr.pamr_affinity(x.double(), (1,))
+    with pytest.raises(ValueError, match="contiguous"):
+        pamr.pamr_affinity(torch.zeros((1, 3, 16, 32), device=device)[..., ::2], (1,))
+    with pytest.raises(ValueError, match="1 to 8 dilations"):
+        pamr.pamr_affinity(x, tuple(range(1, 10)))
+    with pytest.raises(TypeError, match="float32"):
+        pamr.pamr_update(m.half(), aff, (1,))
+    with pytest.raises(ValueError, match="contiguous"):
+        pamr.pamr_update(m.transpose(2, 3), aff, (1,))
+    with pytest.raises(ValueError, match="aff must be"):
+        pamr.pamr_update(m, aff, (1, 2))
+    with pytest.raises(ValueError, match="1 to 8 dilations"):
+        pamr.pamr_update(m, aff, tuple(range(1, 10)))

@@ -3,9 +3,9 @@
 The card's machine has no JAX, flax, optax or orbax. In a fresh interpreter
 whose import system refuses those packages and ``acr_wsss_tpu`` (the exact
 name and its submodules, not ``acr_wsss_tpu_torch``), every module of the
-port and ``chip_smoke`` must import: the inference modules and the
+port and ``chip_smoke`` must import: the inference modules, the
 training ones (``train``, ``losses``, ``data/voc``, ``ops/attn_pair``,
-``utils/{schedule,meters}``).
+``utils/{schedule,meters}``), ``ops/pamr`` and ``pipeline``.
 """
 
 import os
@@ -52,5 +52,5 @@ def test_port_and_chip_smoke_import_without_jax():
     count = int(proc.stdout.split()[-2])
     assert count >= 26, proc.stdout
     for name in ("train", "losses", "data.voc", "ops.attn_pair", "utils.schedule",
-                 "utils.meters"):
+                 "utils.meters", "ops.pamr", "pipeline"):
         assert f"acr_wsss_tpu_torch.{name}" in proc.stdout, name

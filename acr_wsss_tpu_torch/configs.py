@@ -46,6 +46,14 @@ class ModelConfig:
     # head-mean probs never reach device memory. False: the per-layer
     # export path.
     fuse_consistency: bool = True
+    # dtype of the exported head-mean probabilities on the kernel path
+    # (K1f's export, K1b's de): "bfloat16" halves that traffic; "float32"
+    # matches the reference. The plain path and the fused branch export in
+    # float32 whatever it says; CAM inference builds its model without it.
+    probs_dtype: str = "float32"
+    # Hybrid stem only: the 7x7/2 stem conv as space-to-depth and a folded
+    # 4x4/1 conv (same parameters and outputs; models/hybrid.py).
+    s2d_stem: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,14 @@
-// Attention backward over the joint qkv projection: the softmax gradient
-// with a cotangent `de` of the head-mean probabilities, in two forms.
+// Attention backward over strided q, k and v: the softmax gradient with a
+// cotangent `de` of the head-mean probabilities, in two forms.
 //
-// Replaces two TPU kernels of acr_wsss_tpu/ops/attn_pallas.py:
-//   _bwd_kernel_nhd  (K1b, through _bwd_qkv_cols): de is a dense fp32
-//                    (B, N, N) tensor, or none (zero);
+// Replaces TPU kernels of acr_wsss_tpu/ops/attn_pallas.py:
+//   _bwd_kernel_nhd  (K1b through _bwd_qkv_cols, K5b through _bwd_nhd),
+//   _bwd_kernel_qkv  (K5c through _bwd_qkv) and
+//   _bwd_kernel      (K5a through _bwd): de is a dense (B, N, N) tensor in
+//                    fp32 or bf16 (the cotangent of a bf16 export, upcast
+//                    here as the TPU kernels upcast it), or none (zero);
+//                    q, k, v, g and dq, dk, dv are strided (B, N, H, D)
+//                    operands, as in attn_fwd_headmean.cu;
 //   _bwd_kernel_pair (K2b, through _bwd_pair): de is formed here from the
 //                    int8 sign tile of the pair forward (attn_pair_fwd.cu)
 //                    and the per-pair cotangents g_cls (row 0) and g_aff
@@ -15,7 +20,8 @@
 //   dp = g_h v_h^T + de / H
 //   ds = p * (dp - rowsum(dp * p))
 //   dq_h = ds k_h * scale,  dk_h = ds^T q_h * scale,  dv_h = p^T g_h
-// written as bf16 into dqkv (B, N, 3*H*D) in the column layout of qkv.
+// written as bf16 into dq, dk and dv (for the pair entry: dqkv (B, N,
+// 3*H*D) in the column layout of qkv).
 // All arithmetic is fp32 (as both TPU kernels run it: `mm = float32`, and
 // the pair kernel casts g to fp32); rows and keys past N are masked.
 //
@@ -53,8 +59,32 @@ constexpr int kBN = 32;       // key pass: keys per block
 constexpr int kBR = 32;       // key pass: query rows per tile
 constexpr int kPad = kD + 1;  // key pass: padded row of K and V in shared memory
 
+// Element strides of one (B, N, H, D) operand; D has unit stride.
+struct Strides {
+  long long b, n, h;
+};
+
+struct Operands {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* g;
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  Strides sq, sk, sv, sg, sdq, sdk, sdv;
+};
+
+// Operand `p` at batch element b, head h: its row n starts at the result
+// + n * s.n.
+template <typename T>
+__device__ __forceinline__ T* head_base(T* p, const Strides& s, int b, int h) {
+  return p + (b * s.b + h * s.h);
+}
+
 struct DeSource {
   const float* dense;     // (B, N, N) fp32 cotangent of the head mean, or null
+  const __nv_bfloat16* dense_bf16;  // the same in bf16, or null
   const int8_t* sign;     // (B / 2, N, N) int8 sign tile, or null
   const float* g_cls;     // (B / 2,) fp32
   const float* g_aff;     // (B / 2,) fp32
@@ -71,6 +101,8 @@ __device__ __forceinline__ float de_at(const DeSource& s, int b, int i, int j, i
     return (b & 1) ? -v : v;
   }
   if (s.dense != nullptr) return __fmul_rn(s.dense[((size_t)b * N + i) * N + j], s.inv_h);
+  if (s.dense_bf16 != nullptr)
+    return __fmul_rn(__bfloat162float(s.dense_bf16[((size_t)b * N + i) * N + j]), s.inv_h);
   return 0.f;
 }
 
@@ -101,13 +133,9 @@ __device__ __forceinline__ void load_row64(const __nv_bfloat16* src, float* dst)
 
 // Row pass. stats (B, H, N, 3): row max, row sum of exp, c.
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_rows_kernel(const __nv_bfloat16* __restrict__ qkv,
-                     const __nv_bfloat16* __restrict__ g, DeSource de,
-                     __nv_bfloat16* __restrict__ dqkv, float* __restrict__ stats,
-                     int N, int H, float scale) {
+attn_bwd_rows_kernel(Operands op, DeSource de, float* __restrict__ stats, int N, int H,
+                     float scale) {
   extern __shared__ __align__(16) float smem[];
-  const int HD = H * kD;
-  const size_t row_stride = 3 * (size_t)HD;
   const int i0 = blockIdx.x * kBM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -121,20 +149,21 @@ attn_bwd_rows_kernel(const __nv_bfloat16* __restrict__ qkv,
   float* sX = sP + kBM * N;               // kBM x N: dp, then ds
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(sX + kBM * N);  // kKT x kD
 
-  const __nv_bfloat16* base = qkv + (size_t)b * N * row_stride;
-  const int qcol = h * kD, kcol = HD + h * kD, vcol = 2 * HD + h * kD;
-
+  const __nv_bfloat16* qb = head_base(op.q, op.sq, b, h);
+  const __nv_bfloat16* kb = head_base(op.k, op.sk, b, h);
+  const __nv_bfloat16* vb = head_base(op.v, op.sv, b, h);
+  const __nv_bfloat16* gb = head_base(op.g, op.sg, b, h);
   for (int idx = tid; idx < kBM * kD; idx += kThreads) {
     const int r = idx / kD, d = idx % kD, i = i0 + r;
-    sQ[idx] = i < N ? __bfloat162float(base[(size_t)i * row_stride + qcol + d]) : 0.f;
-    sG[idx] = i < N ? __bfloat162float(g[((size_t)b * N + i) * HD + qcol + d]) : 0.f;
+    sQ[idx] = i < N ? __bfloat162float(qb[i * op.sq.n + d]) : 0.f;
+    sG[idx] = i < N ? __bfloat162float(gb[i * op.sg.n + d]) : 0.f;
   }
   __syncthreads();
 
   // Logits, then dp: thread t owns keys t, t + kThreads, ...
   for (int j = tid; j < N; j += kThreads) {
     float kf[kD];
-    load_row64(base + (size_t)j * row_stride + kcol, kf);
+    load_row64(kb + j * op.sk.n, kf);
 #pragma unroll
     for (int r = 0; r < kBM; ++r) {
       const float4* q4 = reinterpret_cast<const float4*>(sQ + r * kD);
@@ -149,7 +178,7 @@ attn_bwd_rows_kernel(const __nv_bfloat16* __restrict__ qkv,
       }
       sP[r * N + j] = __fmul_rn(acc, scale);
     }
-    load_row64(base + (size_t)j * row_stride + vcol, kf);
+    load_row64(vb + j * op.sv.n, kf);
 #pragma unroll
     for (int r = 0; r < kBM; ++r) {
       const int i = i0 + r;
@@ -215,7 +244,7 @@ attn_bwd_rows_kernel(const __nv_bfloat16* __restrict__ qkv,
     for (int idx = tid; idx < kKT * kD / 8; idx += kThreads) {
       const int jj = idx / (kD / 8), c = idx % (kD / 8), j = j0 + jj;
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (j < N) u = *reinterpret_cast<const uint4*>(base + (size_t)j * row_stride + kcol + c * 8);
+      if (j < N) u = *reinterpret_cast<const uint4*>(kb + j * op.sk.n + c * 8);
       reinterpret_cast<uint4*>(sK)[idx] = u;
     }
     __syncthreads();
@@ -232,16 +261,14 @@ attn_bwd_rows_kernel(const __nv_bfloat16* __restrict__ qkv,
 #pragma unroll
   for (int r2 = 0; r2 < kRowsPerThread; ++r2) {
     const int i = i0 + rg + (kThreads / kD) * r2;
-    if (i < N) dqkv[((size_t)b * N + i) * row_stride + qcol + d] = __float2bfloat16(o[r2] * scale);
+    if (i < N) head_base(op.dq, op.sdq, b, h)[i * op.sdq.n + d] = __float2bfloat16(o[r2] * scale);
   }
 }
 
 // Key pass: dk and dv of kBN keys of one head, summed over all query rows.
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_keys_kernel(const __nv_bfloat16* __restrict__ qkv,
-                     const __nv_bfloat16* __restrict__ g, DeSource de,
-                     const float* __restrict__ stats,
-                     __nv_bfloat16* __restrict__ dqkv, int N, int H, float scale) {
+attn_bwd_keys_kernel(Operands op, DeSource de, const float* __restrict__ stats, int N,
+                     int H, float scale) {
   __shared__ __align__(16) float sK[kBN * kPad];
   __shared__ __align__(16) float sV[kBN * kPad];
   __shared__ __align__(16) float sQ[kBR * kD];
@@ -250,19 +277,19 @@ attn_bwd_keys_kernel(const __nv_bfloat16* __restrict__ qkv,
   __shared__ float sDS[kBR * kBN];
   __shared__ float sStat[kBR * 3];
 
-  const int HD = H * kD;
-  const size_t row_stride = 3 * (size_t)HD;
   const int j0 = blockIdx.x * kBN;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const __nv_bfloat16* base = qkv + (size_t)b * N * row_stride;
-  const int qcol = h * kD, kcol = HD + h * kD, vcol = 2 * HD + h * kD;
+  const __nv_bfloat16* qb = head_base(op.q, op.sq, b, h);
+  const __nv_bfloat16* kb = head_base(op.k, op.sk, b, h);
+  const __nv_bfloat16* vb = head_base(op.v, op.sv, b, h);
+  const __nv_bfloat16* gb = head_base(op.g, op.sg, b, h);
 
   for (int idx = tid; idx < kBN * kD; idx += kThreads) {
     const int jj = idx / kD, d = idx % kD, j = j0 + jj;
-    sK[jj * kPad + d] = j < N ? __bfloat162float(base[(size_t)j * row_stride + kcol + d]) : 0.f;
-    sV[jj * kPad + d] = j < N ? __bfloat162float(base[(size_t)j * row_stride + vcol + d]) : 0.f;
+    sK[jj * kPad + d] = j < N ? __bfloat162float(kb[j * op.sk.n + d]) : 0.f;
+    sV[jj * kPad + d] = j < N ? __bfloat162float(vb[j * op.sv.n + d]) : 0.f;
   }
 
   // Thread t owns column d = t % kD of keys jg, jg + 4, ..., jg + 28.
@@ -278,8 +305,8 @@ attn_bwd_keys_kernel(const __nv_bfloat16* __restrict__ qkv,
     __syncthreads();
     for (int idx = tid; idx < kBR * kD; idx += kThreads) {
       const int r = idx / kD, dd = idx % kD, i = i0 + r;
-      sQ[idx] = i < N ? __bfloat162float(base[(size_t)i * row_stride + qcol + dd]) : 0.f;
-      sG[idx] = i < N ? __bfloat162float(g[((size_t)b * N + i) * HD + qcol + dd]) : 0.f;
+      sQ[idx] = i < N ? __bfloat162float(qb[i * op.sq.n + dd]) : 0.f;
+      sG[idx] = i < N ? __bfloat162float(gb[i * op.sg.n + dd]) : 0.f;
     }
     for (int idx = tid; idx < kBR * 3; idx += kThreads) {
       const int i = i0 + idx / 3;
@@ -329,9 +356,8 @@ attn_bwd_keys_kernel(const __nv_bfloat16* __restrict__ qkv,
   for (int k = 0; k < kKeysPerThread; ++k) {
     const int j = j0 + jg + kStep * k;
     if (j < N) {
-      __nv_bfloat16* row = dqkv + ((size_t)b * N + j) * row_stride;
-      row[kcol + d] = __float2bfloat16(dk[k] * scale);
-      row[vcol + d] = __float2bfloat16(dv[k]);
+      head_base(op.dk, op.sdk, b, h)[j * op.sdk.n + d] = __float2bfloat16(dk[k] * scale);
+      head_base(op.dv, op.sdv, b, h)[j * op.sdv.n + d] = __float2bfloat16(dv[k]);
     }
   }
 }
@@ -341,8 +367,8 @@ size_t rows_smem_bytes(int N) {
          sizeof(__nv_bfloat16) * kKT * kD;
 }
 
-int launch(const void* qkv, const void* g, const DeSource& de, void* dqkv, void* stats,
-           int B, int N, int H, int D, float scale, void* stream) {
+int launch(const Operands& op, const DeSource& de, void* stats, int B, int N, int H, int D,
+           float scale, void* stream) {
   if (D != kD || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = rows_smem_bytes(N);
   if (smem > 48 * 1024) {
@@ -351,18 +377,17 @@ int launch(const void* qkv, const void* g, const DeSource& de, void* dqkv, void*
     if (e != cudaSuccess) return (int)e;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
-  const __nv_bfloat16* gg = static_cast<const __nv_bfloat16*>(g);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dqkv);
   float* st = static_cast<float*>(stats);
   attn_bwd_rows_kernel<<<dim3((N + kBM - 1) / kBM, H, B), kThreads, smem, s>>>(
-      q, gg, de, out, st, N, H, scale);
+      op, de, st, N, H, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   attn_bwd_keys_kernel<<<dim3((N + kBN - 1) / kBN, H, B), kThreads, 0, s>>>(
-      q, gg, de, st, out, N, H, scale);
+      op, de, st, N, H, scale);
   return (int)cudaGetLastError();
 }
+
+Strides strides_at(const long long* s) { return Strides{s[0], s[1], s[2]}; }
 
 }  // namespace
 
@@ -378,25 +403,49 @@ int attn_bwd_max_tokens() {
   return (int)(((size_t)limit - rows_smem_bytes(0)) / per_token);
 }
 
-// K1b. qkv (B, N, 3*H*D) bf16, g (B, N, H*D) bf16, de (B, N, N) fp32 or
-// null (zero), dqkv (B, N, 3*H*D) bf16 out, stats (B, H, N, 3) fp32
-// scratch. All contiguous, 16-byte aligned. Returns cudaGetLastError().
-int attn_bwd_dense(const void* qkv, const void* g, const void* de, void* dqkv, void* stats,
-                   int B, int N, int H, int D, float scale, void* stream) {
-  const DeSource src{static_cast<const float*>(de), nullptr, nullptr, nullptr, 1.0f / (float)H};
-  return launch(qkv, g, src, dqkv, stats, B, N, H, D, scale, stream);
+// K1b, K5a-c. q, k, v, g: bf16 (B, N, H, D) operands; dq, dk, dv: bf16
+// (B, N, H, D) outputs; `strides` holds 21 element strides, (batch, token,
+// head) of q, k, v, g, dq, dk and dv in that order; D has unit stride and
+// every row of D values of k and v starts 16-byte aligned. de: contiguous
+// (B, N, N) of `de_dtype` (1 fp32, 2 bf16), or null with de_dtype 0 for
+// zero. stats: (B, H, N, 3) fp32 scratch. Returns cudaGetLastError().
+int attn_bwd_dense(const void* q, const void* k, const void* v, const void* g, void* dq,
+                   void* dk, void* dv, const long long* strides, const void* de, int de_dtype,
+                   void* stats, int B, int N, int H, int D, float scale, void* stream) {
+  if (de_dtype < 0 || de_dtype > 2 || (de == nullptr) != (de_dtype == 0))
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  const Operands op{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+                    static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                    strides_at(strides), strides_at(strides + 3), strides_at(strides + 6),
+                    strides_at(strides + 9), strides_at(strides + 12),
+                    strides_at(strides + 15), strides_at(strides + 18)};
+  const DeSource src{de_dtype == 1 ? static_cast<const float*>(de) : nullptr,
+                     de_dtype == 2 ? static_cast<const bf16*>(de) : nullptr,
+                     nullptr, nullptr, nullptr, 1.0f / (float)H};
+  return launch(op, src, stats, B, N, H, D, scale, stream);
 }
 
-// K2b. As attn_bwd_dense, with de formed from sign (B / 2, N, N) int8 and
-// g_cls, g_aff (B / 2,) fp32; B even, pairs interleaved.
+// K2b. qkv (B, N, 3*H*D) bf16, g (B, N, H*D) bf16, dqkv (B, N, 3*H*D) bf16
+// out, all contiguous and 16-byte aligned; de formed from sign (B / 2, N,
+// N) int8 and g_cls, g_aff (B / 2,) fp32; B even, pairs interleaved.
 int attn_bwd_pair(const void* qkv, const void* g, const void* sign, const void* g_cls,
                   const void* g_aff, void* dqkv, void* stats, int B, int N, int H, int D,
                   float scale, void* stream) {
   if (B % 2 || sign == nullptr || g_cls == nullptr || g_aff == nullptr)
     return (int)cudaErrorInvalidValue;
-  const DeSource src{nullptr, static_cast<const int8_t*>(sign), static_cast<const float*>(g_cls),
-                     static_cast<const float*>(g_aff), 1.0f / (float)H};
-  return launch(qkv, g, src, dqkv, stats, B, N, H, D, scale, stream);
+  using bf16 = __nv_bfloat16;
+  const long long HD = (long long)H * D;
+  const Strides cols{N * 3 * HD, 3 * HD, D}, rows{N * HD, HD, D};
+  const bf16* in = static_cast<const bf16*>(qkv);
+  bf16* out = static_cast<bf16*>(dqkv);
+  const Operands op{in, in + HD, in + 2 * HD, static_cast<const bf16*>(g),
+                    out, out + HD, out + 2 * HD, cols, cols, cols, rows, cols, cols, cols};
+  const DeSource src{nullptr, nullptr, static_cast<const int8_t*>(sign),
+                     static_cast<const float*>(g_cls), static_cast<const float*>(g_aff),
+                     1.0f / (float)H};
+  return launch(op, src, stats, B, N, H, D, scale, stream);
 }
 
 const char* attn_bwd_error_string(int err) {

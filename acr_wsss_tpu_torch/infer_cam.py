@@ -29,7 +29,7 @@ from acr_wsss_tpu_torch.configs import InferConfig, ModelConfig, parse_bool
 from acr_wsss_tpu_torch.data import transforms
 from acr_wsss_tpu_torch.getam import getam_cams, make_forward_for_getam, tap_config
 from acr_wsss_tpu_torch.models.acr import ACR
-from acr_wsss_tpu_torch.models.convert import flax_to_state_dict
+from acr_wsss_tpu_torch.models.convert import SCANNED, flax_to_state_dict, scanned_to_unrolled
 from acr_wsss_tpu_torch.ops import imops
 from acr_wsss_tpu_torch.ops.pamr import make_pamr_fn
 from acr_wsss_tpu_torch.utils.checkpoint import load_params_npz
@@ -156,12 +156,18 @@ def process_image(infer_fn, img_path: str, label: np.ndarray, crop_size: int,
 
 
 def load_model(cfg: InferConfig) -> ACR:
-    """The ACR of ``cfg.model`` on ``cfg.device`` with the npz weights."""
+    """The ACR of ``cfg.model`` on ``cfg.device`` with the npz weights.
+    Built without ``cfg.model.probs_dtype``, as JAX's ``run`` builds it
+    (``acr_wsss_tpu/infer_cam.py:385-392``): inference exports float32. A
+    checkpoint of the scanned trunk is unrolled first (``:395-411``)."""
     model = ACR(num_classes=cfg.model.num_classes, backbone_name=cfg.model.backbone,
                 dtype=getattr(torch, cfg.model.compute_dtype),
                 attn_impl=cfg.model.attn_impl)
     path = cfg.weights if cfg.weights.endswith(".npz") else cfg.weights + ".npz"
-    model.load_state_dict(flax_to_state_dict(load_params_npz(path), model.state_dict()))
+    flat = load_params_npz(path)
+    if any(SCANNED in k for k in flat):
+        flat = scanned_to_unrolled(flat)
+    model.load_state_dict(flax_to_state_dict(flat, model.state_dict()))
     return model.to(cfg.device)
 
 

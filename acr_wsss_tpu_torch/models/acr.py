@@ -68,7 +68,8 @@ class ACR(nn.Module):
     """The ACR classifier. Inputs are NHWC images, as in the JAX package."""
 
     def __init__(self, num_classes: int = 20, backbone_name: str = "vitb_hybrid",
-                 dtype: torch.dtype = torch.bfloat16, attn_impl: str = "kernel"):
+                 dtype: torch.dtype = torch.bfloat16, attn_impl: str = "kernel",
+                 probs_dtype: torch.dtype = torch.float32, s2d_stem: bool = False):
         super().__init__()
         self.spec = spec = resolve_backbone(backbone_name)
         self.start_index = spec.num_prefix_tokens
@@ -76,8 +77,8 @@ class ACR(nn.Module):
             embed_dim=spec.embed_dim, depth=spec.depth, num_heads=spec.num_heads,
             pretrain_grid=spec.pretrain_grid,
             num_prefix_tokens=spec.num_prefix_tokens, taps=spec.taps,
-            backbone=ResNetV2Stem() if spec.hybrid else None,
-            dtype=dtype, attn_impl=attn_impl)
+            backbone=ResNetV2Stem(s2d_stem=s2d_stem) if spec.hybrid else None,
+            dtype=dtype, attn_impl=attn_impl, probs_dtype=probs_dtype)
         self.cls_head = nn.Linear(spec.embed_dim, num_classes)
 
     def _heads(self, layer4: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -14,6 +14,11 @@ path maps one to one:
 * LayerNorm ``scale``/``bias`` become ``weight``/``bias``; GroupNorm's
   sit one level down in flax (``norm1/GroupNorm_0/scale``) and become
   ``norm1.weight``/``norm1.bias``.
+
+``scanned_to_unrolled`` / ``unrolled_to_scanned`` are the numpy side of
+the JAX functions of the same names (``models/convert.py:1004-1045``): a
+checkpoint of the scanned trunk holds each block parameter once, stacked
+over the layers under ``trunk/blocks_scan/block/``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,37 @@ import torch.nn as nn
 from acr_wsss_tpu_torch.models.layers import GroupNormAct, WSConv
 
 _TRUNK_BLOCK = re.compile(r"^trunk/blocks_(\d+)/")
+_UNROLLED = re.compile(r"^(.*?)trunk/blocks_(\d+)/(.*)$")
+SCANNED = "trunk/blocks_scan/block/"
+
+
+def scanned_to_unrolled(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``.../trunk/blocks_scan/block/<leaf>`` of leading dim L to
+    ``.../trunk/blocks_<i>/<leaf>``, i < L; every other entry as it is."""
+    out: Dict[str, np.ndarray] = {}
+    for path, value in flat.items():
+        head, scanned, leaf = path.partition(SCANNED)
+        if not scanned:
+            out[path] = value
+            continue
+        for i, layer in enumerate(np.asarray(value)):
+            out[f"{head}trunk/blocks_{i}/{leaf}"] = layer
+    return out
+
+
+def unrolled_to_scanned(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The inverse: every ``trunk/blocks_<i>`` leaf stacked over i in order."""
+    out: Dict[str, np.ndarray] = {}
+    layers: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for path, value in flat.items():
+        m = _UNROLLED.match(path)
+        if m is None:
+            out[path] = value
+        else:
+            layers.setdefault((m[1], m[3]), {})[int(m[2])] = np.asarray(value)
+    for (head, leaf), by_layer in layers.items():
+        out[f"{head}{SCANNED}{leaf}"] = np.stack([by_layer[i] for i in sorted(by_layer)])
+    return out
 
 
 def _torch_key(path: str) -> str:
@@ -91,7 +127,7 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, np.ndarray]:
         kind = kinds.get(owner)
         if leaf == "weight" and kind in (nn.Linear,):
             leaf, value = "kernel", value.T
-        elif leaf == "weight" and kind in (nn.Conv2d, WSConv):
+        elif leaf == "weight" and kind is not None and issubclass(kind, (nn.Conv2d, WSConv)):
             leaf, value = "kernel", value.transpose(2, 3, 1, 0)
         elif leaf == "weight" and kind is nn.LayerNorm:
             leaf = "scale"

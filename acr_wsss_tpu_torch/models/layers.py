@@ -44,11 +44,14 @@ class WSConv(nn.Module):
         self.stride = stride
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def standardized_weight(self) -> torch.Tensor:
         w = self.weight
         mean = w.mean(dim=(1, 2, 3), keepdim=True)
         std = w.std(dim=(1, 2, 3), keepdim=True, unbiased=False)
-        w = (w - mean) / (std + self.eps)
+        return (w - mean) / (std + self.eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.standardized_weight()
         x = pad_same(x, w.shape[-1], self.stride)
         return F.conv2d(x, w.to(x.dtype), stride=self.stride)
 

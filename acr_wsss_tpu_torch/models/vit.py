@@ -13,6 +13,12 @@ they run under ``torch.no_grad()`` when taps are given. Tapped blocks take
 the plain attention with the offset. Without taps the kernel path takes a
 gradient through the backward kernel (training).
 
+``probs_dtype`` (``:137``) is the dtype of the kernel path's head-mean
+export; the plain path exports float32, as JAX's ``xla`` branch does. The
+stack of the layers' exports has JAX's dtype (``jnp.stack`` promotes): a
+bf16 stack when every layer is bf16, float32 when the tapped layers'
+plain exports join bf16 ones.
+
 Training (``:351-390``, ``:97-112``): ``mirror_second_half`` un-mirrors the
 flipped view's patch tokens once, after the pos-embed, so that every
 layer's probs come out index-aligned with the first view's; ``True`` for
@@ -43,14 +49,27 @@ from acr_wsss_tpu_torch.ops.attn_pair import fused_attention_pair_consistency
 ATTN_IMPLS = ("kernel", "plain")
 
 
+def stack_probs(probs_list) -> Optional[torch.Tensor]:
+    """(B, L, ...) stack of the layers' exports in the dtype ``jnp.stack``
+    gives: theirs when they agree, else float32 (bf16 kernel exports below
+    the float32 plain exports of tapped layers)."""
+    if not probs_list:
+        return None
+    if len({p.dtype for p in probs_list}) > 1:
+        probs_list = [p.float() for p in probs_list]
+    return torch.stack(probs_list, dim=1)
+
+
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, attn_impl: str = "kernel"):
+    def __init__(self, dim: int, num_heads: int, attn_impl: str = "kernel",
+                 probs_dtype: torch.dtype = torch.float32):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.attn_impl = attn_impl
+        self.probs_dtype = probs_dtype
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
@@ -68,7 +87,7 @@ class Attention(nn.Module):
         if (self.attn_impl == "kernel" and probs_offset is None
                 and export in ("mean", "none")):
             out, probs = fused_attention_qkv_cols(qkv, self.scale, self.num_heads,
-                                                  export=export)
+                                                  export=export, probs_dtype=self.probs_dtype)
         else:
             q, k, v = qkv.reshape(B, N, 3, self.num_heads, -1).permute(2, 0, 3, 1, 4)
             out, probs = attention_with_probs(q, k, v, self.scale,
@@ -81,10 +100,10 @@ class Block(nn.Module):
     """Pre-norm block; the LayerNorms run in float32 (``vit.py:138-150``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 attn_impl: str = "kernel"):
+                 attn_impl: str = "kernel", probs_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, attn_impl)
+        self.attn = Attention(dim, num_heads, attn_impl, probs_dtype)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
@@ -128,7 +147,8 @@ class VisionTransformer(nn.Module):
                  pretrain_grid: int = 24, num_prefix_tokens: int = 1,
                  taps: Tuple[int, ...] = (2, 5, 8, 11),
                  backbone: Optional[nn.Module] = None,
-                 dtype: torch.dtype = torch.bfloat16, attn_impl: str = "kernel"):
+                 dtype: torch.dtype = torch.bfloat16, attn_impl: str = "kernel",
+                 probs_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.depth = depth
         self.num_heads = num_heads
@@ -147,7 +167,8 @@ class VisionTransformer(nn.Module):
         if num_prefix_tokens == 2:
             self.dist_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.blocks = nn.ModuleList(
-            [Block(embed_dim, num_heads, mlp_ratio, attn_impl) for _ in range(depth)])
+            [Block(embed_dim, num_heads, mlp_ratio, attn_impl, probs_dtype)
+             for _ in range(depth)])
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
     def forward(self, x: torch.Tensor, probs_offsets: Optional[torch.Tensor] = None,
@@ -192,7 +213,7 @@ class VisionTransformer(nn.Module):
         if export == "pair_l1":
             out["consistency_sums"] = tuple(probs_list)
         else:
-            out["probs"] = torch.stack(probs_list, dim=1) if probs_list else None
+            out["probs"] = stack_probs(probs_list)
             out["probs_layers"] = tuple(probs_list) if probs_list else None
         return out
 

@@ -62,7 +62,8 @@ class TrainState:
 
 def build_model(cfg: ModelConfig) -> ACR:
     return ACR(num_classes=cfg.num_classes, backbone_name=cfg.backbone,
-               dtype=getattr(torch, cfg.compute_dtype), attn_impl=cfg.attn_impl)
+               dtype=getattr(torch, cfg.compute_dtype), attn_impl=cfg.attn_impl,
+               probs_dtype=getattr(torch, cfg.probs_dtype), s2d_stem=cfg.s2d_stem)
 
 
 def _device(name: str) -> torch.device:
@@ -250,10 +251,14 @@ def parse_args(argv: Optional[List[str]] = None) -> TrainConfig:
     parser.add_argument("--clip_grad_norm", default=0.0, type=float,
                         help="global-norm gradient clipping (0 = off, the "
                              "reference behavior)")
+    parser.add_argument("--s2d_stem", action="store_true",
+                        help="hybrid stem: space-to-depth fold of the 7x7/2 stem conv "
+                             "(the same function)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     return TrainConfig(
-        model=ModelConfig(backbone=args.backbone, attn_impl=args.attn_impl),
+        model=ModelConfig(backbone=args.backbone, attn_impl=args.attn_impl,
+                          s2d_stem=args.s2d_stem),
         batch_size=args.batch_size, max_epochs=args.max_epoches, lr=args.lr,
         weight_decay=args.wt_dec, alpha=args.alpha, session_name=args.session_name,
         crop_size=args.crop_size, image_dir=args.IMpath,

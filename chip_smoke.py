@@ -11,11 +11,11 @@ package. Phases, each of which fails the run when it fails:
 2. build: ``nvcc`` builds every kernel into build/torch_kernels/, all at
    once, with the ``-Xptxas -v`` lines printed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and at a ragged one: K1f/K1n (export "mean" and
-   "none"), K2f, K2b (fed K2f's own sign tile), K1b (with and without
-   a dense de), K3 and K4 chained over 10 iterations (at B=2 and B=8 views
-   of 384x384 with the default dilations, and 17x13 with a dilation beyond
-   the image);
+   the main paths' shapes and at a ragged one: K1f/K1n (export "mean" in
+   float32 and bfloat16, and "none"), K2f, K2b (fed K2f's own sign tile),
+   K1b (a float32 or bfloat16 dense de, or none), K3 and K4 chained over
+   10 iterations (at B=2 and B=8 views of 384x384 with the default
+   dilations, and 17x13 with a dilation beyond the image);
 4. inference path: GETAM CAM inference as a user runs it (vitb_hybrid,
    crop 384, ``grad`` from layer 10, affinity refinement, flip TTA, 4
    class slots) on two seeded VOC-sized images, with the weights of
@@ -35,11 +35,20 @@ package. Phases, each of which fails the run when it fails:
    weights and batch, for the fused branch and the per-layer branch (which
    launches K1f and K1b): step-0 loss parts and parameters after the
    update;
-7. pipeline: ``pipeline.main`` as a user runs it, train -> infer with
+7. attention entries: K5a (``attention_with_probs(impl="kernel")``), K5b
+   (``fused_attention_nhd``) and K5c (``fused_attention_qkv``), forward
+   and backward, against their plain versions at the training shape (B=8,
+   N=577) with a float32 and a bfloat16 export; then each entry through
+   autograd as a user calls it, launches counted, gradients against the
+   plain backward; then the per-layer branch with ``probs_dtype=
+   "bfloat16"`` (K1f exporting bf16, K1b reading a bf16 de): one step
+   against the plain path, and ``train.train`` for a few steps, launches
+   counted;
+8. pipeline: ``pipeline.main`` as a user runs it, train -> infer with
    ``--pamr 10`` -> 100-threshold eval (vitb_hybrid, crop 384, the
    recipe) on the training fixture with seeded label PNGs; launches
    counted; the npz, one CAM dict per name and the evallog checked;
-8. timing: per-image latency with and without PAMR, the PAMR step's device
+9. timing: per-image latency with and without PAMR, the PAMR step's device
    time, train step time and images/s, device time breakdowns, each
    kernel's time beside its plain version, a library call where one
    computes the same function, and its bound.
@@ -51,6 +60,7 @@ object with one entry per kernel; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -78,15 +88,23 @@ from acr_wsss_tpu_torch.configs import InferConfig, ModelConfig, TrainConfig  # 
 from acr_wsss_tpu_torch.data import voc as voc_data  # noqa: E402
 from acr_wsss_tpu_torch.infer_cam import build_infer_fn, process_image  # noqa: E402
 from acr_wsss_tpu_torch.models.acr import ACR, init_random_  # noqa: E402
+from acr_wsss_tpu_torch.models import vit as vit_mod  # noqa: E402
 from acr_wsss_tpu_torch.models.convert import flax_to_state_dict  # noqa: E402
 from acr_wsss_tpu_torch.ops import _build, attn_pair  # noqa: E402
 from acr_wsss_tpu_torch.ops import pamr as pamr_ops  # noqa: E402
+from acr_wsss_tpu_torch.ops.attention import attention_with_probs  # noqa: E402
 from acr_wsss_tpu_torch.ops.attn_cuda import (BWD_KERNEL, KERNEL,  # noqa: E402
                                               attention_qkv_cols_backward,
                                               attention_qkv_cols_backward_plain,
                                               attention_qkv_cols_forward,
                                               attention_qkv_cols_plain,
-                                              fused_attention_qkv_cols)
+                                              backward_plain, fused_attention_nhd,
+                                              fused_attention_qkv,
+                                              fused_attention_qkv_cols,
+                                              fused_attention_with_probs)
+from acr_wsss_tpu_torch.ops.attn_cuda import backward as attn_backward  # noqa: E402
+from acr_wsss_tpu_torch.ops.attn_cuda import forward as attn_forward  # noqa: E402
+from acr_wsss_tpu_torch.ops.attn_cuda import forward_plain  # noqa: E402
 from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_backward,  # noqa: E402
                                               pair_consistency_backward_plain,
                                               pair_consistency_forward,
@@ -110,6 +128,11 @@ PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # |v|, absolute) and the final bf16 rounding adds one ulp (2^-8 relative).
 PROBS_ATOL = 1e-6
 OUT_RTOL, OUT_ATOL = 2.0 ** -7, 2.0 ** -8
+# bf16 export: kernel and plain version each round a float32 head mean once,
+# and the means agree within PROBS_ATOL, so the two bf16 values are at most
+# one bf16 ulp apart: 2^-7 of the value at most (values just above a power
+# of two), plus PROBS_ATOL where a mean is near 0.
+BF16_PROBS_RTOL = 2.0 ** -7
 # CAMs (min-max normalized to [0, 1]) of the kernel path against the plain
 # path, both bf16 through 12 blocks: the rounding differences above, carried
 # through blocks 0-9 and the GETAM backward of blocks 10-11.
@@ -193,6 +216,17 @@ def check_k1(device, errs) -> None:
             elif probs is not None:
                 raise AssertionError("export='none' returned probs")
             errs[("K1", B, N, export)] = err
+        out, probs = fused_attention_qkv_cols(qkv, HEAD_DIM ** -0.5, HEADS, "mean",
+                                              torch.bfloat16)
+        ref_out, ref_probs = attention_qkv_cols_plain(qkv, HEAD_DIM ** -0.5, HEADS, "mean",
+                                                      torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"  K1 forward B={B} N={N} export=mean, probs bfloat16")
+        if probs.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 export came back as {probs.dtype}")
+        errs[("K1", B, N, "mean_bf16")] = max(
+            check_close("out", out, ref_out, OUT_RTOL, OUT_ATOL),
+            check_close("probs", probs, ref_probs, BF16_PROBS_RTOL, PROBS_ATOL))
 
 
 def check_grad(name, got, ref) -> float:
@@ -233,9 +267,11 @@ def check_k2_k1b(device, errs) -> None:
         torch.cuda.synchronize()
         errs[("K2b", B, N)] = check_grad("dqkv", got, ref)
 
-        for with_de in (True, False):
+        for with_de in (True, False, "bf16"):
             de = torch.randn((B, N, N), generator=gen, device=device) if with_de else None
-            log(f"  K1b B={B} N={N} de={'dense' if with_de else 'none'}")
+            if with_de == "bf16":
+                de = de.to(torch.bfloat16)
+            log(f"  K1b B={B} N={N} de={'none' if de is None else de.dtype}")
             got = attention_qkv_cols_backward(qkv, g, de, scale, HEADS)
             ref = attention_qkv_cols_backward_plain(qkv, g, de, scale, HEADS)
             torch.cuda.synchronize()
@@ -274,8 +310,17 @@ def phase_kernels(device) -> dict:
     return errs
 
 
+ENTRIES = {"K5a": fused_attention_with_probs, "K5b": fused_attention_nhd,
+           "K5c": fused_attention_qkv}
+ENTRY_LAYOUTS = {"K5a": "bhnd", "K5b": "nhd", "K5c": "cols"}
+# The export dtypes each entry takes (JAX's K5a exports float32 only).
+ENTRY_DTYPES = {"K5a": (torch.float32,), "K5b": (torch.float32, torch.bfloat16),
+                "K5c": (torch.float32, torch.bfloat16)}
+
+
 def zero_counts() -> dict:
-    return {"K1f": 0, "K1n": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K3": 0, "K4": 0}
+    return {"K1f": 0, "K1n": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K3": 0, "K4": 0,
+            **{f"{e}{d}": 0 for e in ENTRIES for d in "fb"}}
 
 
 def reset_counts() -> None:
@@ -287,6 +332,8 @@ def reset_counts() -> None:
     pair_consistency_backward.launches = 0
     pamr_affinity.launches = 0
     pamr_update.launches = 0
+    for fn in ENTRIES.values():
+        fn.launches = fn.launches_noexport = fn.backward_launches = 0
 
 
 def read_counts() -> dict:
@@ -295,7 +342,9 @@ def read_counts() -> dict:
             "K1b": attention_qkv_cols_backward.launches,
             "K2f": pair_consistency_forward.launches,
             "K2b": pair_consistency_backward.launches,
-            "K3": pamr_affinity.launches, "K4": pamr_update.launches}
+            "K3": pamr_affinity.launches, "K4": pamr_update.launches,
+            **{f"{e}f": fn.launches for e, fn in ENTRIES.items()},
+            **{f"{e}b": fn.backward_launches for e, fn in ENTRIES.items()}}
 
 
 def make_images(tmp: str, seed: int):
@@ -580,7 +629,8 @@ def compare_steps(name, got, ref) -> None:
 def phase_step_compare(device, cfg):
     """One train step, kernel path against plain path, from the same seeded
     weights and the first training batch. Returns (fused kernel step's
-    model, optimizer, batch, per-layer launches, max abs err)."""
+    model, optimizer, batch, per-layer launches, (weights, grid, batch,
+    the plain step))."""
     grid = (cfg.crop_size // 16, cfg.crop_size // 16)
     weights = init_random_(train_mod.build_model(cfg.model), seed=cfg.seed).state_dict()
     labels = voc_data.load_cls_labels(cfg.cls_labels_path)
@@ -616,8 +666,195 @@ def phase_step_compare(device, cfg):
     if launches != {**zero_counts(), "K1f": depth, "K1b": depth}:
         raise AssertionError(f"expected {depth} K1f and {depth} K1b launches, no other")
     compare_steps("per-layer branch", per_layer, plain)
-    del plain, per_layer
-    return fused[0], fused[1], batch, launches
+    del per_layer
+    return fused[0], fused[1], batch, launches, (weights, grid, batch, plain)
+
+
+class _PlainK1(torch.autograd.Function):
+    """K1 and its VJP as their plain versions, on any device."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale, num_heads, export, probs_dtype):
+        ctx.save_for_backward(qkv)
+        ctx.scale, ctx.num_heads = scale, num_heads
+        ctx.set_materialize_grads(False)
+        return attention_qkv_cols_plain(qkv, scale, num_heads, export, probs_dtype)
+
+    @staticmethod
+    def backward(ctx, g_out, g_probs):
+        (qkv,) = ctx.saved_tensors
+        if g_out is None:
+            g_out = qkv.new_zeros(qkv.shape[:-1] + (qkv.shape[-1] // 3,))
+        return (attention_qkv_cols_backward_plain(qkv, g_out.to(qkv.dtype), g_probs,
+                                                  ctx.scale, ctx.num_heads),
+                None, None, None, None)
+
+
+@contextlib.contextmanager
+def k1_as_plain():
+    """The model's kernel branch with K1 replaced by its plain versions, the
+    bf16 export included: the reference that isolates the kernels in a bf16
+    step. (The plain path exports float32; the L1 terms' gradient, alpha
+    times the sign of a difference of two views' probs, changes wherever
+    the bf16 rounding makes that difference 0 or flips it.)"""
+    kernel = vit_mod.fused_attention_qkv_cols
+    vit_mod.fused_attention_qkv_cols = (
+        lambda qkv, scale, num_heads, export="mean", probs_dtype=torch.float32:
+        _PlainK1.apply(qkv, scale, num_heads, export, probs_dtype))
+    try:
+        yield
+    finally:
+        vit_mod.fused_attention_qkv_cols = kernel
+
+
+def entry_inputs(qkv, entry):
+    """An entry's inputs as a projection gives them: K5a the (B, H, N, D)
+    permute views of qkv (as the model's plain branch makes them), K5b its
+    three column chunks, K5c qkv itself."""
+    if entry == "K5a":
+        return list(qkv.unflatten(-1, (3, HEADS, HEAD_DIM)).permute(2, 0, 3, 1, 4))
+    if entry == "K5b":
+        return [t.contiguous() for t in qkv.chunk(3, dim=-1)]
+    return [qkv]
+
+
+def call_entry(entry, xs, probs_dtype, export="mean"):
+    """The entry as a user calls it: K5a through ``attention_with_probs``."""
+    if entry == "K5a":
+        return attention_with_probs(*xs, HEAD_DIM ** -0.5, export=export, impl="kernel")
+    return ENTRIES[entry](*xs, HEAD_DIM ** -0.5, HEADS, export, probs_dtype)
+
+
+def check_entries(device, errs) -> None:
+    """K5a, K5b and K5c, forward and backward, against their plain versions
+    at the training shape, with each export dtype; export "none" gives the
+    same out and no probs."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    B, N, scale = 2 * TRAIN_BATCH, N_TOKENS, HEAD_DIM ** -0.5
+    qkv = torch.randn((B, N, 3 * HEADS * HEAD_DIM), generator=gen,
+                      device=device).to(torch.bfloat16)
+    for entry, layout in ENTRY_LAYOUTS.items():
+        xs = entry_inputs(qkv, entry)
+        for probs_dtype in ENTRY_DTYPES[entry]:
+            name = f"{entry} ({layout}) B={B} N={N} probs {str(probs_dtype)[6:]}"
+            log(f"  {name} forward")
+            out, probs = attn_forward(layout, xs, scale, HEADS, "mean", probs_dtype,
+                                      ENTRIES[entry])
+            out_none, probs_none = attn_forward(layout, xs, scale, HEADS, "none", probs_dtype,
+                                                ENTRIES[entry])
+            ref_out, ref_probs = forward_plain(layout, xs, scale, HEADS, "mean", probs_dtype)
+            torch.cuda.synchronize()
+            if probs.dtype != probs_dtype or probs_none is not None \
+                    or not torch.equal(out_none, out):
+                raise AssertionError(f"{name}: probs dtype {probs.dtype}, or export 'none' "
+                                     f"differs from 'mean'")
+            rtol = 0.0 if probs_dtype == torch.float32 else BF16_PROBS_RTOL
+            errs[(entry, "fwd", probs_dtype)] = max(
+                check_close("out", out, ref_out, OUT_RTOL, OUT_ATOL),
+                check_close("probs", probs, ref_probs, rtol, PROBS_ATOL))
+            log(f"  {name} backward, de {str(probs_dtype)[6:]}")
+            g = torch.randn(out.shape, generator=gen, device=device).to(torch.bfloat16)
+            de = torch.randn((B, N, N), generator=gen, device=device).to(probs_dtype)
+            got = attn_backward(layout, xs, g, de, scale, HEADS, ENTRIES[entry])
+            ref = backward_plain(layout, xs, g, de, scale, HEADS)
+            torch.cuda.synchronize()
+            errs[(entry, "bwd", probs_dtype)] = max(
+                check_grad(f"d{i}", a, b) for i, a, b in zip("qkv" if len(got) == 3 else "x",
+                                                             got, ref))
+
+
+def phase_attention_entries(device, cfg, step_ctx):
+    """The three K5 entries against their plain versions, then through
+    autograd as a user calls them (launches counted), then the per-layer
+    branch with a bf16 export: one step against the plain path and a few
+    steps of ``train.train``. Returns the max abs errs and the launches
+    of the entry run and of the bf16 training run."""
+    errs: dict = {}
+    check_entries(device, errs)
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    B, N, scale = 2 * TRAIN_BATCH, N_TOKENS, HEAD_DIM ** -0.5
+    qkv = torch.randn((B, N, 3 * HEADS * HEAD_DIM), generator=gen,
+                      device=device).to(torch.bfloat16)
+    w_probs = torch.randn((B, N, N), generator=gen, device=device)
+    runs = []
+    reset_counts()
+    for entry, layout in ENTRY_LAYOUTS.items():
+        for probs_dtype in ENTRY_DTYPES[entry]:
+            xs = [t.detach().requires_grad_(True) for t in entry_inputs(qkv, entry)]
+            out, probs = call_entry(entry, xs, probs_dtype)
+            w_out = torch.randn(out.shape, generator=gen, device=device)
+            ((out.float() * w_out).sum() + (probs.float() * w_probs).sum()).backward()
+            runs.append((entry, layout, probs_dtype, xs, w_out))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expected = {**zero_counts(), **{f"{e}{d}": len(ENTRY_DTYPES[e]) for e in ENTRIES
+                                   for d in "fb"}}
+    log(f"  entries through autograd (K5a as attention_with_probs(impl='kernel')), each "
+        f"export dtype once: launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"expected {expected}")
+    for entry, layout, probs_dtype, xs, w_out in runs:
+        log(f"  {entry} gradients through autograd, probs {str(probs_dtype)[6:]}, against "
+            f"the plain backward")
+        refs = backward_plain(layout, [x.detach() for x in xs], w_out.to(torch.bfloat16),
+                              w_probs.to(probs_dtype), scale, HEADS)
+        for x, ref in zip(xs, refs):
+            if x.grad is None or x.grad.shape != x.shape:
+                raise AssertionError(f"{entry}: no gradient of the input's shape")
+            check_grad("grad", x.grad, ref)
+    del runs
+
+    weights, grid, batch, plain = step_ctx
+    cfg16 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, fuse_consistency=False, probs_dtype="bfloat16"),
+        session_name="smoke_bf16")
+    reset_counts()
+    step = one_step(cfg16, "kernel", False, weights, batch, grid)
+    torch.cuda.synchronize()
+    step_launches = read_counts()
+    depth = step[0].spec.depth
+    log(f"  per-layer branch, probs_dtype bfloat16 (K1f bf16 export, K1b bf16 de), against "
+        f"the plain per-layer path; launches {step_launches}")
+    if step_launches != {**zero_counts(), "K1f": depth, "K1b": depth}:
+        raise AssertionError(f"expected {depth} K1f and {depth} K1b launches, no other")
+    with torch.no_grad():
+        dtypes = {p.dtype for p in step[0].forward_cls(
+            torch.zeros((1, CROP, CROP, 3), device=device))["probs_layers"]}
+    if dtypes != {torch.bfloat16}:
+        raise AssertionError(f"the bf16 model exported {dtypes}")
+    reset_counts()
+    with k1_as_plain():
+        ref = one_step(cfg16, "kernel", False, weights, batch, grid)
+    torch.cuda.synchronize()
+    if read_counts() != zero_counts():
+        raise AssertionError("the plain reference launched a kernel")
+    log("  against the same step with K1's plain versions (bf16 export, bf16 de):")
+    compare_steps("per-layer branch, bf16 export", step, ref)
+    log("  against the plain per-layer path, which exports float32:")
+    compare_steps("per-layer branch, bf16 against float32 export", step, plain)
+    del step, ref, plain
+
+    log(f"  train.train, per-layer branch, probs_dtype bfloat16, {TRAIN_IMAGES} images, "
+        f"batch {cfg16.batch_size}")
+    reset_counts()
+    state = train_mod.train(cfg16)
+    torch.cuda.synchronize()
+    train_launches = read_counts()
+    val_passes = math.ceil(VAL_IMAGES / cfg16.batch_size)
+    expected = {**zero_counts(), "K1f": depth * state.steps, "K1b": depth * state.steps,
+                "K1n": depth * val_passes}
+    log(f"  launches: {train_launches} over {state.steps} train steps and {val_passes} "
+        f"validation batch (expected {expected})")
+    if train_launches != expected:
+        raise AssertionError("the bf16 per-layer training did not launch the kernels as "
+                             "expected")
+    for i, parts in enumerate(state.history):
+        log(f"  step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in parts.items()))
+        if not all(math.isfinite(v) for v in parts.values()):
+            raise AssertionError(f"step {i}: a loss part is not finite")
+    del state
+    return errs, launches, train_launches
 
 
 def phase_pipeline(cfg: TrainConfig, root: str) -> dict:
@@ -813,7 +1050,9 @@ def time_kernel(label, kernel, plain, library, nbytes, flops, reps, card,
 
 def phase_kernel_timing(device, card) -> dict:
     """Each kernel's time at its main path's shape: K1f at B=2 (inference),
-    K1n at B=2 and B=4 (validation), K2f, K2b and K1b at B=8 (training)."""
+    K1n at B=2 and B=4 (validation), K2f, K2b, K1b and K1f with either
+    export dtype at B=8 (training), and K5a, K5b and K5c forward and
+    backward at B=8."""
     H, D, N = HEADS, HEAD_DIM, N_TOKENS
     scale = D ** -0.5
     gen = torch.Generator(device=device).manual_seed(1)
@@ -880,7 +1119,40 @@ def phase_kernel_timing(device, card) -> dict:
         sdpa_fwd_bwd(q, k, v, g_heads),
         2 * qkv.numel() * 2 + g.numel() * 2 + de.numel() * 4, bwd_flops, 10,
         card, "SDPA forward+backward (no de)")
-    del qkv, q, k, v, g, g_heads, de, sign
+    de16 = de.to(torch.bfloat16)
+    out["K1b_bf16"] = time_kernel(
+        f"{BWD_KERNEL} (K1b, dense bf16 de) at B={B}",
+        lambda: attention_qkv_cols_backward(qkv, g, de16, scale, H),
+        lambda: attention_qkv_cols_backward_plain(qkv, g, de16, scale, H),
+        sdpa_fwd_bwd(q, k, v, g_heads),
+        2 * qkv.numel() * 2 + g.numel() * 2 + de16.numel() * 2, bwd_flops, 10,
+        card, "SDPA forward+backward (no de)")
+    io = qkv.numel() * 2 + B * N * H * D * 2
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        out[f"K1f_B{B}_{str(dtype)[6:]}"] = time_kernel(
+            f"{KERNEL} (K1f) at B={B}, export mean, probs {str(dtype)[6:]}",
+            lambda: attention_qkv_cols_forward(qkv, scale, H, "mean", dtype),
+            lambda: attention_qkv_cols_plain(qkv, scale, H, "mean", dtype), sdpa(q, k, v),
+            io + B * N * N * size, fwd_flops, 10, card, "SDPA (output only)")
+    # K5: K5a on contiguous (B, H, N, D) q, k, v, K5b on split (B, N, H*D)
+    # tensors, K5c on the joint projection; float32 export and de.
+    operands = {"K5a": ([q, k, v], g_heads), "K5b": ([t.contiguous() for t in qkv.chunk(3, -1)],
+                                                      g), "K5c": ([qkv], g)}
+    for entry, layout in ENTRY_LAYOUTS.items():
+        xs, g_out = operands[entry]
+        out[f"{entry}f"] = time_kernel(
+            f"{KERNEL} ({entry}, {layout} layout) at B={B}, export mean, probs float32",
+            lambda: call_entry(entry, xs, torch.float32),
+            lambda: forward_plain(layout, xs, scale, H, "mean", torch.float32), sdpa(q, k, v),
+            io + B * N * N * 4, fwd_flops, 10, card, "SDPA (output only)")
+        out[f"{entry}b"] = time_kernel(
+            f"{BWD_KERNEL} ({entry}, {layout} layout, dense float32 de) at B={B}",
+            lambda: attn_backward(layout, xs, g_out, de, scale, H, ENTRIES[entry]),
+            lambda: backward_plain(layout, xs, g_out, de, scale, H),
+            sdpa_fwd_bwd(q, k, v, g_heads),
+            2 * qkv.numel() * 2 + g.numel() * 2 + de.numel() * 4, bwd_flops, 10,
+            card, "SDPA forward+backward (no de)")
+    del qkv, q, k, v, g, g_heads, de, de16, sign, operands
     out.update(pamr_kernel_timing(device, card))
     return out
 
@@ -936,47 +1208,55 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/8] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/9] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/8] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/9] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/8] kernels against their plain versions on the card")
+    log("[3/9] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/8] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+        log("[4/9] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
             f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
         (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
          pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/8] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/9] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/8] one train step, kernel path against plain path, same weights and batch")
+        log("[6/9] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
-        model, opt, batch, layer_launches = phase_step_compare(device, cfg)
+        model, opt, batch, layer_launches, step_ctx = phase_step_compare(device, cfg)
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[7/8] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+        log("[7/9] attention entries: K5a, K5b, K5c against their plain versions and "
+            "through autograd; the per-layer branch with a bf16 export")
+        t0 = time.perf_counter()
+        entry_errs, entry_launches, bf16_launches = phase_attention_entries(
+            device, cfg, step_ctx)
+        del step_ctx
+        log(f"  attention entries phase: {time.perf_counter() - t0:.1f} s")
+
+        log(f"[8/9] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
             f"crop 384, the recipe")
         t0 = time.perf_counter()
         phase_pipeline(cfg, os.path.join(tmp, "train"))
         log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[8/8] timing on {card}")
+        log(f"[9/9] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "
@@ -1025,7 +1305,30 @@ def main() -> int:
         {"name": pamr_ops.KERNEL + " (update)", "route": "cuda", "source": src + "pamr.cu",
          "replaces": tpu_pamr + "125", "launches": pamr_launches["K4"],
          "max_abs_err": errs[("K4", 2, CROP, CROP)], **timing["K4_B2"]},
+        {"name": KERNEL + " (bf16 export)", "route": "cuda",
+         "source": src + "attn_fwd_headmean.cu", "replaces": tpu + "380",
+         "launches": bf16_launches["K1f"], "max_abs_err": errs[("K1", 4, n, "mean_bf16")],
+         **timing[f"K1f_B{b_train}_bfloat16"]},
+        {"name": BWD_KERNEL + " (dense bf16 de)", "route": "cuda",
+         "source": src + "attn_bwd.cu", "replaces": tpu + "421",
+         "launches": bf16_launches["K1b"], "max_abs_err": errs[("K1b", b_train, n, "bf16")],
+         **timing["K1b_bf16"]},
     ]
+    # K5: the kernel bodies each entry's pallas_calls run (fwd, bwd).
+    for entry, fwd_line, bwd_line in (("K5a", "71", "152"), ("K5b", "380", "421"),
+                                      ("K5c", "597", "633")):
+        layout = ENTRY_LAYOUTS[entry]
+        kernels += [
+            {"name": f"{KERNEL} ({entry}, {layout} layout)", "route": "cuda",
+             "source": src + "attn_fwd_headmean.cu", "replaces": tpu + fwd_line,
+             "launches": entry_launches[entry + "f"],
+             "max_abs_err": max(v for (e, d, _), v in entry_errs.items()
+                                if e == entry and d == "fwd"), **timing[entry + "f"]},
+            {"name": f"{BWD_KERNEL} ({entry}, {layout} layout)", "route": "cuda",
+             "source": src + "attn_bwd.cu", "replaces": tpu + bwd_line,
+             "launches": entry_launches[entry + "b"],
+             "max_abs_err": max(v for (e, d, _), v in entry_errs.items()
+                                if e == entry and d == "bwd"), **timing[entry + "b"]}]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -3,8 +3,10 @@
 Marked ``cuda``: they need a CUDA card and ``nvcc`` and skip elsewhere.
 On the card's machine, which has no JAX (``tests/conftest.py`` imports
 it): ``python -m pytest --noconftest tests/test_torch_cuda.py``. Covers
-K1f/K1n, K1b, K2f, K2b, K3 and K4, their launch counters and what they
-refuse.
+K1f/K1n (with the float32 and the bfloat16 export), K1b (with a float32
+and a bfloat16 de), K2f, K2b, K3 and K4, the three other attention layouts
+K5a, K5b and K5c (forward and backward), their launch counters and what
+they refuse.
 Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
@@ -163,7 +165,7 @@ def test_backward_kernels_raise_on_what_they_do_not_take(device):
         attention_qkv_cols_backward(qkv, g.float(), None, D ** -0.5, H)
     with pytest.raises(TypeError, match="float32"):
         attention_qkv_cols_backward(qkv, g, torch.zeros((2, 5, 5), device=device,
-                                                        dtype=torch.bfloat16), D ** -0.5, H)
+                                                        dtype=torch.float16), D ** -0.5, H)
     with pytest.raises(ValueError, match="head dim"):
         attention_qkv_cols_backward(qkv, g, None, D ** -0.5, 2 * H)
     with pytest.raises(ValueError, match="contiguous"):
@@ -180,6 +182,118 @@ def test_backward_kernels_raise_on_what_they_do_not_take(device):
     with pytest.raises(ValueError, match="shared-memory"):
         pair_consistency_forward(torch.zeros((2, 8192, 3 * H * D), device=device,
                                              dtype=torch.bfloat16), D ** -0.5, H)
+
+
+# --- bf16 export (K1f, K1b) and the other layouts (K5a, K5b, K5c) ---------
+# bf16 export: the kernel and the plain version each round a float32 head
+# mean once; the means agree within 1e-6, so the bf16 values within one
+# bf16 ulp of the plain version's (2^-7 relative at most).
+BF16_PROBS_RTOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("batch,n", [(8, 577), (2, 37), (1, 1)])
+def test_k1_bf16_export_and_bf16_de_match_plain(device, batch, n):
+    from acr_wsss_tpu_torch.ops.attn_cuda import (attention_qkv_cols_backward,
+                                                  attention_qkv_cols_backward_plain)
+
+    qkv = _qkv(device, batch, n, seed=n + 7)
+    out, probs = fused_attention_qkv_cols(qkv, D ** -0.5, H, "mean", torch.bfloat16)
+    ref_out, ref_probs = attention_qkv_cols_plain(qkv, D ** -0.5, H, "mean", torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(n + 8)
+    g = torch.randn((batch, n, H * D), generator=gen, device=device).bfloat16()
+    de = torch.randn((batch, n, n), generator=gen, device=device).bfloat16()
+    got = attention_qkv_cols_backward(qkv, g, de, D ** -0.5, H)
+    ref = attention_qkv_cols_backward_plain(qkv, g, de, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert probs.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=OUT_RTOL, atol=OUT_ATOL)
+    torch.testing.assert_close(probs.float(), ref_probs.float(), rtol=BF16_PROBS_RTOL, atol=1e-6)
+    _assert_grad_close(got, ref)
+
+
+def _entry_inputs(device, entry, batch, n, seed):
+    """bf16 inputs of the entry's layout, as views of one (B, N, 3*H*D)
+    projection where the layout allows it (K5a: the permute views the
+    model's plain branch makes)."""
+    qkv = _qkv(device, batch, n, seed)
+    if entry == "K5a":
+        return list(qkv.unflatten(-1, (3, H, D)).permute(2, 0, 3, 1, 4))
+    if entry == "K5b":
+        return [t.contiguous() for t in qkv.chunk(3, dim=-1)]
+    return [qkv]
+
+
+def _entry(entry):
+    from acr_wsss_tpu_torch.ops import attn_cuda
+
+    return {"K5a": attn_cuda.fused_attention_with_probs, "K5b": attn_cuda.fused_attention_nhd,
+            "K5c": attn_cuda.fused_attention_qkv}[entry]
+
+
+def _call(entry, xs, export="mean", probs_dtype=torch.float32):
+    if entry == "K5a":
+        return _entry(entry)(*xs, D ** -0.5, export=export)
+    return _entry(entry)(*xs, D ** -0.5, H, export, probs_dtype)
+
+
+@pytest.mark.parametrize("entry,probs_dtype", [
+    ("K5a", torch.float32), ("K5b", torch.float32), ("K5b", torch.bfloat16),
+    ("K5c", torch.float32), ("K5c", torch.bfloat16)])
+@pytest.mark.parametrize("batch,n", [(8, 577), (2, 37), (1, 1)])
+def test_attention_entries_match_plain(device, entry, probs_dtype, batch, n):
+    from acr_wsss_tpu_torch.ops import attn_cuda
+
+    layout = {"K5a": "bhnd", "K5b": "nhd", "K5c": "cols"}[entry]
+    xs = _entry_inputs(device, entry, batch, n, seed=n + 9)
+    gen = torch.Generator(device=device).manual_seed(n + 10)
+    fn = _entry(entry)
+    before = (fn.launches, fn.launches_noexport, fn.backward_launches)
+    out, probs = _call(entry, xs, "mean", probs_dtype)
+    out_none, probs_none = _call(entry, xs, "none", probs_dtype)
+    ref_out, ref_probs = attn_cuda.forward_plain(layout, xs, D ** -0.5, H, "mean", probs_dtype)
+    g = torch.randn(out.shape, generator=gen, device=device).bfloat16()
+    de = torch.randn((batch, n, n), generator=gen, device=device).to(probs_dtype)
+    grads = attn_cuda.backward(layout, xs, g, de, D ** -0.5, H, fn)
+    refs = attn_cuda.backward_plain(layout, xs, g, de, D ** -0.5, H)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_noexport, fn.backward_launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    assert out.shape == ref_out.shape and probs.dtype == probs_dtype and probs_none is None
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=OUT_RTOL, atol=OUT_ATOL)
+    assert torch.equal(out_none, out)
+    if probs_dtype == torch.float32:
+        torch.testing.assert_close(probs, ref_probs, rtol=0, atol=PROBS_ATOL)
+    else:
+        torch.testing.assert_close(probs.float(), ref_probs.float(), rtol=BF16_PROBS_RTOL,
+                                   atol=1e-6)
+    for got, ref in zip(grads, refs):
+        assert got.shape == ref.shape
+        _assert_grad_close(got, ref)
+
+
+@pytest.mark.parametrize("entry", ["K5a", "K5b", "K5c"])
+def test_attention_entries_take_a_gradient(device, entry):
+    xs = [t.detach().requires_grad_(True) for t in _entry_inputs(device, entry, 2, 37, 11)]
+    fn = _entry(entry)
+    before = (fn.launches, fn.backward_launches)
+    out, probs = _call(entry, xs)
+    (out.float().sum() + (probs * torch.arange(37, device=device)).sum()).backward()
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in xs)
+
+
+@pytest.mark.parametrize("entry", ["K5a", "K5b", "K5c"])
+def test_attention_entries_raise_on_what_they_do_not_take(device, entry):
+    xs = _entry_inputs(device, entry, 2, 37, 12)
+    with pytest.raises(TypeError, match="bfloat16"):
+        _call(entry, [t.float() for t in xs])
+    with pytest.raises(ValueError, match="unit stride"):
+        _call(entry, [torch.cat([t, t], dim=-1)[..., ::2] for t in xs])
+    with pytest.raises(ValueError, match="16-byte"):   # rows start 2 bytes off
+        _call(entry, [torch.cat([t, t], dim=-1)[..., 1:t.shape[-1] + 1] for t in xs])
+    with pytest.raises(ValueError, match="shared-memory"):
+        _call(entry, _entry_inputs(device, entry, 1, 8192, 13))
 
 
 # --- K3, K4 ---------------------------------------------------------------

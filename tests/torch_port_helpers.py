@@ -56,6 +56,20 @@ def random_flax_params(jax_module, example, seed):
     return flat
 
 
+def assert_within_one_bf16_ulp(actual, desired, atol=1e-6):
+    """|actual - desired| <= one bfloat16 ulp of desired (2^(e - 7) for
+    |desired| in [2^e, 2^(e + 1))) + atol, elementwise."""
+    actual = np.asarray(actual, np.float64)
+    desired = np.asarray(desired, np.float64)
+    assert actual.shape == desired.shape
+    tiny = np.finfo(np.float32).tiny
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(desired), tiny))) - 7)
+    err = np.abs(actual - desired)
+    bad = err > ulp + atol
+    assert not bad.any(), (f"{int(bad.sum())} of {bad.size} elements more than one bf16 ulp "
+                           f"apart, max abs err {err.max():.3g}")
+
+
 def build_acr_pair(crop, seed=0, backbone="vitb_hybrid", jax_impl="xla",
                    torch_impl="kernel"):
     """(jax model, jax params, port model) in float32 on shared weights."""

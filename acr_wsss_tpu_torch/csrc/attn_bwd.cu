@@ -1,5 +1,6 @@
 // Attention backward over strided q, k and v: the softmax gradient with a
-// cotangent `de` of the head-mean probabilities, in two forms.
+// cotangent `de` of the head-mean probabilities, in two forms, on the
+// tensor cores.
 //
 // Replaces TPU kernels of acr_wsss_tpu/ops/attn_pallas.py:
 //   _bwd_kernel_nhd  (K1b through _bwd_qkv_cols, K5b through _bwd_nhd),
@@ -21,9 +22,9 @@
 //   ds = p * (dp - rowsum(dp * p))
 //   dq_h = ds k_h * scale,  dk_h = ds^T q_h * scale,  dv_h = p^T g_h
 // written as bf16 into dq, dk and dv (for the pair entry: dqkv (B, N,
-// 3*H*D) in the column layout of qkv).
-// All arithmetic is fp32 (as both TPU kernels run it: `mm = float32`, and
-// the pair kernel casts g to fp32); rows and keys past N are masked.
+// 3*H*D) in the column layout of qkv). The arithmetic is fp32, as both TPU
+// kernels run it (`mm = float32`, and the pair kernel casts g to fp32);
+// rows and keys past N are masked, and N has no limit.
 //
 // Bound on the card at the training shape (B = 8, H = 12, N = 577, D = 64):
 // 5 products of 2*B*H*N^2*D = 20.5 GFLOP (20.7 us at 989 TFLOP/s bf16);
@@ -31,360 +32,467 @@
 // sign tile 1.33 MB (pair: 51.0 MB, 15.2 us) or a dense de 10.65 MB
 // (60.3 MB, 18.0 us at 3.35 TB/s). The operations set the bound: 20.7 us.
 //
-// Design (simple, correct and deterministic first): two passes, as a
-// flash-attention backward, so that no sum crosses blocks.
-//   Row pass, one block per (8 query rows, head, b): logits, the exact
-//   softmax, dp, c = rowsum(dp * p) and ds for its rows in shared memory;
-//   it writes dq for its rows and saves the row max, row sum and c.
-//   Key pass, one block per (32 keys, head, b): walks all query rows in
-//   tiles of 32, recomputes p and ds for its keys from the saved row
-//   statistics (bit for bit the row pass's values: same operations in the
-//   same order), and sums dk and dv in registers over the rows.
-// dk = ds^T q and dv = p^T g sum over all query rows; the key pass owns
-// those sums, so there are no atomics and the result is the same from run
-// to run. Products run on the CUDA cores (no tensor cores, no TMA).
+// Design: the products run on the tensor cores (wgmma m64n64k16 of one
+// warpgroup, fp32 sums; attn_tiles.cuh). q, k, v and g are bf16, so the logits and
+// g v^T are exact products summed in fp32. p and ds are fp32: each is fed
+// to the tensor cores as two bf16 parts, hi = bf16(x) and lo = bf16(x -
+// hi), which carry x to about 2^-17 (one bf16 part alone misses the
+// gradient tolerance; tests/test_torch_attn_rounding.py). Two passes, as
+// a flash-attention backward, so that no sum crosses blocks and no float
+// atomics are needed; the result is the same from run to run.
+//   Row pass, one block of 4 warps per (64 query rows, head, b): K and V
+//   stream in tiles of 64 keys (cp.async, double-buffered). Sweep 1 keeps
+//   the row max, the sum of exponentials and the sum of exp * dp (both
+//   rescaled when the max grows), so c = rowsum(dp * p) = that sum / the
+//   sum of exponentials. Sweep 2 recomputes p and ds and sums ds k. It
+//   writes dq and saves (max, 1 / sum, c) per row: (B, H, N, 3) fp32
+//   scratch.
+//   Key pass, one block per (64 keys, head, b): walks the query tiles,
+//   computes S^T = k q^T and dp^T = v g^T for its keys, forms p and ds
+//   from the saved statistics, and sums p^T g and ds^T q in registers. It
+//   takes each query tile in two halves of 32 rows, so that one half's
+//   products run while the other's p and ds are formed, and is held to
+//   168 registers, so that three blocks fit on an SM.
+// de streams with the key (row pass) or query (key pass) tiles: each row
+// of a 64 x 64 tile of de in 16-byte cp.async chunks into shared memory,
+// as it lies (fp32, bf16 or int8, not 16-byte aligned), read from there
+// where dp needs it and converted to fp32 de / H. p = exp(s - max) *
+// (1 / sum), with the fast exponential (2 ulp, plus 2^-23 |s - max|
+// relative).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "attn_tiles.cuh"
+
 namespace {
 
-constexpr int kD = 64;        // head dim
-constexpr int kThreads = 256;
-constexpr int kBM = 8;        // row pass: query rows per block (one warp per row)
-constexpr int kKT = 64;       // row pass: keys per K tile of ds @ k
-constexpr int kBN = 32;       // key pass: keys per block
-constexpr int kBR = 32;       // key pass: query rows per tile
-constexpr int kPad = kD + 1;  // key pass: padded row of K and V in shared memory
-
-// Element strides of one (B, N, H, D) operand; D has unit stride.
-struct Strides {
-  long long b, n, h;
-};
+using namespace tiles;
 
 struct Operands {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* g;
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* g;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
   Strides sq, sk, sv, sg, sdq, sdk, sdv;
 };
 
-// Operand `p` at batch element b, head h: its row n starts at the result
-// + n * s.n.
-template <typename T>
-__device__ __forceinline__ T* head_base(T* p, const Strides& s, int b, int h) {
-  return p + (b * s.b + h * s.h);
-}
+// The source of de, a template argument of the kernels.
+enum DeKind { kDeNone = 0, kDeF32 = 1, kDeBF16 = 2, kDeSign = 3 };
 
 struct DeSource {
-  const float* dense;     // (B, N, N) fp32 cotangent of the head mean, or null
-  const __nv_bfloat16* dense_bf16;  // the same in bf16, or null
-  const int8_t* sign;     // (B / 2, N, N) int8 sign tile, or null
+  const void* dense;      // (B, N, N) fp32 or bf16 cotangent of the head mean
+  const int8_t* sign;     // (B / 2, N, N) int8 sign tile
   const float* g_cls;     // (B / 2,) fp32
   const float* g_aff;     // (B / 2,) fp32
   float inv_h;
 };
 
-// de / H at (b, i, j), i and j < N.
-__device__ __forceinline__ float de_at(const DeSource& s, int b, int i, int j, int N) {
-  if (s.sign != nullptr) {
-    const int pair = b >> 1;
-    const float sg = (float)s.sign[((size_t)pair * N + i) * N + j];
-    const float gsel = i == 0 ? s.g_cls[pair] : s.g_aff[pair];
-    const float v = __fmul_rn(__fmul_rn(sg, gsel), s.inv_h);
+template <int kDe>
+__host__ __device__ constexpr int de_bytes() {
+  return kDe == kDeF32 ? 4 : kDe == kDeBF16 ? 2 : 1;
+}
+
+// Bytes of one row of a raw de tile: 64 keys and up to 15 bytes before
+// the first, which is where its 16-byte chunk starts.
+template <int kDe>
+__host__ __device__ constexpr int raw_row() {
+  return kRows * de_bytes<kDe>() + 16;
+}
+
+// Bytes of one stage of a raw de tile in shared memory: its rows, then
+// the offset of each row's first key (int).
+template <int kDe>
+__host__ __device__ constexpr int raw_stage() {
+  return kRows * raw_row<kDe>() + kRows * (int)sizeof(int);
+}
+
+// Bytes of the two stages of raw de tiles.
+template <int kDe>
+__host__ __device__ constexpr int raw_stages() {
+  return kDe == kDeNone ? 0 : 2 * raw_stage<kDe>();
+}
+
+template <int kDe>
+__device__ __forceinline__ int* raw_offs(unsigned char* stage) {
+  return reinterpret_cast<int*>(stage + kRows * raw_row<kDe>());
+}
+
+// First byte of de at (b, i, j0): row i of batch element b (the sign tile
+// of pair b / 2).
+template <int kDe>
+__device__ __forceinline__ const unsigned char* de_row(const DeSource& s, int b, int i, int j0,
+                                                      int N) {
+  constexpr int es = de_bytes<kDe>();
+  const unsigned char* base =
+      kDe == kDeSign ? reinterpret_cast<const unsigned char*>(s.sign) + (size_t)(b >> 1) * N * N
+                     : static_cast<const unsigned char*>(s.dense) + (size_t)b * N * N * es;
+  return base + ((size_t)i * N + j0) * es;
+}
+
+// The bytes of de at rows [i0, i0 + 64) and keys [j0, j0 + 64) into a raw
+// tile, 16-byte chunks with cp.async, without waiting: each row from the
+// aligned chunk that holds its first key (a row of de is not 16-byte
+// aligned unless N is a multiple of 16 / bytes). offs[r] gets the offset
+// of row r's first key in its chunk.
+template <int kDe>
+__device__ __forceinline__ void load_de_async(unsigned char* raw, int* offs, const DeSource& s,
+                                              int b, int i0, int j0, int N) {
+  constexpr int kChunks = raw_row<kDe>() / 16;
+  const int end = min(kRows, N - j0) * de_bytes<kDe>();
+  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks, i = i0 + r;
+    const unsigned char* first = de_row<kDe>(s, b, min(i, N - 1), j0, N);
+    const int off = (int)(reinterpret_cast<uintptr_t>(first) & 15);
+    const unsigned char* chunk = first - off + 16 * c;
+    const bool in = i < N && chunk < first + end;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(raw + r * raw_row<kDe>() + 16 * c)),
+                 "l"(in ? chunk : first - off), "r"(in ? 16 : 0));
+    if (c == 0) offs[r] = off;
+  }
+}
+
+// de / H from its bytes `at` in a raw tile, at query row i of batch
+// element b; g_sel holds the pair's g_cls and g_aff for a sign tile.
+template <int kDe>
+__device__ __forceinline__ float de_value(const unsigned char* at, const DeSource& s,
+                                          float2 g_sel, int b, int i) {
+  if constexpr (kDe == kDeSign) {
+    const float sg = (float)*reinterpret_cast<const int8_t*>(at);
+    const float v = __fmul_rn(__fmul_rn(sg, i == 0 ? g_sel.x : g_sel.y), s.inv_h);
     return (b & 1) ? -v : v;
-  }
-  if (s.dense != nullptr) return __fmul_rn(s.dense[((size_t)b * N + i) * N + j], s.inv_h);
-  if (s.dense_bf16 != nullptr)
-    return __fmul_rn(__bfloat162float(s.dense_bf16[((size_t)b * N + i) * N + j]), s.inv_h);
-  return 0.f;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void load_row64(const __nv_bfloat16* src, float* dst) {
-  const uint4* p = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int c = 0; c < kD / 8; ++c) {
-    const uint4 u = p[c];
-    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float2 f = __bfloat1622float2(p2[t]);
-      dst[c * 8 + 2 * t] = f.x;
-      dst[c * 8 + 2 * t + 1] = f.y;
-    }
+  } else if constexpr (kDe == kDeF32) {
+    return __fmul_rn(*reinterpret_cast<const float*>(at), s.inv_h);
+  } else {
+    return __fmul_rn(__bfloat162float(*reinterpret_cast<const bf16*>(at)), s.inv_h);
   }
 }
 
-// Row pass. stats (B, H, N, 3): row max, row sum of exp, c.
+template <int kDe>
+__device__ __forceinline__ float2 pair_cotangents(const DeSource& s, int b) {
+  if constexpr (kDe == kDeSign) return make_float2(s.g_cls[b >> 1], s.g_aff[b >> 1]);
+  return make_float2(0.f, 0.f);
+}
+
+// Row pass. stats (B, H, N, 3): row max, 1 / row sum of exp, c.
+template <int kDe>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_rows_kernel(Operands op, DeSource de, float* __restrict__ stats, int N, int H,
                      float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int i0 = blockIdx.x * kBM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
+  bf16* sG = sQ + kTileElems;
+  bf16* sK = sG + kTileElems;       // two stages
+  bf16* sV = sK + 2 * kTileElems;   // two stages
+  unsigned char* sRaw = reinterpret_cast<unsigned char*>(sV + 2 * kTileElems);   // two stages
+  const int warp = threadIdx.x >> 5, row0 = warp * 16;
+  const int i0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int tiles_n = (N + kRows - 1) / kRows;
+  const bf16* kb = head_base(op.k, op.sk, b, h);
+  const bf16* vb = head_base(op.v, op.sv, b, h);
+  const float2 g_sel = pair_cotangents<kDe>(de, b);
 
-  float* sQ = smem;                       // kBM x kD
-  float* sG = sQ + kBM * kD;              // kBM x kD
-  float* sP = sG + kBM * kD;              // kBM x N: logits, then p
-  float* sX = sP + kBM * N;               // kBM x N: dp, then ds
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(sX + kBM * N);  // kKT x kD
-
-  const __nv_bfloat16* qb = head_base(op.q, op.sq, b, h);
-  const __nv_bfloat16* kb = head_base(op.k, op.sk, b, h);
-  const __nv_bfloat16* vb = head_base(op.v, op.sv, b, h);
-  const __nv_bfloat16* gb = head_base(op.g, op.sg, b, h);
-  for (int idx = tid; idx < kBM * kD; idx += kThreads) {
-    const int r = idx / kD, d = idx % kD, i = i0 + r;
-    sQ[idx] = i < N ? __bfloat162float(qb[i * op.sq.n + d]) : 0.f;
-    sG[idx] = i < N ? __bfloat162float(gb[i * op.sg.n + d]) : 0.f;
-  }
-  __syncthreads();
-
-  // Logits, then dp: thread t owns keys t, t + kThreads, ...
-  for (int j = tid; j < N; j += kThreads) {
-    float kf[kD];
-    load_row64(kb + j * op.sk.n, kf);
+  load_tile_async(sQ, head_base(op.q, op.sq, b, h), op.sq.n, i0, N);
+  load_tile_async(sG, head_base(op.g, op.sg, b, h), op.sg.n, i0, N);
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, c[2] = {0.f, 0.f};
+  float dq[8][4];
 #pragma unroll
-    for (int r = 0; r < kBM; ++r) {
-      const float4* q4 = reinterpret_cast<const float4*>(sQ + r * kD);
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < kD / 4; ++c) {
-        const float4 qv = q4[c];
-        acc = fmaf(qv.x, kf[4 * c], acc);
-        acc = fmaf(qv.y, kf[4 * c + 1], acc);
-        acc = fmaf(qv.z, kf[4 * c + 2], acc);
-        acc = fmaf(qv.w, kf[4 * c + 3], acc);
+  for (int nt = 0; nt < 8; ++nt) dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
+
+  // The first sweep keeps the statistics, the second sums dq.
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    load_tile_async(sK, kb, op.sk.n, 0, N);
+    load_tile_async(sV, vb, op.sv.n, 0, N);
+    if constexpr (kDe != kDeNone) load_de_async<kDe>(sRaw, raw_offs<kDe>(sRaw), de, b, i0, 0, N);
+    cp_async_commit();
+    for (int kt = 0; kt < tiles_n; ++kt) {
+      const int cur = (kt & 1) * kTileElems, j0 = kt * kRows;
+      if (kt + 1 < tiles_n) {
+        load_tile_async(sK + kTileElems - cur, kb, op.sk.n, j0 + kRows, N);
+        load_tile_async(sV + kTileElems - cur, vb, op.sv.n, j0 + kRows, N);
+        if constexpr (kDe != kDeNone) {
+          unsigned char* nxt = sRaw + (~kt & 1) * raw_stage<kDe>();
+          load_de_async<kDe>(nxt, raw_offs<kDe>(nxt), de, b, i0, j0 + kRows, N);
+        }
       }
-      sP[r * N + j] = __fmul_rn(acc, scale);
-    }
-    load_row64(vb + j * op.sv.n, kf);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      float s[8][4], dp[8][4];
+      wg_fence();
+      dots_async(s, sQ, sK + cur);
+      dots_async(dp, sG, sV + cur);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // The de bytes of the lane's rows g and g + 8 at key 2 t.
+      const unsigned char* de_at[2] = {nullptr, nullptr};
+      if constexpr (kDe != kDeNone) {
+        unsigned char* stage = sRaw + (kt & 1) * raw_stage<kDe>();
 #pragma unroll
-    for (int r = 0; r < kBM; ++r) {
-      const int i = i0 + r;
-      const float4* g4 = reinterpret_cast<const float4*>(sG + r * kD);
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < kD / 4; ++c) {
-        const float4 gv = g4[c];
-        acc = fmaf(gv.x, kf[4 * c], acc);
-        acc = fmaf(gv.y, kf[4 * c + 1], acc);
-        acc = fmaf(gv.z, kf[4 * c + 2], acc);
-        acc = fmaf(gv.w, kf[4 * c + 3], acc);
+        for (int r = 0; r < 2; ++r) {
+          const int rr = row0 + g + 8 * r;
+          de_at[r] = stage + rr * raw_row<kDe>() + raw_offs<kDe>(stage)[rr] + 2 * t * de_bytes<kDe>();
+        }
       }
-      sX[r * N + j] = i < N ? __fadd_rn(acc, de_at(de, b, i, j, N)) : 0.f;
-    }
-  }
-  __syncthreads();
-
-  // Exact softmax, c and ds, one warp per row.
-  for (int r = warp; r < kBM; r += kThreads / 32) {
-    float* prow = sP + r * N;
-    float* xrow = sX + r * N;
-    const int i = i0 + r;
-    if (i >= N) {
-      for (int j = lane; j < N; j += 32) prow[j] = xrow[j] = 0.f;
-      continue;
-    }
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < N; j += 32) m = fmaxf(m, prow[j]);
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(prow[j] - m);
-      prow[j] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    float c = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float p = prow[j] / l;
-      prow[j] = p;
-      c += xrow[j] * p;
-    }
-    c = warp_sum(c);
-    for (int j = lane; j < N; j += 32) xrow[j] = prow[j] * (xrow[j] - c);
-    if (lane == 0) {
-      float* st = stats + (((size_t)b * H + h) * N + i) * 3;
-      st[0] = m;
-      st[1] = l;
-      st[2] = c;
-    }
-  }
-  __syncthreads();
-
-  // dq = ds @ k * scale: thread t owns column d = t % kD of rows rg, rg + 4.
-  const int d = tid % kD;
-  const int rg = tid / kD;
-  constexpr int kRowsPerThread = kBM * kD / kThreads;
-  float o[kRowsPerThread];
 #pragma unroll
-  for (int r2 = 0; r2 < kRowsPerThread; ++r2) o[r2] = 0.f;
-  for (int j0 = 0; j0 < N; j0 += kKT) {
-    for (int idx = tid; idx < kKT * kD / 8; idx += kThreads) {
-      const int jj = idx / (kD / 8), c = idx % (kD / 8), j = j0 + jj;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (j < N) u = *reinterpret_cast<const uint4*>(kb + j * op.sk.n + c * 8);
-      reinterpret_cast<uint4*>(sK)[idx] = u;
-    }
-    __syncthreads();
-    const int jn = min(kKT, N - j0);
-    for (int jj = 0; jj < jn; ++jj) {
-      const float kv = __bfloat162float(sK[jj * kD + d]);
+      for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-      for (int r2 = 0; r2 < kRowsPerThread; ++r2) {
-        o[r2] = fmaf(sX[(rg + (kThreads / kD) * r2) * N + j0 + jj], kv, o[r2]);
+        for (int e = 0; e < 4; ++e) {
+          const bool in = j0 + 8 * nt + 2 * t + (e & 1) < N;
+          s[nt][e] = in ? __fmul_rn(s[nt][e], scale) : -CUDART_INF_F;
+          // Keys past N read bytes of the next row or zeros: p = 0 there.
+          if constexpr (kDe != kDeNone) {
+            const float d = de_value<kDe>(de_at[e >> 1] + (8 * nt + (e & 1)) * de_bytes<kDe>(),
+                                          de, g_sel, b, i0 + row0 + g + 8 * (e >> 1));
+            dp[nt][e] = __fadd_rn(dp[nt][e], in ? d : 0.f);
+          }
+        }
       }
-    }
-    __syncthreads();
-  }
+      if (sweep == 0) {
 #pragma unroll
-  for (int r2 = 0; r2 < kRowsPerThread; ++r2) {
-    const int i = i0 + rg + (kThreads / kD) * r2;
-    if (i < N) head_base(op.dq, op.sdq, b, h)[i * op.sdq.n + d] = __float2bfloat16(o[r2] * scale);
-  }
-}
-
-// Key pass: dk and dv of kBN keys of one head, summed over all query rows.
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_keys_kernel(Operands op, DeSource de, const float* __restrict__ stats, int N,
-                     int H, float scale) {
-  __shared__ __align__(16) float sK[kBN * kPad];
-  __shared__ __align__(16) float sV[kBN * kPad];
-  __shared__ __align__(16) float sQ[kBR * kD];
-  __shared__ __align__(16) float sG[kBR * kD];
-  __shared__ float sP[kBR * kBN];
-  __shared__ float sDS[kBR * kBN];
-  __shared__ float sStat[kBR * 3];
-
-  const int j0 = blockIdx.x * kBN;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const __nv_bfloat16* qb = head_base(op.q, op.sq, b, h);
-  const __nv_bfloat16* kb = head_base(op.k, op.sk, b, h);
-  const __nv_bfloat16* vb = head_base(op.v, op.sv, b, h);
-  const __nv_bfloat16* gb = head_base(op.g, op.sg, b, h);
-
-  for (int idx = tid; idx < kBN * kD; idx += kThreads) {
-    const int jj = idx / kD, d = idx % kD, j = j0 + jj;
-    sK[jj * kPad + d] = j < N ? __bfloat162float(kb[j * op.sk.n + d]) : 0.f;
-    sV[jj * kPad + d] = j < N ? __bfloat162float(vb[j * op.sv.n + d]) : 0.f;
-  }
-
-  // Thread t owns column d = t % kD of keys jg, jg + 4, ..., jg + 28.
-  const int d = tid % kD;
-  const int jg = tid / kD;
-  constexpr int kStep = kThreads / kD;
-  constexpr int kKeysPerThread = kBN / kStep;
-  float dk[kKeysPerThread], dv[kKeysPerThread];
+        for (int r = 0; r < 2; ++r) {
+          float mx = m[r];
 #pragma unroll
-  for (int k = 0; k < kKeysPerThread; ++k) dk[k] = dv[k] = 0.f;
-
-  for (int i0 = 0; i0 < N; i0 += kBR) {
-    __syncthreads();
-    for (int idx = tid; idx < kBR * kD; idx += kThreads) {
-      const int r = idx / kD, dd = idx % kD, i = i0 + r;
-      sQ[idx] = i < N ? __bfloat162float(qb[i * op.sq.n + dd]) : 0.f;
-      sG[idx] = i < N ? __bfloat162float(gb[i * op.sg.n + dd]) : 0.f;
-    }
-    for (int idx = tid; idx < kBR * 3; idx += kThreads) {
-      const int i = i0 + idx / 3;
-      sStat[idx] = i < N ? stats[(((size_t)b * H + h) * N + i) * 3 + idx % 3] : 0.f;
-    }
-    __syncthreads();
-
-    // p and ds for (row, key) pairs; a warp takes one row and 32 keys.
-    for (int idx = tid; idx < kBR * kBN; idx += kThreads) {
-      const int r = idx / kBN, jj = idx % kBN, i = i0 + r, j = j0 + jj;
-      float p = 0.f, ds = 0.f;
-      if (i < N && j < N) {
-        const float* qr = sQ + r * kD;
-        const float* gr = sG + r * kD;
-        const float* kr = sK + jj * kPad;
-        const float* vr = sV + jj * kPad;
-        float s = 0.f, dp = 0.f;
+          for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+          mx = quad_max(mx);
+          const float corr = __expf(m[r] - mx);
+          float sum = 0.f, dsum = 0.f;
 #pragma unroll
-        for (int dd = 0; dd < kD; ++dd) s = fmaf(qr[dd], kr[dd], s);
+          for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-        for (int dd = 0; dd < kD; ++dd) dp = fmaf(gr[dd], vr[dd], dp);
-        // Explicit roundings: no contraction into an fma, so that p and
-        // ds equal the row pass's to the bit.
-        dp = __fadd_rn(dp, de_at(de, b, i, j, N));
-        p = expf(__fmul_rn(s, scale) - sStat[3 * r]) / sStat[3 * r + 1];
-        ds = p * (dp - sStat[3 * r + 2]);
+            for (int e = 2 * r; e < 2 * r + 2; ++e) {
+              const float x = __expf(s[nt][e] - mx);
+              sum += x;
+              dsum += x * dp[nt][e];
+            }
+          }
+          l[r] = l[r] * corr + sum;
+          c[r] = c[r] * corr + dsum;
+          m[r] = mx;
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = __expf(s[nt][e] - m[e >> 1]) * l[e >> 1];
+            s[nt][e] = p * (dp[nt][e] - c[e >> 1]);   // ds
+          }
+        }
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) to_a_split(hi[kk], lo[kk], s[2 * kk], s[2 * kk + 1]);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          mma_rows_async(dq, hi[kk], sK + cur, kk);
+          mma_rows_async(dq, lo[kk], sK + cur, kk);
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(dq);
+        fence_regs(hi);
+        fence_regs(lo);
       }
-      sP[idx] = p;
-      sDS[idx] = ds;
+      __syncthreads();
     }
-    __syncthreads();
-
-    const int rn = min(kBR, N - i0);
-    for (int r = 0; r < rn; ++r) {
-      const float qv = sQ[r * kD + d];
-      const float gv = sG[r * kD + d];
+    if (sweep == 0) {
+      // From here on l holds 1 / the sum of exponentials.
 #pragma unroll
-      for (int k = 0; k < kKeysPerThread; ++k) {
-        const int jj = jg + kStep * k;
-        dk[k] = fmaf(sDS[r * kBN + jj], qv, dk[k]);
-        dv[k] = fmaf(sP[r * kBN + jj], gv, dv[k]);
+      for (int r = 0; r < 2; ++r) {
+        l[r] = 1.f / quad_sum(l[r]);
+        c[r] = quad_sum(c[r]) * l[r];
       }
     }
   }
-
+  // sQ is free: the last products that read it have completed.
+  store_rows(sQ, row0, dq, scale, head_base(op.dq, op.sdq, b, h), op.sdq.n, i0, N);
+  if (t == 0) {
 #pragma unroll
-  for (int k = 0; k < kKeysPerThread; ++k) {
-    const int j = j0 + jg + kStep * k;
-    if (j < N) {
-      head_base(op.dk, op.sdk, b, h)[j * op.sdk.n + d] = __float2bfloat16(dk[k] * scale);
-      head_base(op.dv, op.sdv, b, h)[j * op.sdv.n + d] = __float2bfloat16(dv[k]);
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + row0 + g + 8 * r;
+      if (i < N) {
+        float* st = stats + (((size_t)b * H + h) * N + i) * 3;
+        st[0] = m[r];
+        st[1] = l[r];
+        st[2] = c[r];
+      }
     }
   }
 }
 
-size_t rows_smem_bytes(int N) {
-  return sizeof(float) * (2 * (size_t)kBM * kD + 2 * (size_t)kBM * N) +
-         sizeof(__nv_bfloat16) * kKT * kD;
+// Key pass: dk and dv of 64 keys of one head, summed over all query rows.
+template <int kDe>
+__global__ void __launch_bounds__(kThreads, 3)
+attn_bwd_keys_kernel(Operands op, DeSource de, const float* __restrict__ stats, int N, int H,
+                     float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(align_tiles(smem_raw));
+  bf16* sV = sK + kTileElems;
+  bf16* sQ = sV + kTileElems;       // two stages
+  bf16* sG = sQ + 2 * kTileElems;   // two stages
+  unsigned char* sRaw = reinterpret_cast<unsigned char*>(sG + 2 * kTileElems);   // two stages
+  float* sStat = reinterpret_cast<float*>(sRaw + raw_stages<kDe>());  // two stages
+  const int warp = threadIdx.x >> 5, key0 = warp * 16;
+  const int j0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int tiles_n = (N + kRows - 1) / kRows;
+  const bf16* qb = head_base(op.q, op.sq, b, h);
+  const bf16* gb = head_base(op.g, op.sg, b, h);
+  const float* stats_bh = stats + ((size_t)b * H + h) * N * 3;
+  const float2 g_sel = pair_cotangents<kDe>(de, b);
+
+  load_tile_async(sK, head_base(op.k, op.sk, b, h), op.sk.n, j0, N);
+  load_tile_async(sV, head_base(op.v, op.sv, b, h), op.sv.n, j0, N);
+  load_tile_async(sQ, qb, op.sq.n, 0, N);
+  load_tile_async(sG, gb, op.sg.n, 0, N);
+  load_floats_async<kRows * 3>(sStat, stats_bh, min(kRows, N) * 3);
+  if constexpr (kDe != kDeNone) load_de_async<kDe>(sRaw, raw_offs<kDe>(sRaw), de, b, 0, j0, N);
+  cp_async_commit();
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
+
+  for (int it = 0; it < tiles_n; ++it) {
+    const int cur = (it & 1) * kTileElems, i0 = it * kRows;
+    const float* st_tile = sStat + (it & 1) * kRows * 3;
+    if (it + 1 < tiles_n) {
+      const int nxt = ~it & 1;
+      load_tile_async(sQ + kTileElems - cur, qb, op.sq.n, i0 + kRows, N);
+      load_tile_async(sG + kTileElems - cur, gb, op.sg.n, i0 + kRows, N);
+      load_floats_async<kRows * 3>(sStat + nxt * kRows * 3, stats_bh + (size_t)(i0 + kRows) * 3,
+                                   min(kRows, N - i0 - kRows) * 3);
+      if constexpr (kDe != kDeNone) {
+        unsigned char* stage = sRaw + nxt * raw_stage<kDe>();
+        load_de_async<kDe>(stage, raw_offs<kDe>(stage), de, b, i0 + kRows, j0, N);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    unsigned char* de_tile = sRaw + (it & 1) * raw_stage<kDe>();
+    // S^T and dp^T of the block's 64 keys against the tile's query rows,
+    // in two halves of 32: the second half's products run while the first
+    // half's p and ds are formed, the first half's dv and dk products while
+    // the second's are.
+    float s[2][4][4], dp[2][4][4];
+    wg_fence();
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      dots_async(s[half], sK, sQ + cur, 32 * half);
+      dots_async(dp[half], sV, sG + cur, 32 * half);
+      wg_commit();
+    }
+    uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      wg_wait<1>();
+      fence_regs(s[half]);
+      fence_regs(dp[half]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // Row r of the tile; rows past N have zero statistics and are
+          // masked, keys past N read bytes that are never written back.
+          const int r = 32 * half + 8 * nt + 2 * t + (e & 1);
+          const float* st = st_tile + 3 * r;
+          float d = dp[half][nt][e];
+          if constexpr (kDe != kDeNone)
+            d = __fadd_rn(d, de_value<kDe>(de_tile + r * raw_row<kDe>() +
+                                               raw_offs<kDe>(de_tile)[r] +
+                                               (key0 + g + 8 * (e >> 1)) * de_bytes<kDe>(),
+                                           de, g_sel, b, i0 + r));
+          const float p =
+              i0 + r < N ? __expf(__fmul_rn(s[half][nt][e], scale) - st[0]) * st[1] : 0.f;
+          s[half][nt][e] = p;
+          dp[half][nt][e] = p * (d - st[2]);
+        }
+      }
+      // p^T and ds^T as A operands (depth = the tile's rows), hi and lo.
+#pragma unroll
+      for (int k2 = 0; k2 < 2; ++k2) {
+        const int kk = 2 * half + k2;
+        to_a_split(p_hi[kk], p_lo[kk], s[half][2 * k2], s[half][2 * k2 + 1]);
+        to_a_split(ds_hi[kk], ds_lo[kk], dp[half][2 * k2], dp[half][2 * k2 + 1]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int k2 = 0; k2 < 2; ++k2) {
+        const int kk = 2 * half + k2;
+        mma_rows_async(dv, p_hi[kk], sG + cur, kk);
+        mma_rows_async(dv, p_lo[kk], sG + cur, kk);
+        mma_rows_async(dk, ds_hi[kk], sQ + cur, kk);
+        mma_rows_async(dk, ds_lo[kk], sQ + cur, kk);
+      }
+      wg_commit();
+    }
+    wg_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    fence_regs(ds_hi);
+    fence_regs(ds_lo);
+    __syncthreads();
+  }
+  // sK and sV are free: the last products that read them have completed.
+  store_rows(sK, key0, dk, scale, head_base(op.dk, op.sdk, b, h), op.sdk.n, j0, N);
+  store_rows(sV, key0, dv, 1.f, head_base(op.dv, op.sdv, b, h), op.sdv.n, j0, N);
 }
 
-int launch(const Operands& op, const DeSource& de, void* stats, int B, int N, int H, int D,
-           float scale, void* stream) {
-  if (D != kD || B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = rows_smem_bytes(N);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+template <int kDe>
+constexpr size_t rows_smem() {
+  return kTileAlign + 6 * kTileElems * sizeof(bf16) + raw_stages<kDe>();
+}
+
+template <int kDe>
+constexpr size_t keys_smem() {
+  return kTileAlign + 6 * kTileElems * sizeof(bf16) + raw_stages<kDe>() +
+         2 * kRows * 3 * sizeof(float);
+}
+
+template <int kDe>
+int launch_kind(const Operands& op, const DeSource& de, float* stats, int B, int N, int H,
+                float scale, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(attn_bwd_rows_kernel<kDe>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)rows_smem<kDe>());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_bwd_keys_kernel<kDe>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)keys_smem<kDe>());
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + kRows - 1) / kRows, H, B);
+  attn_bwd_rows_kernel<kDe><<<grid, kThreads, rows_smem<kDe>(), s>>>(op, de, stats, N, H, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  attn_bwd_keys_kernel<kDe><<<grid, kThreads, keys_smem<kDe>(), s>>>(op, de, stats, N, H, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch(const Operands& op, int kind, const DeSource& de, void* stats, int B, int N, int H,
+           int D, float scale, void* stream) {
+  if (D != kD || B <= 0 || N <= 0 || H <= 0 || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
-  attn_bwd_rows_kernel<<<dim3((N + kBM - 1) / kBM, H, B), kThreads, smem, s>>>(
-      op, de, st, N, H, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  attn_bwd_keys_kernel<<<dim3((N + kBN - 1) / kBN, H, B), kThreads, 0, s>>>(
-      op, de, st, N, H, scale);
-  return (int)cudaGetLastError();
+  switch (kind) {
+    case kDeNone: return launch_kind<kDeNone>(op, de, st, B, N, H, scale, s);
+    case kDeF32: return launch_kind<kDeF32>(op, de, st, B, N, H, scale, s);
+    case kDeBF16: return launch_kind<kDeBF16>(op, de, st, B, N, H, scale, s);
+    default: return launch_kind<kDeSign>(op, de, st, B, N, H, scale, s);
+  }
 }
 
 Strides strides_at(const long long* s) { return Strides{s[0], s[1], s[2]}; }
@@ -393,38 +501,25 @@ Strides strides_at(const long long* s) { return Strides{s[0], s[1], s[2]}; }
 
 extern "C" {
 
-// Largest N one launch takes (the row pass's shared-memory budget).
-int attn_bwd_max_tokens() {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  const size_t per_token = rows_smem_bytes(1) - rows_smem_bytes(0);
-  return (int)(((size_t)limit - rows_smem_bytes(0)) / per_token);
-}
-
 // K1b, K5a-c. q, k, v, g: bf16 (B, N, H, D) operands; dq, dk, dv: bf16
 // (B, N, H, D) outputs; `strides` holds 21 element strides, (batch, token,
 // head) of q, k, v, g, dq, dk and dv in that order; D has unit stride and
-// every row of D values of k and v starts 16-byte aligned. de: contiguous
-// (B, N, N) of `de_dtype` (1 fp32, 2 bf16), or null with de_dtype 0 for
-// zero. stats: (B, H, N, 3) fp32 scratch. Returns cudaGetLastError().
+// every row of D values starts 16-byte aligned. de: contiguous (B, N, N)
+// of `de_dtype` (1 fp32, 2 bf16), or null with de_dtype 0 for zero.
+// stats: (B, H, N, 3) fp32 scratch. Returns cudaGetLastError().
 int attn_bwd_dense(const void* q, const void* k, const void* v, const void* g, void* dq,
                    void* dk, void* dv, const long long* strides, const void* de, int de_dtype,
                    void* stats, int B, int N, int H, int D, float scale, void* stream) {
   if (de_dtype < 0 || de_dtype > 2 || (de == nullptr) != (de_dtype == 0))
     return (int)cudaErrorInvalidValue;
-  using bf16 = __nv_bfloat16;
   const Operands op{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), static_cast<const bf16*>(g),
                     static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                     strides_at(strides), strides_at(strides + 3), strides_at(strides + 6),
                     strides_at(strides + 9), strides_at(strides + 12),
                     strides_at(strides + 15), strides_at(strides + 18)};
-  const DeSource src{de_dtype == 1 ? static_cast<const float*>(de) : nullptr,
-                     de_dtype == 2 ? static_cast<const bf16*>(de) : nullptr,
-                     nullptr, nullptr, nullptr, 1.0f / (float)H};
-  return launch(op, src, stats, B, N, H, D, scale, stream);
+  const DeSource src{de, nullptr, nullptr, nullptr, 1.0f / (float)H};
+  return launch(op, de_dtype, src, stats, B, N, H, D, scale, stream);
 }
 
 // K2b. qkv (B, N, 3*H*D) bf16, g (B, N, H*D) bf16, dqkv (B, N, 3*H*D) bf16
@@ -435,17 +530,16 @@ int attn_bwd_pair(const void* qkv, const void* g, const void* sign, const void* 
                   float scale, void* stream) {
   if (B % 2 || sign == nullptr || g_cls == nullptr || g_aff == nullptr)
     return (int)cudaErrorInvalidValue;
-  using bf16 = __nv_bfloat16;
   const long long HD = (long long)H * D;
   const Strides cols{N * 3 * HD, 3 * HD, D}, rows{N * HD, HD, D};
   const bf16* in = static_cast<const bf16*>(qkv);
   bf16* out = static_cast<bf16*>(dqkv);
   const Operands op{in, in + HD, in + 2 * HD, static_cast<const bf16*>(g),
                     out, out + HD, out + 2 * HD, cols, cols, cols, rows, cols, cols, cols};
-  const DeSource src{nullptr, nullptr, static_cast<const int8_t*>(sign),
+  const DeSource src{nullptr, static_cast<const int8_t*>(sign),
                      static_cast<const float*>(g_cls), static_cast<const float*>(g_aff),
                      1.0f / (float)H};
-  return launch(op, src, stats, B, N, H, D, scale, stream);
+  return launch(op, kDeSign, src, stats, B, N, H, D, scale, stream);
 }
 
 const char* attn_bwd_error_string(int err) {

@@ -1,5 +1,6 @@
 // Attention forward over strided q, k and v, with the head mean of the
-// softmax probabilities as a second output (fp32, bf16, or none).
+// softmax probabilities as a second output (fp32, bf16, or none), on the
+// tensor cores.
 //
 // Replaces the TPU kernels of acr_wsss_tpu/ops/attn_pallas.py:
 //   _fwd_kernel_nhd          (K1f through _fwd_qkv_cols; K5b through _fwd_nhd)
@@ -16,11 +17,13 @@
 // Function, for each batch element b and head h:
 //   out[b, :, h] = bf16( bf16(softmax(q_h k_h^T * scale)) v_h )
 //   probs[b]     = mean_h softmax(q_h k_h^T * scale)
-// Products of bf16 values are accumulated in fp32; the softmax is exact (it
-// subtracts the row max) and runs in fp32. The head mean is summed in fp32
-// in shared memory and rounded once when it is written: to bf16 for a bf16
-// export, as the TPU kernels cast their fp32 accumulator once. Rows and keys
-// past N are masked here: there is no padding of N.
+// Products of bf16 values are summed in fp32; the softmax is exact (the
+// row max is subtracted, p = exp(s - max) * (1 / sum), with the fast
+// exponential: 2 ulp, plus 2^-23 |s - max| relative) and runs in fp32. The
+// head mean is summed in fp32 over the heads in order and rounded once
+// when it is written: to bf16 for a bf16 export, as the TPU kernels cast
+// their fp32 accumulator once. Rows and keys past N are masked: there is
+// no padding of N and no limit on it.
 //
 // Bound on the card: at the inference shape (B=2, H=12, N=577, D=64) the
 // function does 4*B*H*N^2*D = 2.05 GFLOP (2.1 us at 989 TFLOP/s bf16) and
@@ -28,242 +31,265 @@
 // 2.7 MB: 2.9 us at 3.35 TB/s), so memory sets the bound; at the training
 // shape (B=8) 8.18 GFLOP and 39.0 MB (33.7 MB with a bf16 export).
 //
-// Design (simple and correct first): a block owns BM query rows of one
-// batch element and loops over the heads, so the head mean accumulates in
-// shared memory without atomics and each probs row is written once. Per
-// head the BM x N logit tile lives in shared memory in fp32; each thread
-// keeps one key row in registers and dots it with the BM query rows; one
-// warp per row does the softmax; V streams through shared memory in tiles
-// of KT keys. Products run on the CUDA cores: no tensor cores, no TMA.
+// Design: the products run on the tensor cores (wgmma m64n64k16 of one
+// warpgroup, bf16 operands, fp32 sums; attn_tiles.cuh), in two kernels.
+//   Out kernel, one block of 4 warps per (64 query rows, head, b): K and V
+//   stream through shared memory in tiles of 64 keys, double-buffered with
+//   cp.async. Sweep 1 over the key tiles keeps the row max and the sum of
+//   exponentials (rescaled when the max grows); sweep 2 recomputes S,
+//   forms p = exp(s - max) * (1 / sum), rounds it to bf16 in registers,
+//   and sums p @ v. With an export it saves (max, 1 / sum) per row and
+//   head: (B, H, N, 2) fp32 scratch.
+//   Probs kernel, one block per (64 query rows, 64 keys, b): loops over
+//   the heads in order, recomputes its S tile, forms p from the saved
+//   statistics, and sums p in registers; it writes each probs element
+//   once. No atomics, no N-wide tile: the result is the same from run to
+//   run, and the heads of one image spread over many blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "attn_tiles.cuh"
+
 namespace {
 
-constexpr int kBM = 8;        // query rows per block (one warp per row)
-constexpr int kD = 64;        // head dim
-constexpr int kThreads = 256;
-constexpr int kKT = 64;       // keys per V tile
+using namespace tiles;
 
 // Probability export codes of the C interface.
 constexpr int kProbsNone = 0, kProbsF32 = 1, kProbsBF16 = 2;
-
-// Element strides of one (B, N, H, D) operand; D has unit stride.
-struct Strides {
-  long long b, n, h;
-};
+constexpr int kStage = kRows + 8;  // fp32 row of the staged probs tile
 
 struct Operands {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* out;
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
   Strides sq, sk, sv, so;
 };
 
-// Operand `p` at batch element b, head h: its row n starts at the result
-// + n * s.n.
-template <typename T>
-__device__ __forceinline__ T* head_base(T* p, const Strides& s, int b, int h) {
-  return p + (b * s.b + h * s.h);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// s = the scaled logits of the block's 64 rows (tile sQ) against the key
+// tile sK starting at key j0, -inf at keys >= N.
+__device__ __forceinline__ void logits(float (&s)[8][4], const bf16* sQ, const bf16* sK, int j0,
+                                       int N, float scale) {
+  wg_fence();
+  dots_async(s, sQ, sK);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(s);
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[nt][e] = j0 + 8 * nt + 2 * t + (e & 1) < N ? __fmul_rn(s[nt][e], scale) : -CUDART_INF_F;
 }
 
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_headmean_kernel(Operands op, void* __restrict__ probs, int probs_dtype, int N,
-                         int H, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const bool export_mean = probs_dtype != kProbsNone;
+attn_fwd_out_kernel(Operands op, float* __restrict__ stats, int N, int H, float scale) {
+  __shared__ __align__(kTileAlign) bf16 smem[5 * kTileElems];
+  bf16* sQ = smem;
+  bf16* sK = smem + kTileElems;       // two stages
+  bf16* sV = smem + 3 * kTileElems;   // two stages
+  const int i0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int row0 = (threadIdx.x >> 5) * 16;
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const int tiles_n = (N + kRows - 1) / kRows;
+  const bf16* kb = head_base(op.k, op.sk, b, h);
+  const bf16* vb = head_base(op.v, op.sv, b, h);
 
-  float* sQ = smem;                                   // kBM x kD
-  float* sS = sQ + kBM * kD;                          // kBM x N logits / probs
-  float* sAcc = sS + kBM * N;                         // kBM x N head sum
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(
-      sAcc + (export_mean ? kBM * N : 0));            // kKT x kD
+  load_tile_async(sQ, head_base(op.q, op.sq, b, h), op.sq.n, i0, N);
+  load_tile_async(sK, kb, op.sk.n, 0, N);
+  cp_async_commit();
 
-  if (export_mean) {
-    for (int idx = tid; idx < kBM * N; idx += kThreads) sAcc[idx] = 0.f;
+  // Sweep 1: row max m and sum of exponentials l (per lane, summed over
+  // the quad at the end) of rows g and g + 8.
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  for (int kt = 0; kt < tiles_n; ++kt) {
+    const int cur = (kt & 1) * kTileElems;
+    if (kt + 1 < tiles_n) load_tile_async(sK + kTileElems - cur, kb, op.sk.n, (kt + 1) * kRows, N);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    float s[8][4];
+    logits(s, sQ, sK + cur, kt * kRows, N, scale);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+      mx = quad_max(mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        sum += __expf(s[nt][2 * r] - mx) + __expf(s[nt][2 * r + 1] - mx);
+      l[r] = l[r] * __expf(m[r] - mx) + sum;
+      m[r] = mx;
+    }
+    __syncthreads();
   }
+  // From here on l holds 1 / the sum of exponentials.
+  l[0] = 1.f / quad_sum(l[0]);
+  l[1] = 1.f / quad_sum(l[1]);
 
-  for (int h = 0; h < H; ++h) {
-    const __nv_bfloat16* qb = head_base(op.q, op.sq, b, h);
-    const __nv_bfloat16* kb = head_base(op.k, op.sk, b, h);
-    const __nv_bfloat16* vb = head_base(op.v, op.sv, b, h);
-    for (int idx = tid; idx < kBM * kD; idx += kThreads) {
-      const int r = idx / kD, d = idx % kD, i = i0 + r;
-      sQ[idx] = i < N ? __bfloat162float(qb[i * op.sq.n + d]) : 0.f;
+  // Sweep 2: out = bf16(p) @ v.
+  load_tile_async(sK, kb, op.sk.n, 0, N);
+  load_tile_async(sV, vb, op.sv.n, 0, N);
+  cp_async_commit();
+  float o[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  for (int kt = 0; kt < tiles_n; ++kt) {
+    const int cur = (kt & 1) * kTileElems;
+    if (kt + 1 < tiles_n) {
+      load_tile_async(sK + kTileElems - cur, kb, op.sk.n, (kt + 1) * kRows, N);
+      load_tile_async(sV + kTileElems - cur, vb, op.sv.n, (kt + 1) * kRows, N);
     }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-
-    // Logits: thread t owns keys t, t + kThreads, ...
-    for (int j = tid; j < N; j += kThreads) {
-      const uint4* kp = reinterpret_cast<const uint4*>(kb + j * op.sk.n);
-      float kf[kD];
+    float s[8][4];
+    logits(s, sQ, sK + cur, kt * kRows, N, scale);
+    uint32_t pa[4][4];
 #pragma unroll
-      for (int c = 0; c < kD / 8; ++c) {
-        const uint4 u = kp[c];
-        const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float2 f = __bfloat1622float2(p2[t]);
-          kf[c * 8 + 2 * t] = f.x;
-          kf[c * 8 + 2 * t + 1] = f.y;
-        }
-      }
+      for (int e = 0; e < 4; ++e) s[nt][e] = __expf(s[nt][e] - m[e >> 1]) * l[e >> 1];
 #pragma unroll
-      for (int r = 0; r < kBM; ++r) {
-        const float4* q4 = reinterpret_cast<const float4*>(sQ + r * kD);
-        float acc = 0.f;
+    for (int kk = 0; kk < 4; ++kk) to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+    wg_fence();
 #pragma unroll
-        for (int c = 0; c < kD / 4; ++c) {
-          const float4 qv = q4[c];
-          acc = fmaf(qv.x, kf[4 * c], acc);
-          acc = fmaf(qv.y, kf[4 * c + 1], acc);
-          acc = fmaf(qv.z, kf[4 * c + 2], acc);
-          acc = fmaf(qv.w, kf[4 * c + 3], acc);
-        }
-        sS[r * N + j] = acc * scale;
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk) mma_rows_async(o, pa[kk], sV + cur, kk);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
     __syncthreads();
-
-    // Exact softmax, one warp per row. The row keeps bf16-rounded probs
-    // for p @ v; the head sum takes the fp32 probs.
-    for (int r = warp; r < kBM; r += kThreads / 32) {
-      float* srow = sS + r * N;
-      if (i0 + r >= N) {
-        for (int j = lane; j < N; j += 32) srow[j] = 0.f;
-        continue;
-      }
-      float m = -CUDART_INF_F;
-      for (int j = lane; j < N; j += 32) m = fmaxf(m, srow[j]);
-      m = warp_max(m);
-      float s = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        const float e = expf(srow[j] - m);
-        srow[j] = e;
-        s += e;
-      }
-      s = warp_sum(s);
-      for (int j = lane; j < N; j += 32) {
-        const float p = srow[j] / s;
-        if (export_mean) sAcc[r * N + j] += p;
-        srow[j] = __bfloat162float(__float2bfloat16(p));
-      }
-    }
-    __syncthreads();
-
-    // p @ v: thread t owns column d = t % kD of rows rg, rg + 4, ...
-    const int d = tid % kD;
-    const int rg = tid / kD;
-    constexpr int kRowsPerThread = kBM * kD / kThreads;
-    float o[kRowsPerThread];
-#pragma unroll
-    for (int r2 = 0; r2 < kRowsPerThread; ++r2) o[r2] = 0.f;
-    for (int j0 = 0; j0 < N; j0 += kKT) {
-      for (int idx = tid; idx < kKT * kD / 8; idx += kThreads) {
-        const int jj = idx / (kD / 8), c = idx % (kD / 8), j = j0 + jj;
-        uint4 u = make_uint4(0u, 0u, 0u, 0u);
-        if (j < N) u = *reinterpret_cast<const uint4*>(vb + j * op.sv.n + c * 8);
-        reinterpret_cast<uint4*>(sV)[idx] = u;
-      }
-      __syncthreads();
-      const int jn = min(kKT, N - j0);
-      for (int jj = 0; jj < jn; ++jj) {
-        const float vv = __bfloat162float(sV[jj * kD + d]);
-#pragma unroll
-        for (int r2 = 0; r2 < kRowsPerThread; ++r2) {
-          o[r2] = fmaf(sS[(rg + (kThreads / kD) * r2) * N + j0 + jj], vv, o[r2]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r2 = 0; r2 < kRowsPerThread; ++r2) {
-      const int i = i0 + rg + (kThreads / kD) * r2;
-      if (i < N) head_base(op.out, op.so, b, h)[i * op.so.n + d] = __float2bfloat16(o[r2]);
-    }
   }
-
-  if (export_mean) {
-    const float num_heads = (float)H;
-    for (int idx = tid; idx < kBM * N; idx += kThreads) {
-      const int r = idx / N, j = idx % N, i = i0 + r;
-      if (i >= N) continue;
-      const size_t dst = ((size_t)b * N + i) * N + j;
-      const float mean = sAcc[idx] / num_heads;
-      if (probs_dtype == kProbsBF16) {
-        static_cast<__nv_bfloat16*>(probs)[dst] = __float2bfloat16(mean);
-      } else {
-        static_cast<float*>(probs)[dst] = mean;
+  // sQ is free: the last products that read it have completed.
+  store_rows(sQ, row0, o, 1.f, head_base(op.out, op.so, b, h), op.so.n, i0, N);
+  if (stats != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + row0 + g + 8 * r;
+      if (i < N) {
+        float* st = stats + (((size_t)b * H + h) * N + i) * 2;
+        st[0] = m[r];
+        st[1] = l[r];
       }
     }
   }
 }
 
-size_t smem_bytes(int N, bool export_mean) {
-  return sizeof(float) * ((size_t)kBM * kD + (export_mean ? 2 : 1) * (size_t)kBM * N) +
-         sizeof(__nv_bfloat16) * kKT * kD;
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_probs_kernel(Operands op, const float* __restrict__ stats, void* __restrict__ probs,
+                      int probs_dtype, int N, int H, float scale) {
+  // Two stages of (Q, K) tiles; after the head loop, the fp32 probs tile.
+  __shared__ __align__(kTileAlign) bf16 smem[4 * kTileElems];
+  __shared__ float sSt[2][kRows * 2];   // two stages of the rows' (max, 1 / sum)
+  bf16* sQ = smem;
+  bf16* sK = smem + 2 * kTileElems;
+  const int i0 = blockIdx.x * kRows, j0 = blockIdx.y * kRows, b = blockIdx.z;
+  const int row0 = (threadIdx.x >> 5) * 16;
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+
+  const int rows = min(kRows, N - i0);
+  load_tile_async(sQ, head_base(op.q, op.sq, b, 0), op.sq.n, i0, N);
+  load_tile_async(sK, head_base(op.k, op.sk, b, 0), op.sk.n, j0, N);
+  load_floats_async<kRows * 2>(sSt[0], stats + ((size_t)b * H * N + i0) * 2, rows * 2);
+  cp_async_commit();
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int h = 0; h < H; ++h) {
+    const int cur = (h & 1) * kTileElems, nxt = kTileElems - cur;
+    if (h + 1 < H) {
+      load_tile_async(sQ + nxt, head_base(op.q, op.sq, b, h + 1), op.sq.n, i0, N);
+      load_tile_async(sK + nxt, head_base(op.k, op.sk, b, h + 1), op.sk.n, j0, N);
+      load_floats_async<kRows * 2>(sSt[~h & 1], stats + (((size_t)b * H + h + 1) * N + i0) * 2,
+                                   rows * 2);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    // Statistics of rows g and g + 8 (zero past N: p = 0 there).
+    float st[2][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      st[r][0] = sSt[h & 1][(row0 + g + 8 * r) * 2];
+      st[r][1] = sSt[h & 1][(row0 + g + 8 * r) * 2 + 1];
+    }
+    float s[8][4];
+    logits(s, sQ + cur, sK + cur, j0, N, scale);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += __expf(s[nt][e] - st[e >> 1][0]) * st[e >> 1][1];
+    __syncthreads();
+  }
+
+  // The warp's 16 rows of the mean through shared memory, then written a
+  // row at a time, consecutive lanes on consecutive keys.
+  float* stage = reinterpret_cast<float*>(smem) + row0 * kStage;
+  const float num_heads = (float)H;
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    *reinterpret_cast<float2*>(stage + g * kStage + 8 * nt + 2 * t) =
+        make_float2(acc[nt][0] / num_heads, acc[nt][1] / num_heads);
+    *reinterpret_cast<float2*>(stage + (g + 8) * kStage + 8 * nt + 2 * t) =
+        make_float2(acc[nt][2] / num_heads, acc[nt][3] / num_heads);
+  }
+  __syncwarp();
+  for (int r = 0; r < 16; ++r) {
+    const int i = i0 + row0 + r;
+    if (i >= N) break;
+    const size_t dst = ((size_t)b * N + i) * N;
+#pragma unroll
+    for (int c = lane; c < kRows; c += 32) {
+      const int j = j0 + c;
+      if (j >= N) break;
+      const float mean = stage[r * kStage + c];
+      if (probs_dtype == kProbsBF16) {
+        static_cast<bf16*>(probs)[dst + j] = __float2bfloat16(mean);
+      } else {
+        static_cast<float*>(probs)[dst + j] = mean;
+      }
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest N one launch takes (the shared-memory budget of one block).
-int attn_fwd_headmean_max_tokens(int export_mean) {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  const size_t per_token = smem_bytes(1, export_mean != 0) - smem_bytes(0, export_mean != 0);
-  return (int)(((size_t)limit - smem_bytes(0, export_mean != 0)) / per_token);
-}
-
 // q, k, v: bf16 (B, N, H, D) operands, out: bf16 (B, N, H, D), given by
 // their base pointers and `strides`: 12 element strides, (batch, token,
 // head) of q, k, v and out in that order; D has unit stride. Every row of
-// D values of k and v starts 16-byte aligned. probs: contiguous (B, N, N)
-// of `probs_dtype` (1 fp32, 2 bf16), or null with probs_dtype 0 for no
-// export. Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// D values starts 16-byte aligned. probs: contiguous (B, N, N) of
+// `probs_dtype` (1 fp32, 2 bf16), with stats a (B, H, N, 2) fp32 scratch;
+// or both null with probs_dtype 0 for no export. Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 int attn_fwd_headmean(const void* q, const void* k, const void* v, void* out,
-                      const long long* strides, void* probs, int probs_dtype, int B, int N,
-                      int H, int D, float scale, void* stream) {
-  if (D != kD || B <= 0 || N <= 0 || H <= 0 ||
+                      const long long* strides, void* probs, int probs_dtype, void* stats,
+                      int B, int N, int H, int D, float scale, void* stream) {
+  if (D != kD || B <= 0 || N <= 0 || H <= 0 || B > 65535 || H > 65535 ||
       (probs_dtype != kProbsNone && probs_dtype != kProbsF32 && probs_dtype != kProbsBF16) ||
-      (probs == nullptr) != (probs_dtype == kProbsNone))
+      (probs == nullptr) != (probs_dtype == kProbsNone) ||
+      (stats == nullptr) != (probs == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool export_mean = probs_dtype != kProbsNone;
-  const size_t smem = smem_bytes(N, export_mean);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_fwd_headmean_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const Operands op{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                    static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+  const Operands op{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), static_cast<bf16*>(out),
                     {strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
                     {strides[6], strides[7], strides[8]}, {strides[9], strides[10], strides[11]}};
-  const dim3 grid((N + kBM - 1) / kBM, B);
-  attn_fwd_headmean_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      op, probs, probs_dtype, N, H, scale);
+  const int tiles_n = (N + kRows - 1) / kRows;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* st = static_cast<float*>(stats);
+  attn_fwd_out_kernel<<<dim3(tiles_n, H, B), kThreads, 0, s>>>(op, st, N, H, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || probs == nullptr) return (int)e;
+  attn_fwd_probs_kernel<<<dim3(tiles_n, tiles_n, B), kThreads, 0, s>>>(op, st, probs,
+                                                                       probs_dtype, N, H, scale);
   return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and includes
 no PyTorch header, so one ``nvcc`` call takes seconds. Libraries go to
 ``build/torch_kernels/`` at the repository root (listed in ``.gitignore``)
-under a name that carries the hash of the source and the flags: a library
-is rebuilt only when either changes. All sources that need a build are
-compiled in parallel, one ``nvcc`` each.
+under a name that carries the hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags: a library is rebuilt only when one of them
+changes. All sources that need a build are compiled in parallel, one
+``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -11,13 +11,14 @@ Counterpart of the entries of ``acr_wsss_tpu/ops/attn_pallas.py``:
 * ``fused_attention_qkv`` (``:764``, K5c): the joint (B, N, 3, H*D) view,
   which is the memory of K1's column views.
 
-Every forward is the one CUDA kernel ``csrc/attn_fwd_headmean.cu`` and
-every backward the dense-de path of ``csrc/attn_bwd.cu``: each layout is
-one set of (batch, token, head) strides of q, k, v and out, with a unit
-stride on D. The forward returns out in the layout of its inputs and the
-head mean of the softmax probabilities (B, N, N) in float32, in bfloat16
-(``probs_dtype``, K1, K5b and K5c: summed in float32, rounded once), or
-None for export "none" (a null probs pointer: K1n). The backward recomputes
+Every forward runs ``csrc/attn_fwd_headmean.cu`` and every backward the
+dense-de path of ``csrc/attn_bwd.cu``, tensor-core kernels that take any
+number of tokens: each layout is one set of (batch, token, head) strides
+of q, k, v and out, with a unit stride on D. The forward returns out in
+the layout of its inputs and the head mean of the softmax probabilities
+(B, N, N) in float32, in bfloat16 (``probs_dtype``, K1, K5b and K5c:
+summed in float32, rounded once), or None for export "none" (a null
+probs pointer: K1n). The backward recomputes
 p and returns the gradients in the layouts of the JAX entries: dqkv for K1
 and K5c, three (B, N, H*D) for K5b, three (B, H, N, D) for K5a; ``de``, the
 cotangent of the export, is float32, bfloat16 (upcast in the kernel) or
@@ -138,10 +139,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(KERNEL)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.attn_fwd_headmean.argtypes = [ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_longlong),
-                                      ptr, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+                                      ptr, i32, ptr, i32, i32, i32, i32, ctypes.c_float, ptr]
     lib.attn_fwd_headmean.restype = i32
-    lib.attn_fwd_headmean_max_tokens.argtypes = [i32]
-    lib.attn_fwd_headmean_max_tokens.restype = i32
     lib.attn_fwd_headmean_error_string.argtypes = [i32]
     lib.attn_fwd_headmean_error_string.restype = ctypes.c_char_p
     return lib
@@ -175,17 +174,16 @@ def forward(layout: str, inputs: Sequence[torch.Tensor], scale: float, num_heads
     B, N, H, D = q.shape
     lib = _library()
     with torch.cuda.device(q.device):
-        max_tokens = lib.attn_fwd_headmean_max_tokens(int(export == "mean"))
-        if N > max_tokens:
-            raise ValueError(f"N={N} tokens exceed the kernel's shared-memory "
-                             f"limit of {max_tokens}")
         out = _empty_bnhd(layout, q.shape, q)
-        probs = (torch.empty((B, N, N), dtype=probs_dtype, device=q.device)
-                 if export == "mean" else None)
+        probs = stats = None
+        if export == "mean":
+            probs = torch.empty((B, N, N), dtype=probs_dtype, device=q.device)
+            stats = torch.empty((B, H, N, 2), dtype=torch.float32, device=q.device)
         err = lib.attn_fwd_headmean(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _strides(q, k, v, out),
             None if probs is None else probs.data_ptr(),
-            0 if probs is None else DTYPE_CODES[probs_dtype], B, N, H, D, float(scale),
+            0 if probs is None else DTYPE_CODES[probs_dtype],
+            None if stats is None else stats.data_ptr(), B, N, H, D, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"attn_fwd_headmean launch failed: "
@@ -237,8 +235,6 @@ def _bwd_library() -> ctypes.CDLL:
     lib.attn_bwd_pair.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                   i32, ctypes.c_float, ptr]
     lib.attn_bwd_pair.restype = i32
-    lib.attn_bwd_max_tokens.argtypes = []
-    lib.attn_bwd_max_tokens.restype = i32
     lib.attn_bwd_error_string.argtypes = [i32]
     lib.attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -246,13 +242,9 @@ def _bwd_library() -> ctypes.CDLL:
 
 def bwd_call(device: torch.device, B: int, N: int, heads: int, launch) -> None:
     """Allocate the row statistics, run ``launch(lib, stats, stream)`` on
-    ``device`` and raise on its error code or on too many tokens."""
+    ``device`` and raise on its error code."""
     lib = _bwd_library()
     with torch.cuda.device(device):
-        max_tokens = lib.attn_bwd_max_tokens()
-        if N > max_tokens:
-            raise ValueError(f"N={N} tokens exceed the kernel's shared-memory "
-                             f"limit of {max_tokens}")
         stats = torch.empty((B, heads, N, 3), dtype=torch.float32, device=device)
         err = launch(lib, stats, torch.cuda.current_stream(device).cuda_stream)
     if err:

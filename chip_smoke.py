@@ -11,11 +11,16 @@ package. Phases, each of which fails the run when it fails:
 2. build: ``nvcc`` builds every kernel into build/torch_kernels/, all at
    once, with the ``-Xptxas -v`` lines printed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes and at a ragged one: K1f/K1n (export "mean" in
-   float32 and bfloat16, and "none"), K2f, K2b (fed K2f's own sign tile),
-   K1b (a float32 or bfloat16 dense de, or none), K3 and K4 chained over
-   10 iterations (at B=2 and B=8 views of 384x384 with the default
-   dilations, and 17x13 with a dilation beyond the image);
+   the main paths' shapes and at ragged ones (N = 17, 37, and 1025, crop
+   512, which is not a multiple of the attention kernels' 64-token tiles):
+   K1f/K1n (export "mean" in float32 and bfloat16, and "none"), K2f, K2b
+   (fed K2f's own sign tile), K1b (a float32 or bfloat16 dense de, or
+   none), K3 and K4 chained over 10 iterations (at B=2 and B=8 views of
+   384x384 with the default dilations, and 17x13 with a dilation beyond
+   the image); K1f and K1b at N = 4001 (B=1), above the 3.4k-token limit
+   of the earlier attention kernels; and the attention kernels twice on
+   the same inputs, which must give the same bits, for every export mode
+   and every source of de;
 4. inference path: GETAM CAM inference as a user runs it (vitb_hybrid,
    crop 384, ``grad`` from layer 10, affinity refinement, flip TTA, 4
    class slots) on two seeded VOC-sized images, with the weights of
@@ -50,7 +55,8 @@ package. Phases, each of which fails the run when it fails:
    counted; the npz, one CAM dict per name and the evallog checked;
 9. timing: per-image latency with and without PAMR, the PAMR step's device
    time, train step time and images/s, device time breakdowns, each
-   kernel's time beside its plain version, a library call where one
+   kernel's device time (CUDA events around launches enqueued while the
+   device is held busy) beside its plain version, a library call where one
    computes the same function, and its bound.
 
 The second-to-last lines are the card's name and power limit and a JSON
@@ -66,6 +72,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -202,7 +209,7 @@ def check_close(name, got, ref, rtol, atol) -> float:
 
 def check_k1(device, errs) -> None:
     gen = torch.Generator(device=device).manual_seed(0)
-    for B, N in ((2, N_TOKENS), (4, N_TOKENS), (3, 37)):
+    for B, N in ((2, N_TOKENS), (4, N_TOKENS), (3, 37), (3, 17), (2, 1025)):
         qkv = torch.randn((B, N, 3 * HEADS * HEAD_DIM), generator=gen, device=device,
                           dtype=torch.float32).to(torch.bfloat16)
         for export in ("mean", "none"):
@@ -237,7 +244,7 @@ def check_grad(name, got, ref) -> float:
 def check_k2_k1b(device, errs) -> None:
     gen = torch.Generator(device=device).manual_seed(1)
     scale = HEAD_DIM ** -0.5
-    for B, N in ((2 * TRAIN_BATCH, N_TOKENS), (2, 37)):
+    for B, N in ((2 * TRAIN_BATCH, N_TOKENS), (2, 37), (2, 17), (2, 1025)):
         qkv = torch.randn((B, N, 3 * HEADS * HEAD_DIM), generator=gen,
                           device=device).to(torch.bfloat16)
         g = torch.randn((B, N, HEADS * HEAD_DIM), generator=gen,
@@ -278,6 +285,62 @@ def check_k2_k1b(device, errs) -> None:
             errs[("K1b", B, N, with_de)] = check_grad("dqkv", got, ref)
 
 
+def check_many_tokens(device, errs, n=4001) -> None:
+    """K1f and K1b at B=1 and more tokens than the earlier kernels'
+    shared-memory limit (about 3.4k): the tensor-core kernels have none."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    scale = HEAD_DIM ** -0.5
+    qkv = torch.randn((1, n, 3 * HEADS * HEAD_DIM), generator=gen,
+                      device=device).to(torch.bfloat16)
+    log(f"  K1 forward B=1 N={n}, export mean")
+    out, probs = attention_qkv_cols_forward(qkv, scale, HEADS, "mean")
+    ref_out, ref_probs = attention_qkv_cols_plain(qkv, scale, HEADS, "mean")
+    torch.cuda.synchronize()
+    errs[("K1", 1, n, "mean")] = max(check_close("out", out, ref_out, OUT_RTOL, OUT_ATOL),
+                                     check_close("probs", probs, ref_probs, 0.0, PROBS_ATOL))
+    del out, probs, ref_out, ref_probs
+    g = torch.randn((1, n, HEADS * HEAD_DIM), generator=gen, device=device).to(torch.bfloat16)
+    de = torch.randn((1, n, n), generator=gen, device=device)
+    log(f"  K1b B=1 N={n} de float32")
+    got = attention_qkv_cols_backward(qkv, g, de, scale, HEADS)
+    ref = attention_qkv_cols_backward_plain(qkv, g, de, scale, HEADS)
+    torch.cuda.synchronize()
+    errs[("K1b", 1, n, True)] = check_grad("dqkv", got, ref)
+
+
+def check_same_bits(device) -> None:
+    """The forward kernel (export fp32, bf16, none) and the backward kernel
+    (de none, fp32, bf16 and the sign tile) twice on the same inputs at the
+    training shape: the outputs must be equal to the bit (no atomics, sums
+    in a fixed order)."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    B, N, scale = 2 * TRAIN_BATCH, N_TOKENS, HEAD_DIM ** -0.5
+    qkv = torch.randn((B, N, 3 * HEADS * HEAD_DIM), generator=gen,
+                      device=device).to(torch.bfloat16)
+    g = torch.randn((B, N, HEADS * HEAD_DIM), generator=gen, device=device).to(torch.bfloat16)
+    de = torch.randn((B, N, N), generator=gen, device=device)
+    g_cls, g_aff = (torch.rand(B // 2, generator=gen, device=device) * 100 for _ in range(2))
+    sign = pair_consistency_forward(qkv, scale, HEADS)[3]
+    runs = {f"forward, export {export} {str(dtype)[6:]}":
+            lambda export=export, dtype=dtype: attention_qkv_cols_forward(qkv, scale, HEADS,
+                                                                          export, dtype)
+            for export, dtype in (("mean", torch.float32), ("mean", torch.bfloat16),
+                                  ("none", torch.float32))}
+    runs.update({f"backward, de {name}":
+                 lambda d=d: (attention_qkv_cols_backward(qkv, g, d, scale, HEADS),)
+                 for name, d in (("none", None), ("float32", de),
+                                 ("bfloat16", de.to(torch.bfloat16)))})
+    runs["backward, sign tile"] = lambda: (pair_consistency_backward(
+        qkv, g, sign, g_cls, g_aff, scale, HEADS),)
+    for name, run in runs.items():
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        same = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(first, second))
+        log(f"  {name}: two launches {'equal to the bit' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+
+
 def check_pamr(device, errs) -> None:
     """K3, and K4 chained over PAMR_ITERS launches on the same affinity,
     against their plain versions: B=2 and B=8 views of 384x384 with the
@@ -306,6 +369,8 @@ def phase_kernels(device) -> dict:
     errs: dict = {}
     check_k1(device, errs)
     check_k2_k1b(device, errs)
+    check_many_tokens(device, errs)
+    check_same_bits(device)
     check_pamr(device, errs)
     return errs
 
@@ -1013,10 +1078,19 @@ def device_breakdown(infer, path, label, image_ms, card, pamr_fn=None, top=12) -
 
 
 def time_call(fn, reps=50) -> float:
+    """Device ms per call: CUDA events around ``reps`` calls that the host
+    enqueues while the device is held busy, so that a call which takes the
+    host longer than the device is timed on the device, not at the host's
+    enqueue rate."""
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    # Device cycles to cover the enqueue of `reps` calls (at most 2 GHz).
+    torch.cuda._sleep(int(2 * (time.perf_counter() - t0) * reps * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -1216,9 +1290,15 @@ def main() -> int:
     log(f"[2/9] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
+        kernel = ""
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  {name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '\S*?(\d+[a-z_]+_kernel)(I\S*?E)?E",
+                              line)
+            if entry:   # the mangled name: length, name, template arguments
+                kernel = entry.group(1).lstrip("0123456789") + (
+                    "<" + entry.group(2)[3:-1] + ">" if entry.group(2) else "")
+            elif "registers" in line or "spill" in line or "smem" in line:
+                log(f"  {name}: {kernel}: {line.strip()}")
 
     log("[3/9] kernels against their plain versions on the card")
     errs = phase_kernels(device)

@@ -6,7 +6,8 @@ it): ``python -m pytest --noconftest tests/test_torch_cuda.py``. Covers
 K1f/K1n (with the float32 and the bfloat16 export), K1b (with a float32
 and a bfloat16 de), K2f, K2b, K3 and K4, the three other attention layouts
 K5a, K5b and K5c (forward and backward), their launch counters and what
-they refuse.
+they refuse; ragged token counts, more tokens than the earlier kernels'
+shared-memory limit, and the same bits from two launches.
 Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
@@ -30,7 +31,7 @@ def device():
 
 
 @pytest.mark.parametrize("export", ["mean", "none"])
-@pytest.mark.parametrize("batch,n", [(2, 577), (3, 37), (1, 1), (2, 9)])
+@pytest.mark.parametrize("batch,n", [(2, 577), (3, 37), (1, 1), (2, 9), (2, 17), (1, 1025)])
 def test_attn_fwd_headmean_matches_plain(device, batch, n, export):
     gen = torch.Generator(device=device).manual_seed(n)
     qkv = torch.randn((batch, n, 3 * H * D), generator=gen, device=device).bfloat16()
@@ -55,9 +56,6 @@ def test_attn_fwd_headmean_raises_on_what_it_does_not_take(device):
                                              dtype=torch.bfloat16)[..., ::2], D ** -0.5, H)
     with pytest.raises(ValueError, match="head dim"):
         fused_attention_qkv_cols(qkv, D ** -0.5, 2 * H)
-    with pytest.raises(ValueError, match="shared-memory"):
-        fused_attention_qkv_cols(torch.zeros((1, 8192, 3 * H * D), device=device,
-                                             dtype=torch.bfloat16), D ** -0.5, H)
 
 
 # --- K1b, K2f, K2b --------------------------------------------------------
@@ -101,7 +99,7 @@ def test_attn_pair_fwd_matches_plain(device, batch, n):
     assert sign.dtype == torch.int8 and not sign[:, :, 0].any()
 
 
-@pytest.mark.parametrize("batch,n", [(8, 577), (2, 37)])
+@pytest.mark.parametrize("batch,n", [(8, 577), (2, 37), (2, 17), (2, 1025)])
 def test_attn_pair_bwd_matches_plain_with_the_kernels_sign(device, batch, n):
     from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_backward,
                                                   pair_consistency_backward_plain,
@@ -122,7 +120,7 @@ def test_attn_pair_bwd_matches_plain_with_the_kernels_sign(device, batch, n):
 
 
 @pytest.mark.parametrize("with_de", [True, False])
-@pytest.mark.parametrize("batch,n", [(8, 577), (2, 37), (1, 1)])
+@pytest.mark.parametrize("batch,n", [(8, 577), (2, 37), (1, 1), (2, 17), (1, 1025)])
 def test_attn_bwd_dense_matches_plain(device, batch, n, with_de):
     from acr_wsss_tpu_torch.ops.attn_cuda import (attention_qkv_cols_backward,
                                                   attention_qkv_cols_backward_plain)
@@ -230,20 +228,26 @@ def _entry(entry):
             "K5c": attn_cuda.fused_attention_qkv}[entry]
 
 
+def _layout(entry):
+    return {"K5a": "bhnd", "K5b": "nhd", "K5c": "cols"}[entry]
+
+
 def _call(entry, xs, export="mean", probs_dtype=torch.float32):
     if entry == "K5a":
         return _entry(entry)(*xs, D ** -0.5, export=export)
     return _entry(entry)(*xs, D ** -0.5, H, export, probs_dtype)
 
 
+@pytest.mark.parametrize("de_dtype", ["probs", None])
 @pytest.mark.parametrize("entry,probs_dtype", [
     ("K5a", torch.float32), ("K5b", torch.float32), ("K5b", torch.bfloat16),
     ("K5c", torch.float32), ("K5c", torch.bfloat16)])
-@pytest.mark.parametrize("batch,n", [(8, 577), (2, 37), (1, 1)])
-def test_attention_entries_match_plain(device, entry, probs_dtype, batch, n):
+@pytest.mark.parametrize("batch,n", [(8, 577), (2, 37), (1, 1), (2, 17), (1, 1025)])
+def test_attention_entries_match_plain(device, entry, probs_dtype, de_dtype, batch, n):
+    """de_dtype "probs": the cotangent of the export, in its dtype."""
     from acr_wsss_tpu_torch.ops import attn_cuda
 
-    layout = {"K5a": "bhnd", "K5b": "nhd", "K5c": "cols"}[entry]
+    layout = _layout(entry)
     xs = _entry_inputs(device, entry, batch, n, seed=n + 9)
     gen = torch.Generator(device=device).manual_seed(n + 10)
     fn = _entry(entry)
@@ -252,7 +256,8 @@ def test_attention_entries_match_plain(device, entry, probs_dtype, batch, n):
     out_none, probs_none = _call(entry, xs, "none", probs_dtype)
     ref_out, ref_probs = attn_cuda.forward_plain(layout, xs, D ** -0.5, H, "mean", probs_dtype)
     g = torch.randn(out.shape, generator=gen, device=device).bfloat16()
-    de = torch.randn((batch, n, n), generator=gen, device=device).to(probs_dtype)
+    de = None if de_dtype is None else torch.randn((batch, n, n), generator=gen,
+                                                   device=device).to(probs_dtype)
     grads = attn_cuda.backward(layout, xs, g, de, D ** -0.5, H, fn)
     refs = attn_cuda.backward_plain(layout, xs, g, de, D ** -0.5, H)
     torch.cuda.synchronize()
@@ -292,8 +297,68 @@ def test_attention_entries_raise_on_what_they_do_not_take(device, entry):
         _call(entry, [torch.cat([t, t], dim=-1)[..., ::2] for t in xs])
     with pytest.raises(ValueError, match="16-byte"):   # rows start 2 bytes off
         _call(entry, [torch.cat([t, t], dim=-1)[..., 1:t.shape[-1] + 1] for t in xs])
-    with pytest.raises(ValueError, match="shared-memory"):
-        _call(entry, _entry_inputs(device, entry, 1, 8192, 13))
+
+
+# --- the tensor-core forward and backward: more tokens than the
+# shared-memory limit of the earlier kernels (about 3.4k), and the same
+# bits from run to run ----------------------------------------------------
+
+def test_attention_kernels_take_more_tokens_than_the_old_limit(device):
+    from acr_wsss_tpu_torch.ops.attn_cuda import (attention_qkv_cols_backward,
+                                                  attention_qkv_cols_backward_plain)
+
+    n = 4001
+    qkv = _qkv(device, 1, n, seed=16)
+    gen = torch.Generator(device=device).manual_seed(17)
+    g = torch.randn((1, n, H * D), generator=gen, device=device).bfloat16()
+    de = torch.randn((1, n, n), generator=gen, device=device)
+    out, probs = fused_attention_qkv_cols(qkv, D ** -0.5, H, "mean")
+    ref_out, ref_probs = attention_qkv_cols_plain(qkv, D ** -0.5, H, "mean")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=OUT_RTOL, atol=OUT_ATOL)
+    torch.testing.assert_close(probs, ref_probs, rtol=0, atol=PROBS_ATOL)
+    del probs, ref_probs
+    got = attention_qkv_cols_backward(qkv, g, de, D ** -0.5, H)
+    ref = attention_qkv_cols_backward_plain(qkv, g, de, D ** -0.5, H)
+    torch.cuda.synchronize()
+    _assert_grad_close(got, ref)
+
+
+@pytest.mark.parametrize("entry", ["K5a", "K5b", "K5c"])
+def test_attention_kernels_give_the_same_bits_twice(device, entry):
+    from acr_wsss_tpu_torch.ops import attn_cuda
+
+    layout = _layout(entry)
+    xs = _entry_inputs(device, entry, 2, 577, seed=18)
+    gen = torch.Generator(device=device).manual_seed(19)
+    fn = _entry(entry)
+    for export, probs_dtype in (("mean", torch.float32), ("mean", torch.bfloat16),
+                                ("none", torch.float32)):
+        first, second = (attn_cuda.forward(layout, xs, D ** -0.5, H, export, probs_dtype, fn)
+                         for _ in range(2))
+        assert torch.equal(first[0], second[0])
+        assert (first[1] is None and second[1] is None) or torch.equal(first[1], second[1])
+    g = torch.randn(first[0].shape, generator=gen, device=device).bfloat16()
+    for de_dtype in (None, torch.float32, torch.bfloat16):
+        de = None if de_dtype is None else torch.randn((2, 577, 577), generator=gen,
+                                                       device=device).to(de_dtype)
+        first, second = (attn_cuda.backward(layout, xs, g, de, D ** -0.5, H, fn)
+                         for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_pair_backward_gives_the_same_bits_twice(device):
+    from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_backward,
+                                                  pair_consistency_forward)
+
+    qkv = _qkv(device, 8, 577, seed=20)
+    gen = torch.Generator(device=device).manual_seed(21)
+    g = torch.randn((8, 577, H * D), generator=gen, device=device).bfloat16()
+    g_cls, g_aff = (torch.rand(4, generator=gen, device=device) * 100 for _ in range(2))
+    sign = pair_consistency_forward(qkv, D ** -0.5, H)[3]
+    first, second = (pair_consistency_backward(qkv, g, sign, g_cls, g_aff, D ** -0.5, H)
+                     for _ in range(2))
+    assert torch.equal(first, second)
 
 
 # --- K3, K4 ---------------------------------------------------------------

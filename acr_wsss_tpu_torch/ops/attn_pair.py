@@ -21,8 +21,13 @@ de = +-sign * (g_cls on row 0, g_aff on rows >= 1), + for the view and -
 for the mirror, and runs K1's softmax backward with it. A cotangent that
 is None counts as zero (``:1178-1226``).
 
-Each wrapper takes its plain version for a CPU tensor; for a CUDA tensor
-it launches its kernel or raises, and counts the launch.
+K2f runs K1's out kernel over all rows, keeping each row's softmax
+statistics, then a tensor-core kernel per (64 rows, 64 keys, pair) that
+recomputes p head by head in order, sums it per view and writes the sign
+tile and partial sums, and a kernel that adds each pair's partials in tile
+order: no token limit, and the same bits from two launches. Each wrapper
+takes its plain version for a CPU tensor; for a CUDA tensor it launches
+its kernel or raises, and counts the launch.
 """
 
 from __future__ import annotations
@@ -104,16 +109,22 @@ def _library() -> ctypes.CDLL:
     """K2f's library, built at first use, with its C signatures."""
     lib = _build.load(KERNEL)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.attn_pair_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+    lib.attn_pair_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                   ctypes.c_float, ptr]
     lib.attn_pair_fwd.restype = i32
-    lib.attn_pair_fwd_max_tokens.argtypes = []
-    lib.attn_pair_fwd_max_tokens.restype = i32
     lib.attn_pair_fwd_tiles.argtypes = [i32]
     lib.attn_pair_fwd_tiles.restype = i32
+    lib.attn_pair_fwd_blocks_per_sm.argtypes = []
+    lib.attn_pair_fwd_blocks_per_sm.restype = i32
     lib.attn_pair_fwd_error_string.argtypes = [i32]
     lib.attn_pair_fwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def pair_kernel_blocks_per_sm() -> int:
+    """Blocks of K2f's pair kernel that one SM of the current card holds at
+    once (CUDA's occupancy calculator), for reports."""
+    return _library().attn_pair_fwd_blocks_per_sm()
 
 
 def pair_consistency_forward(qkv: torch.Tensor, scale: float, num_heads: int
@@ -130,20 +141,17 @@ def pair_consistency_forward(qkv: torch.Tensor, scale: float, num_heads: int
     lib = _library()
     dev = qkv.device
     with torch.cuda.device(dev):
-        max_tokens = lib.attn_pair_fwd_max_tokens()
-        if N > max_tokens:
-            raise ValueError(f"N={N} tokens exceed the kernel's shared-memory "
-                             f"limit of {max_tokens}")
         out = torch.empty((B, N, HD3 // 3), dtype=torch.bfloat16, device=dev)
         sign = torch.empty((pairs, N, N), dtype=torch.int8, device=dev)
+        stats = torch.empty((B, num_heads, N, 2), dtype=torch.float32, device=dev)
         partials = torch.empty((pairs, lib.attn_pair_fwd_tiles(N), 2),
                                dtype=torch.float32, device=dev)
         cls_sums = torch.empty(pairs, dtype=torch.float32, device=dev)
         aff_sums = torch.empty(pairs, dtype=torch.float32, device=dev)
         err = lib.attn_pair_fwd(
-            qkv.data_ptr(), out.data_ptr(), sign.data_ptr(), partials.data_ptr(),
-            cls_sums.data_ptr(), aff_sums.data_ptr(), B, N, num_heads, HEAD_DIM,
-            float(scale), torch.cuda.current_stream(dev).cuda_stream)
+            qkv.data_ptr(), out.data_ptr(), sign.data_ptr(), stats.data_ptr(),
+            partials.data_ptr(), cls_sums.data_ptr(), aff_sums.data_ptr(), B, N,
+            num_heads, HEAD_DIM, float(scale), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"attn_pair_fwd launch failed: "
                            f"{lib.attn_pair_fwd_error_string(err).decode()}")

@@ -45,8 +45,9 @@ OFFSETS: Tuple[Tuple[int, int], ...] = (
     (0, -1), (0, 1),
     (1, -1), (1, 0), (1, 1),
 )
-# The kernels keep one value per neighbour in registers; 8 dilations
-# (P = 64) is their compile-time limit.
+# K3 keeps one logit per neighbour in registers and K4 a block's P
+# affinities per pixel in shared memory; 8 dilations (P = 64) is their
+# compile-time limit.
 MAX_DILATIONS = 8
 
 
@@ -136,6 +137,8 @@ def _library() -> ctypes.CDLL:
     lib.pamr_affinity.restype = i32
     lib.pamr_update.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, ptr]
     lib.pamr_update.restype = i32
+    lib.pamr_update_blocks_per_sm.argtypes = [i32]
+    lib.pamr_update_blocks_per_sm.restype = i32
     lib.pamr_error_string.argtypes = [i32]
     lib.pamr_error_string.restype = ctypes.c_char_p
     return lib
@@ -176,6 +179,12 @@ def pamr_affinity(x: torch.Tensor, dilations: Sequence[int]) -> torch.Tensor:
 
 
 pamr_affinity.launches = 0
+
+
+def update_blocks_per_sm(dilations: Sequence[int]) -> int:
+    """Blocks of K4 for these dilations that one SM of the current card
+    holds at once (CUDA's occupancy calculator), for reports."""
+    return _library().pamr_update_blocks_per_sm(len(_check_dilations(dilations)))
 
 
 def pamr_update(m: torch.Tensor, aff: torch.Tensor, dilations: Sequence[int],

@@ -9,18 +9,20 @@ package. Phases, each of which fails the run when it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` builds every kernel into build/torch_kernels/, all at
-   once, with the ``-Xptxas -v`` lines printed;
+   once, with the ``-Xptxas -v`` lines printed, and the blocks per SM of
+   the pair kernel and of K4;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at ragged ones (N = 17, 37, and 1025, crop
    512, which is not a multiple of the attention kernels' 64-token tiles):
    K1f/K1n (export "mean" in float32 and bfloat16, and "none"), K2f, K2b
    (fed K2f's own sign tile), K1b (a float32 or bfloat16 dense de, or
    none), K3 and K4 chained over 10 iterations (at B=2 and B=8 views of
-   384x384 with the default dilations, and 17x13 with a dilation beyond
-   the image); K1f and K1b at N = 4001 (B=1), above the 3.4k-token limit
-   of the earlier attention kernels; and the attention kernels twice on
-   the same inputs, which must give the same bits, for every export mode
-   and every source of de;
+   384x384 with the default dilations, B=3 with 21 channels at 65x131,
+   and 17x13 with a dilation beyond the image); K1f and K1b at N = 4001
+   (B=1) and K2f at N = 4001 (B=2), above the 3.4k-token limit of the
+   earlier attention kernels; and the attention kernels twice on the same
+   inputs, which must give the same bits, for every export mode, the pair
+   forward and every source of de;
 4. inference path: GETAM CAM inference as a user runs it (vitb_hybrid,
    crop 384, ``grad`` from layer 10, affinity refinement, flip TTA, 4
    class slots) on two seeded VOC-sized images, with the weights of
@@ -241,6 +243,29 @@ def check_grad(name, got, ref) -> float:
     return check_close(name, got, ref, GRAD_RTOL, atol)
 
 
+def check_k2f(qkv):
+    """K2f against its plain version on ``qkv``: (max abs err, the
+    kernel's sign tile)."""
+    B, N, _ = qkv.shape
+    scale = HEAD_DIM ** -0.5
+    log(f"  K2f B={B} N={N}")
+    out, cls_s, aff_s, sign = pair_consistency_forward(qkv, scale, HEADS)
+    ref_out, ref_cls, ref_aff, ref_sign = pair_consistency_forward_plain(qkv, scale, HEADS)
+    _, probs = attention_qkv_cols_plain(qkv, scale, HEADS, "mean")
+    torch.cuda.synchronize()
+    err = check_close("out", out, ref_out, OUT_RTOL, OUT_ATOL)
+    err = max(err, check_close("cls_sums", cls_s, ref_cls, SUM_RTOL, 0.0))
+    err = max(err, check_close("aff_sums", aff_s, ref_aff, SUM_RTOL, 0.0))
+    clear = (probs[0::2] - probs[1::2]).abs() > SIGN_EPS
+    flips = int((sign != ref_sign).sum())
+    bad = int((sign != ref_sign)[clear].sum())
+    log(f"  sign tile: {flips} of {sign.numel()} entries differ from the plain "
+        f"version, {bad} of them where |delta| > {SIGN_EPS}")
+    if bad or sign.dtype != torch.int8:
+        raise AssertionError("K2f sign tile disagrees with the plain version")
+    return err, sign
+
+
 def check_k2_k1b(device, errs) -> None:
     gen = torch.Generator(device=device).manual_seed(1)
     scale = HEAD_DIM ** -0.5
@@ -249,22 +274,7 @@ def check_k2_k1b(device, errs) -> None:
                           device=device).to(torch.bfloat16)
         g = torch.randn((B, N, HEADS * HEAD_DIM), generator=gen,
                         device=device).to(torch.bfloat16)
-        log(f"  K2f B={B} N={N}")
-        out, cls_s, aff_s, sign = pair_consistency_forward(qkv, scale, HEADS)
-        ref_out, ref_cls, ref_aff, ref_sign = pair_consistency_forward_plain(qkv, scale, HEADS)
-        _, probs = attention_qkv_cols_plain(qkv, scale, HEADS, "mean")
-        torch.cuda.synchronize()
-        err = check_close("out", out, ref_out, OUT_RTOL, OUT_ATOL)
-        err = max(err, check_close("cls_sums", cls_s, ref_cls, SUM_RTOL, 0.0))
-        err = max(err, check_close("aff_sums", aff_s, ref_aff, SUM_RTOL, 0.0))
-        clear = (probs[0::2] - probs[1::2]).abs() > SIGN_EPS
-        flips = int((sign != ref_sign).sum())
-        bad = int((sign != ref_sign)[clear].sum())
-        log(f"  sign tile: {flips} of {sign.numel()} entries differ from the plain "
-            f"version, {bad} of them where |delta| > {SIGN_EPS}")
-        if bad or sign.dtype != torch.int8:
-            raise AssertionError("K2f sign tile disagrees with the plain version")
-        errs[("K2f", B, N)] = err
+        errs[("K2f", B, N)], sign = check_k2f(qkv)
 
         log(f"  K2b B={B} N={N} (plain version fed the kernel's sign tile)")
         g_cls = torch.rand(B // 2, generator=gen, device=device) * 100
@@ -286,8 +296,9 @@ def check_k2_k1b(device, errs) -> None:
 
 
 def check_many_tokens(device, errs, n=4001) -> None:
-    """K1f and K1b at B=1 and more tokens than the earlier kernels'
-    shared-memory limit (about 3.4k): the tensor-core kernels have none."""
+    """K1f and K1b at B=1, and K2f at B=2 (one pair), with more tokens than
+    the earlier kernels' shared-memory limit (about 3.4k): the tensor-core
+    kernels have none."""
     gen = torch.Generator(device=device).manual_seed(6)
     scale = HEAD_DIM ** -0.5
     qkv = torch.randn((1, n, 3 * HEADS * HEAD_DIM), generator=gen,
@@ -306,13 +317,17 @@ def check_many_tokens(device, errs, n=4001) -> None:
     ref = attention_qkv_cols_backward_plain(qkv, g, de, scale, HEADS)
     torch.cuda.synchronize()
     errs[("K1b", 1, n, True)] = check_grad("dqkv", got, ref)
+    del qkv, g, de, got, ref
+    qkv = torch.randn((2, n, 3 * HEADS * HEAD_DIM), generator=gen,
+                      device=device).to(torch.bfloat16)
+    errs[("K2f", 2, n)] = check_k2f(qkv)[0]
 
 
 def check_same_bits(device) -> None:
-    """The forward kernel (export fp32, bf16, none) and the backward kernel
-    (de none, fp32, bf16 and the sign tile) twice on the same inputs at the
-    training shape: the outputs must be equal to the bit (no atomics, sums
-    in a fixed order)."""
+    """The forward kernel (export fp32, bf16, none), the pair forward, and
+    the backward kernel (de none, fp32, bf16 and the sign tile) twice on
+    the same inputs at the training shape: the outputs must be equal to the
+    bit (no atomics, sums in a fixed order)."""
     gen = torch.Generator(device=device).manual_seed(7)
     B, N, scale = 2 * TRAIN_BATCH, N_TOKENS, HEAD_DIM ** -0.5
     qkv = torch.randn((B, N, 3 * HEADS * HEAD_DIM), generator=gen,
@@ -326,6 +341,8 @@ def check_same_bits(device) -> None:
                                                                           export, dtype)
             for export, dtype in (("mean", torch.float32), ("mean", torch.bfloat16),
                                   ("none", torch.float32))}
+    runs["pair forward: out, cls and aff sums, sign tile"] = (
+        lambda: pair_consistency_forward(qkv, scale, HEADS))
     runs.update({f"backward, de {name}":
                  lambda d=d: (attention_qkv_cols_backward(qkv, g, d, scale, HEADS),)
                  for name, d in (("none", None), ("float32", de),
@@ -344,18 +361,22 @@ def check_same_bits(device) -> None:
 def check_pamr(device, errs) -> None:
     """K3, and K4 chained over PAMR_ITERS launches on the same affinity,
     against their plain versions: B=2 and B=8 views of 384x384 with the
-    default dilations, and a ragged 17x13 image with dilation 24."""
+    default dilations; B=3, 21 channels at 65x131, whose rows straddle
+    K4's blocks of 128 pixels; and a ragged 17x13 image with dilation
+    24."""
     gen = torch.Generator(device=device).manual_seed(2)
-    for B, H, W, dils in ((2, CROP, CROP, PAMR_DILATIONS), (8, CROP, CROP, PAMR_DILATIONS),
-                          (1, 17, 13, (1, 24))):
+    for B, C, H, W, dils in ((2, NUM_CLASSES, CROP, CROP, PAMR_DILATIONS),
+                             (8, NUM_CLASSES, CROP, CROP, PAMR_DILATIONS),
+                             (3, NUM_CLASSES + 1, 65, 131, PAMR_DILATIONS),
+                             (1, NUM_CLASSES, 17, 13, (1, 24))):
         x = torch.randn((B, 3, H, W), generator=gen, device=device)
-        m = torch.rand((B, NUM_CLASSES, H, W), generator=gen, device=device)
+        m = torch.rand((B, C, H, W), generator=gen, device=device)
         log(f"  K3 B={B} {H}x{W} dilations {dils}")
         aff = pamr_affinity(x, dils)
         ref = pamr_affinity_plain(x, dils)
         torch.cuda.synchronize()
         errs[("K3", B, H, W)] = check_close("aff", aff, ref, PAMR_RTOL, PAMR_ATOL)
-        log(f"  K4 B={B} C={NUM_CLASSES} {H}x{W}, {PAMR_ITERS} chained launches")
+        log(f"  K4 B={B} C={C} {H}x{W}, {PAMR_ITERS} chained launches")
         got = pamr_update(m, aff, dils, PAMR_ITERS)
         ref = m
         for _ in range(PAMR_ITERS):
@@ -1018,7 +1039,7 @@ def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
         log(f"  device busy per step (sum of kernel times, profiler, 2 steps): "
             f"{busy_ms:.2f} ms of {window_ms / 2:.2f} ms under the profiler "
             f"({100 * busy_ms / (window_ms / 2):.1f}%) [{card}]; top kernels per step:")
-        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:16]:
             log(f"    {e.self_device_time_total / 2e3:9.3f} ms  {e.count // 2:5d} x  "
                 f"{e.key[:90]}")
     else:
@@ -1299,6 +1320,9 @@ def main() -> int:
                     "<" + entry.group(2)[3:-1] + ">" if entry.group(2) else "")
             elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {kernel}: {line.strip()}")
+    log(f"  blocks per SM (CUDA's occupancy calculator): attn_pair_kernel "
+        f"{attn_pair.pair_kernel_blocks_per_sm()}, pamr_update_kernel<{len(PAMR_DILATIONS)}> "
+        f"{pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
     log("[3/9] kernels against their plain versions on the card")
     errs = phase_kernels(device)

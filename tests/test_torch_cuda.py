@@ -7,7 +7,8 @@ K1f/K1n (with the float32 and the bfloat16 export), K1b (with a float32
 and a bfloat16 de), K2f, K2b, K3 and K4, the three other attention layouts
 K5a, K5b and K5c (forward and backward), their launch counters and what
 they refuse; ragged token counts, more tokens than the earlier kernels'
-shared-memory limit, and the same bits from two launches.
+shared-memory limit (the attention kernels and the pair forward), the
+same bits from two launches, and K4 on an odd shape.
 Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
@@ -177,9 +178,6 @@ def test_backward_kernels_raise_on_what_they_do_not_take(device):
         pair_consistency_forward(qkv, D ** -0.5, 2 * H)
     with pytest.raises(TypeError, match="int8"):
         pair_consistency_backward(qkv, g, sign.float(), None, None, D ** -0.5, H)
-    with pytest.raises(ValueError, match="shared-memory"):
-        pair_consistency_forward(torch.zeros((2, 8192, 3 * H * D), device=device,
-                                             dtype=torch.bfloat16), D ** -0.5, H)
 
 
 # --- bf16 export (K1f, K1b) and the other layouts (K5a, K5b, K5c) ---------
@@ -347,6 +345,32 @@ def test_attention_kernels_give_the_same_bits_twice(device, entry):
         assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+def test_pair_forward_takes_more_tokens_than_the_old_limit(device):
+    """K2f at one pair of N = 4001 tokens: the earlier pair kernel held
+    N-wide rows in shared memory and stopped at about 3.4k."""
+    from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_forward,
+                                                  pair_consistency_forward_plain)
+
+    qkv = _qkv(device, 2, 4001, seed=22)
+    out, cls_s, aff_s, sign = pair_consistency_forward(qkv, D ** -0.5, H)
+    ref_out, ref_cls, ref_aff, ref_sign = pair_consistency_forward_plain(qkv, D ** -0.5, H)
+    _, probs = attention_qkv_cols_plain(qkv, D ** -0.5, H, "mean")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=OUT_RTOL, atol=OUT_ATOL)
+    torch.testing.assert_close(cls_s, ref_cls, rtol=SUM_RTOL, atol=1e-7)
+    torch.testing.assert_close(aff_s, ref_aff, rtol=SUM_RTOL, atol=1e-7)
+    clear = (probs[0::2] - probs[1::2]).abs() > SIGN_EPS
+    assert torch.equal(sign[clear], ref_sign[clear])
+
+
+def test_pair_forward_gives_the_same_bits_twice(device):
+    from acr_wsss_tpu_torch.ops.attn_pair import pair_consistency_forward
+
+    qkv = _qkv(device, 8, 577, seed=23)
+    first, second = (pair_consistency_forward(qkv, D ** -0.5, H) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_pair_backward_gives_the_same_bits_twice(device):
     from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_backward,
                                                   pair_consistency_forward)
@@ -394,6 +418,24 @@ def test_pamr_kernels_match_plain(device, batch, k, h, w, dilations):
     torch.testing.assert_close(pamr.pamr(x, m[:, :, ::4, ::4], 3, dilations),
                                pamr.pamr_plain(x, m[:, :, ::4, ::4], 3, dilations),
                                rtol=PAMR_RTOL, atol=PAMR_ATOL)
+
+
+def test_pamr_update_on_an_odd_shape(device):
+    """K4 at 3 images of 21 channels and 65x131 pixels, whose last block of
+    128 pixels is partial and whose rows start inside a block."""
+    from acr_wsss_tpu_torch.ops import pamr
+
+    gen = torch.Generator(device=device).manual_seed(24)
+    x = torch.randn((3, 3, 65, 131), generator=gen, device=device)
+    m = torch.rand((3, 21, 65, 131), generator=gen, device=device)
+    aff = pamr.pamr_affinity(x, PRODUCTION)
+    out = pamr.pamr_update(m, aff, PRODUCTION, num_iter=10)
+    ref = m
+    for _ in range(10):
+        ref = pamr.pamr_update_plain(ref, aff, PRODUCTION)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=PAMR_RTOL, atol=PAMR_ATOL)
+    assert pamr.update_blocks_per_sm(PRODUCTION) > 1
 
 
 def test_pamr_flat_guidance_on_the_card(device):

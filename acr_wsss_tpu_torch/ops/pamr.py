@@ -45,9 +45,11 @@ OFFSETS: Tuple[Tuple[int, int], ...] = (
     (0, -1), (0, 1),
     (1, -1), (1, 0), (1, 1),
 )
-# K3 keeps one logit per neighbour in registers and K4 a block's P
-# affinities per pixel in shared memory; 8 dilations (P = 64) is their
-# compile-time limit.
+# K3 keeps a pixel's P logits in registers and K4 a block's P affinities
+# per pixel in shared memory; 8 dilations (P = 64) is their compile-time
+# limit. K3 stages halo tiles of up to 24 pixels, the recipe's largest
+# dilation, on every side in shared memory; a larger |dilation| takes its
+# gather kernel.
 MAX_DILATIONS = 8
 
 
@@ -135,6 +137,10 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.pamr_affinity.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr, i32, ptr]
     lib.pamr_affinity.restype = i32
+    lib.pamr_affinity_max_halo.argtypes = []
+    lib.pamr_affinity_max_halo.restype = i32
+    lib.pamr_affinity_blocks_per_sm.argtypes = [i32]
+    lib.pamr_affinity_blocks_per_sm.restype = i32
     lib.pamr_update.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr, i32, ptr]
     lib.pamr_update.restype = i32
     lib.pamr_update_blocks_per_sm.argtypes = [i32]
@@ -161,7 +167,9 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 
 def pamr_affinity(x: torch.Tensor, dilations: Sequence[int]) -> torch.Tensor:
-    """K3: the affinity (B, P, H, W) float32 of the guidance x (B, K, H, W)."""
+    """K3: the affinity (B, P, H, W) float32 of the guidance x (B, K, H, W).
+    On the card, one launch of the tile kernel, or of the gather kernel
+    where a |dilation| exceeds its halo (:func:`affinity_route`)."""
     dils = _check_dilations(dilations)
     if x.device.type == "cpu":
         return pamr_affinity_plain(x, dils)
@@ -179,6 +187,20 @@ def pamr_affinity(x: torch.Tensor, dilations: Sequence[int]) -> torch.Tensor:
 
 
 pamr_affinity.launches = 0
+
+
+def affinity_route(dilations: Sequence[int]) -> str:
+    """Which of K3's kernels the card runs for these dilations, for reports:
+    ``"tile"`` up to the tile kernel's halo, else ``"gather"``."""
+    halo = max(abs(d) for d in _check_dilations(dilations))
+    return "tile" if halo <= _library().pamr_affinity_max_halo() else "gather"
+
+
+def affinity_blocks_per_sm(dilations: Sequence[int]) -> int:
+    """Blocks of K3's tile kernel for these dilations that one SM of the
+    current card holds at once at its largest halo (CUDA's occupancy
+    calculator), for reports."""
+    return _library().pamr_affinity_blocks_per_sm(len(_check_dilations(dilations)))
 
 
 def update_blocks_per_sm(dilations: Sequence[int]) -> int:

@@ -10,7 +10,7 @@ package. Phases, each of which fails the run when it fails:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` builds every kernel into build/torch_kernels/, all at
    once, with the ``-Xptxas -v`` lines printed, and the blocks per SM of
-   the pair kernel and of K4;
+   the pair kernel, of K3's tile kernel and of K4;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at ragged ones (N = 17, 37, and 1025, crop
    512, which is not a multiple of the attention kernels' 64-token tiles):
@@ -18,11 +18,13 @@ package. Phases, each of which fails the run when it fails:
    (fed K2f's own sign tile), K1b (a float32 or bfloat16 dense de, or
    none), K3 and K4 chained over 10 iterations (at B=2 and B=8 views of
    384x384 with the default dilations, B=3 with 21 channels at 65x131,
-   and 17x13 with a dilation beyond the image); K1f and K1b at N = 4001
-   (B=1) and K2f at N = 4001 (B=2), above the 3.4k-token limit of the
-   earlier attention kernels; and the attention kernels twice on the same
-   inputs, which must give the same bits, for every export mode, the pair
-   forward and every source of de;
+   17x13 with a dilation beyond the image, all through K3's tile kernel,
+   and 70x90 with dilation 40, beyond the tile's halo, through its gather
+   kernel); K1f and K1b at N = 4001 (B=1) and K2f at N = 4001 (B=2),
+   above the 3.4k-token limit of the earlier attention kernels; and the
+   kernels twice on the same inputs, which must give the same bits: the
+   attention kernels for every export mode, the pair forward and every
+   source of de, K3 through either kernel, and K4;
 4. inference path: GETAM CAM inference as a user runs it (vitb_hybrid,
    crop 384, ``grad`` from layer 10, affinity refinement, flip TTA, 4
    class slots) on two seeded VOC-sized images, with the weights of
@@ -118,9 +120,9 @@ from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_backward,  # noqa
                                               pair_consistency_backward_plain,
                                               pair_consistency_forward,
                                               pair_consistency_forward_plain)
-from acr_wsss_tpu_torch.ops.pamr import (make_pamr_fn, pamr_affinity,  # noqa: E402
-                                         pamr_affinity_plain, pamr_plain, pamr_update,
-                                         pamr_update_plain)
+from acr_wsss_tpu_torch.ops.pamr import (affinity_route, make_pamr_fn,  # noqa: E402
+                                         pamr_affinity, pamr_affinity_plain, pamr_plain,
+                                         pamr_update, pamr_update_plain)
 from acr_wsss_tpu_torch.utils.checkpoint import load_params_npz  # noqa: E402
 
 WEIGHTS = os.path.join(ROOT, "bench_artifacts", "stability_r3", "stability_r3_last.npz")
@@ -326,8 +328,10 @@ def check_many_tokens(device, errs, n=4001) -> None:
 def check_same_bits(device) -> None:
     """The forward kernel (export fp32, bf16, none), the pair forward, and
     the backward kernel (de none, fp32, bf16 and the sign tile) twice on
-    the same inputs at the training shape: the outputs must be equal to the
-    bit (no atomics, sums in a fixed order)."""
+    the same inputs at the training shape, and K3 (through either of its
+    kernels) and PAMR_ITERS chained K4 launches at B=2 views of 384x384:
+    the outputs must be equal to the bit (no atomics, sums in a fixed
+    order)."""
     gen = torch.Generator(device=device).manual_seed(7)
     B, N, scale = 2 * TRAIN_BATCH, N_TOKENS, HEAD_DIM ** -0.5
     qkv = torch.randn((B, N, 3 * HEADS * HEAD_DIM), generator=gen,
@@ -349,6 +353,14 @@ def check_same_bits(device) -> None:
                                  ("bfloat16", de.to(torch.bfloat16)))})
     runs["backward, sign tile"] = lambda: (pair_consistency_backward(
         qkv, g, sign, g_cls, g_aff, scale, HEADS),)
+    x = torch.randn((2, 3, CROP, CROP), generator=gen, device=device)
+    m = torch.rand((2, NUM_CLASSES, CROP, CROP), generator=gen, device=device)
+    aff = pamr_affinity(x, PAMR_DILATIONS)
+    for dils in (PAMR_DILATIONS, (1, 40)):
+        runs[f"PAMR affinity (K3, {affinity_route(dils)} kernel), dilations {dils}"] = (
+            lambda dils=dils: (pamr_affinity(x, dils),))
+    runs[f"PAMR update (K4), {PAMR_ITERS} chained launches"] = lambda: (
+        pamr_update(m, aff, PAMR_DILATIONS, PAMR_ITERS),)
     for name, run in runs.items():
         first, second = run(), run()
         torch.cuda.synchronize()
@@ -362,16 +374,19 @@ def check_pamr(device, errs) -> None:
     """K3, and K4 chained over PAMR_ITERS launches on the same affinity,
     against their plain versions: B=2 and B=8 views of 384x384 with the
     default dilations; B=3, 21 channels at 65x131, whose rows straddle
-    K4's blocks of 128 pixels; and a ragged 17x13 image with dilation
-    24."""
+    K4's blocks of 128 pixels and whose last tiles of K3 are partial in
+    both axes; a ragged 17x13 image with dilation 24, smaller than K3's
+    halo; and 70x90 with dilation 40, beyond the halo, which K3 takes
+    through its gather kernel."""
     gen = torch.Generator(device=device).manual_seed(2)
     for B, C, H, W, dils in ((2, NUM_CLASSES, CROP, CROP, PAMR_DILATIONS),
                              (8, NUM_CLASSES, CROP, CROP, PAMR_DILATIONS),
                              (3, NUM_CLASSES + 1, 65, 131, PAMR_DILATIONS),
-                             (1, NUM_CLASSES, 17, 13, (1, 24))):
+                             (1, NUM_CLASSES, 17, 13, (1, 24)),
+                             (1, NUM_CLASSES, 70, 90, (1, 40))):
         x = torch.randn((B, 3, H, W), generator=gen, device=device)
         m = torch.rand((B, C, H, W), generator=gen, device=device)
-        log(f"  K3 B={B} {H}x{W} dilations {dils}")
+        log(f"  K3 B={B} {H}x{W} dilations {dils} ({affinity_route(dils)} kernel)")
         aff = pamr_affinity(x, dils)
         ref = pamr_affinity_plain(x, dils)
         torch.cuda.synchronize()
@@ -1320,9 +1335,11 @@ def main() -> int:
                     "<" + entry.group(2)[3:-1] + ">" if entry.group(2) else "")
             elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {kernel}: {line.strip()}")
+    n_dil = len(PAMR_DILATIONS)
     log(f"  blocks per SM (CUDA's occupancy calculator): attn_pair_kernel "
-        f"{attn_pair.pair_kernel_blocks_per_sm()}, pamr_update_kernel<{len(PAMR_DILATIONS)}> "
-        f"{pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
+        f"{attn_pair.pair_kernel_blocks_per_sm()}, pamr_affinity_tile_kernel<{n_dil}> "
+        f"{pamr_ops.affinity_blocks_per_sm(PAMR_DILATIONS)} (at its largest halo), "
+        f"pamr_update_kernel<{n_dil}> {pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
     log("[3/9] kernels against their plain versions on the card")
     errs = phase_kernels(device)

@@ -8,7 +8,8 @@ and a bfloat16 de), K2f, K2b, K3 and K4, the three other attention layouts
 K5a, K5b and K5c (forward and backward), their launch counters and what
 they refuse; ragged token counts, more tokens than the earlier kernels'
 shared-memory limit (the attention kernels and the pair forward), the
-same bits from two launches, and K4 on an odd shape.
+same bits from two launches, K4 on an odd shape, and K3 through its
+gather kernel (a dilation beyond the tile kernel's halo).
 Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
@@ -395,7 +396,7 @@ PRODUCTION = (1, 2, 4, 8, 12, 24)
 
 @pytest.mark.parametrize("batch,k,h,w,dilations", [
     (2, 3, 384, 384, PRODUCTION), (8, 3, 384, 384, PRODUCTION), (2, 3, 37, 29, (1, 2)),
-    (1, 3, 17, 13, (1, 24)), (1, 1, 5, 300, tuple(range(1, 9))),
+    (1, 3, 17, 13, (1, 24)), (1, 1, 5, 300, tuple(range(1, 9))), (1, 3, 70, 90, (1, 40)),
 ])
 def test_pamr_kernels_match_plain(device, batch, k, h, w, dilations):
     from acr_wsss_tpu_torch.ops import pamr
@@ -436,6 +437,24 @@ def test_pamr_update_on_an_odd_shape(device):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=PAMR_RTOL, atol=PAMR_ATOL)
     assert pamr.update_blocks_per_sm(PRODUCTION) > 1
+    assert pamr.affinity_blocks_per_sm(PRODUCTION) > 1
+    assert pamr.affinity_route(PRODUCTION) == "tile"
+    assert pamr.affinity_route((1, 40)) == "gather"
+
+
+def test_pamr_kernels_give_the_same_bits_twice(device):
+    """K3 through either of its kernels and K4 chained: no atomics, sums
+    in a fixed order."""
+    from acr_wsss_tpu_torch.ops import pamr
+
+    gen = torch.Generator(device=device).manual_seed(25)
+    x = torch.randn((2, 3, 70, 90), generator=gen, device=device)
+    m = torch.rand((2, 20, 70, 90), generator=gen, device=device)
+    for dilations in (PRODUCTION, (1, 40)):
+        assert torch.equal(pamr.pamr_affinity(x, dilations), pamr.pamr_affinity(x, dilations))
+    aff = pamr.pamr_affinity(x, PRODUCTION)
+    assert torch.equal(pamr.pamr_update(m, aff, PRODUCTION, num_iter=10),
+                       pamr.pamr_update(m, aff, PRODUCTION, num_iter=10))
 
 
 def test_pamr_flat_guidance_on_the_card(device):

@@ -61,6 +61,7 @@ class TrainConfig:
     """VOC training (reference ``train_acr.py:49-117``, ``train_acr.sh``)."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    dataset: str = "voc12"         # voc12 | coco
     crop_size: int = 384
     batch_size: int = 4            # global batch (reference: 1/GPU x 4 GPUs)
     max_epochs: int = 10
@@ -72,11 +73,19 @@ class TrainConfig:
     seed: int = 0
     log_every: int = 50
     val_every: int = 5000
+    # Step-numbered checkpoints of model, optimizer and step under
+    # <checkpoint_dir>/<session_name>/ (utils/checkpoint.py); a run resumes
+    # from the latest one.
+    checkpoint_every: int = 5000
     checkpoint_dir: str = "weight"
     session_name: str = "acr_tpu"
     image_dir: str = "voc/image/path"
     train_list: str = "voc12/train_aug_id.txt"
     val_list: str = "voc12/val_id.txt"
+    # COCO: the separate validation image directory (reference --valpath);
+    # None validates from image_dir (VOC's one JPEGImages directory).
+    val_image_dir: Optional[str] = None
+    # VOC: the cls_labels npy; COCO: the directory of per-image bbox txts.
     cls_labels_path: str = "voc12/cls_labels.npy"
     num_workers: int = 8
     # Reference quirk: PolyOptimizer passes weight_decay into torch SGD's
@@ -84,16 +93,33 @@ class TrainConfig:
     reference_optimizer_quirk: bool = False
     clip_grad_norm: float = 0.0    # global-norm clipping, 0 = off
     accum_steps: int = 1           # gradient accumulation micro-steps per update
+    # Graft the trunk from the zoo npz <ACR_WSSS_ZOO>/<backbone>_in21k.npz
+    # (models/zoo.py); the head keeps its seeded init.
+    pretrained: bool = False
+    # Ship uint8 rasters padded to aug_pad^2 and a 9-int descriptor per
+    # example; resize, flip, normalize and crop run on the batch's device
+    # (data/device_aug.py). aug_pad must cover the largest image.
+    device_aug: bool = False
+    aug_pad: int = 512
     cache_decoded: bool = False
     # Un-mirror the flipped view's token order once after the pos-embed
     # instead of un-flipping every layer's (B, N, N) export in the loss.
     aligned_mirror: bool = True
+    # A torch.profiler trace of steps 10-20 is written here (None = off).
+    profile_dir: Optional[str] = None
+    # Hung-step watchdog (utils/watchdog.py): exit 75 when no step completes
+    # within this many seconds after the first one; 0 = off.
+    step_timeout_s: float = 0.0
     device: str = "cuda"
 
 
 @dataclasses.dataclass(frozen=True)
 class InferConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    # "voc12": labels from the cls_labels npy; "coco": names from
+    # infer_list (or the image directory), labels from the bbox txts in
+    # cls_labels_path.
+    dataset: str = "voc12"
     weights: str = "weight/acr_tpu_last"
     crop_size: int = 384
     start_layer: int = 10

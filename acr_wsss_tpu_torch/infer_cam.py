@@ -6,7 +6,9 @@ Both TTA views (identity, hflip) run as one batch, uploaded once; one
 forward serves GETAM and the per-patch CAM head; the present classes are
 backpropagated in slots; with ``--pamr N`` each view's CAM is refined on
 the device at crop resolution (``ops/pamr.py``); the per-image native-size
-resize and min-max normalization run on the host.
+resize and min-max normalization run on the host. With
+``InferConfig.dataset="coco"`` the labels come from bbox txts
+(``data/coco.py``), as the pipeline's ``--dataset coco`` sets it.
 
     python -m acr_wsss_tpu_torch.infer_cam --weights W.npz \
         --LISTpath L.txt --IMpath JPEGs --cls_labels labels.npy \
@@ -26,7 +28,9 @@ import numpy as np
 import torch
 
 from acr_wsss_tpu_torch.configs import InferConfig, ModelConfig, parse_bool
+from acr_wsss_tpu_torch.data import coco as coco_data
 from acr_wsss_tpu_torch.data import transforms
+from acr_wsss_tpu_torch.data import voc as voc_data
 from acr_wsss_tpu_torch.getam import getam_cams, make_forward_for_getam, tap_config
 from acr_wsss_tpu_torch.models.acr import ACR
 from acr_wsss_tpu_torch.models.convert import SCANNED, flax_to_state_dict, scanned_to_unrolled
@@ -182,12 +186,19 @@ def run(cfg: InferConfig) -> None:
     # One function serves every scale: the kernels take any (H, W).
     pamr_fn = (make_pamr_fn(cfg.pamr_iters, cfg.pamr_dilations) if cfg.pamr_iters
                else None)
-    with open(cfg.infer_list) as f:
-        lines = [line for line in f if line.strip()]
-    # Bare-id lists, or VOC path-pair lines whose id is chars 12:23.
-    names = ([line[12:23] for line in lines] if lines and lines[0].startswith("/")
-             else [line.strip() for line in lines])
-    labels = np.load(cfg.cls_labels_path, allow_pickle=True).item()
+    if cfg.dataset == "coco":
+        # names from infer_list or the image directory, labels from the
+        # bbox txts in cls_labels_path (``acr_wsss_tpu/infer_cam.py:460-465``)
+        names = (voc_data.read_file(cfg.infer_list) if cfg.infer_list
+                 else coco_data.list_image_names(cfg.image_dir))
+        labels = coco_data.CocoLabelStore(cfg.cls_labels_path, names)
+    else:
+        # Bare-id lists, or VOC path-pair lines whose id is chars 12:23.
+        with open(cfg.infer_list) as f:
+            first_line = f.readline()
+        names = (voc_data.read_file_2(cfg.infer_list) if first_line.startswith("/")
+                 else voc_data.read_file(cfg.infer_list))
+        labels = voc_data.load_cls_labels(cfg.cls_labels_path)
     if cfg.out_cam:
         os.makedirs(cfg.out_cam, exist_ok=True)
     V = max(1, cfg.batch_images)

@@ -71,6 +71,7 @@ class ACR(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, attn_impl: str = "kernel",
                  probs_dtype: torch.dtype = torch.float32, s2d_stem: bool = False):
         super().__init__()
+        self.backbone_name = backbone_name
         self.spec = spec = resolve_backbone(backbone_name)
         self.start_index = spec.num_prefix_tokens
         self.trunk = VisionTransformer(

@@ -18,14 +18,22 @@ trunk as one doubled batch, with one of three loss branches
     python -m acr_wsss_tpu_torch.train --IMpath JPEGs --cls_labels labels.npy \\
         --train_list train.txt --val_list val.txt --session_name acr
 
-At the end the loop writes ``<checkpoint_dir>/<session>_last.npz`` in the
-JAX package's flat flax format, which both packages' ``infer_cam`` read.
+The loop (``:229-442``) saves a step-numbered checkpoint of model,
+optimizer and step every ``checkpoint_every`` steps under
+``<checkpoint_dir>/<session>/`` (``utils/checkpoint.py``), and a launch
+resumes from the latest one at the step after it; the data iterator
+starts again at epoch 0, as the JAX package's does. SIGTERM or SIGINT
+(``utils/preemption.py``) saves a checkpoint at the next step boundary and
+stops without the final npz. With ``step_timeout_s``, a step that does not
+come back exits the process with 75 (``utils/watchdog.py``), which
+``utils/supervisor.py`` relaunches. Metrics go to
+``<checkpoint_dir>/<session>_metrics.jsonl`` every ``log_every`` steps;
+``profile_dir`` gets a ``torch.profiler`` trace of steps 10-20. At the
+end the loop writes ``<checkpoint_dir>/<session>_last.npz`` in the JAX
+package's flat flax format, which both packages' ``infer_cam`` read.
 
-Not part of this module yet: resume from a checkpoint of model, optimizer
-and step, the preemption guard, the hung-step watchdog, the profiler
-window, multi-host and multi-GPU data parallelism, FSDP, the pipeline
-mesh, device-side augmentation, ImageNet-pretrained initialization and
-COCO.
+Multi-host and multi-GPU data parallelism, FSDP and the pipeline mesh are
+not part of this module.
 """
 
 from __future__ import annotations
@@ -41,22 +49,33 @@ import torch.nn.functional as F
 
 from acr_wsss_tpu_torch import losses
 from acr_wsss_tpu_torch.configs import ModelConfig, TrainConfig
+from acr_wsss_tpu_torch.data import device_aug
 from acr_wsss_tpu_torch.data import voc as voc_data
+from acr_wsss_tpu_torch.models import zoo
 from acr_wsss_tpu_torch.models.acr import ACR, init_random_
 from acr_wsss_tpu_torch.models.convert import state_dict_to_flax
-from acr_wsss_tpu_torch.utils.checkpoint import save_params_npz
+from acr_wsss_tpu_torch.utils.checkpoint import CheckpointManager, save_params_npz
+from acr_wsss_tpu_torch.utils.logging import MetricWriter
 from acr_wsss_tpu_torch.utils.meters import AverageMeter, Timer
+from acr_wsss_tpu_torch.utils.preemption import PreemptionGuard
 from acr_wsss_tpu_torch.utils.schedule import PolySGD, make_optimizer
+from acr_wsss_tpu_torch.utils.watchdog import StepWatchdog
+
+# Loop steps whose trace ``profile_dir`` gets: [start, stop).
+PROFILE_WINDOW = (10, 20)
 
 
 @dataclasses.dataclass
 class TrainState:
     """What ``train`` returns: the model, its optimizer, the number of
-    train steps run and every step's loss parts."""
+    train steps run in this call (``steps``), the JAX ``TrainState.step``
+    (``step``: the restored checkpoint's step, plus one per step run) and
+    every step's loss parts."""
 
     model: ACR
     optimizer: PolySGD
     steps: int = 0
+    step: int = 0
     history: List[Dict[str, float]] = dataclasses.field(default_factory=list)
 
 
@@ -73,10 +92,20 @@ def _device(name: str) -> torch.device:
     return device
 
 
-def create_train_state(cfg: TrainConfig, max_step: int) -> Tuple[ACR, PolySGD]:
-    """The model with seeded random weights (``cfg.seed``) on ``cfg.device``
-    and its optimizer; ``max_step`` counts optimizer updates."""
-    model = init_random_(build_model(cfg.model), seed=cfg.seed).to(_device(cfg.device))
+def create_train_state(cfg: TrainConfig, max_step: int, init: bool = True
+                       ) -> Tuple[ACR, PolySGD]:
+    """The model with seeded random weights (``cfg.seed``), its trunk from
+    the zoo npz with ``cfg.pretrained``, on ``cfg.device``, and its
+    optimizer; ``max_step`` counts optimizer updates. ``init=False`` skips
+    the seeded init and the graft, for a caller that restores a checkpoint
+    over every parameter."""
+    device = _device(cfg.device)
+    model = build_model(cfg.model)
+    if init and cfg.pretrained:
+        zoo.init_with_pretrained(model, cfg.seed)
+    elif init:
+        init_random_(model, seed=cfg.seed)
+    model.to(device)
     optimizer = make_optimizer(
         model.parameters(), cfg.lr, max_step, cfg.weight_decay, cfg.momentum,
         cfg.poly_power, reference_quirk=cfg.reference_optimizer_quirk,
@@ -91,8 +120,10 @@ def uses_fused_consistency(cfg: TrainConfig) -> bool:
 
 def make_train_step(model: ACR, optimizer: PolySGD, cfg: TrainConfig,
                     grid: Tuple[int, int]):
-    """batch {"image" (B, H, W, 3), "label" (B, C)} -> loss parts (detached
-    tensors on the device); one forward, backward and optimizer call."""
+    """batch {"image" (B, H, W, 3), "label" (B, C)}, or a packed
+    ``--device_aug`` batch {"image_u8", "aug", "label"} -> loss parts
+    (detached tensors on the device); one forward, backward and optimizer
+    call."""
     alpha = cfg.alpha
     aligned = cfg.aligned_mirror
     fused = uses_fused_consistency(cfg)
@@ -114,7 +145,8 @@ def make_train_step(model: ACR, optimizer: PolySGD, cfg: TrainConfig,
             alpha, aligned=aligned)
 
     def train_step(batch) -> Dict[str, torch.Tensor]:
-        x1 = torch.as_tensor(np.asarray(batch["image"], np.float32)).to(device)
+        batch = device_aug.materialize_batch(batch, cfg.crop_size, device)
+        x1 = torch.as_tensor(batch["image"], dtype=torch.float32).to(device)
         labels = torch.as_tensor(np.asarray(batch["label"], np.float32)).to(device)
         total, parts = loss_fn(x1, labels)
         total.backward()
@@ -143,7 +175,17 @@ def make_eval_step(model: ACR):
 
 
 def _dataset_setup(cfg: TrainConfig):
-    """(train names, val names, label store) of a VOC12 layout."""
+    """(train names, val names, label store) for voc12 or coco. COCO
+    (reference ``train_acr_coco.py:106``): names from the image directory
+    listing, validation names from ``val_image_dir`` (none without it),
+    labels parsed lazily from the bbox txts in ``cls_labels_path``."""
+    if cfg.dataset == "coco":
+        from acr_wsss_tpu_torch.data import coco as coco_data
+
+        names = coco_data.list_image_names(cfg.image_dir)
+        val_names = (coco_data.list_image_names(cfg.val_image_dir) if cfg.val_image_dir
+                     else [])
+        return names, val_names, coco_data.CocoLabelStore(cfg.cls_labels_path, names)
     return (voc_data.read_file(cfg.train_list), voc_data.read_file(cfg.val_list),
             voc_data.load_cls_labels(cfg.cls_labels_path))
 
@@ -153,7 +195,8 @@ def validate(cfg: TrainConfig, model: ACR, eval_step, val_names=None, labels=Non
     rows to the train batch size."""
     if labels is None:
         _, val_names, labels = _dataset_setup(cfg)
-    source = voc_data.VOCClassificationSource(cfg.image_dir, labels, cfg.crop_size)
+    source = voc_data.VOCClassificationSource(cfg.val_image_dir or cfg.image_dir, labels,
+                                              cfg.crop_size)
     bs = max(cfg.batch_size, 1)
     total, count = 0.0, 0.0
     for batch in voc_data.EvalIterator(source, val_names, batch_size=bs):
@@ -170,6 +213,44 @@ def validate(cfg: TrainConfig, model: ACR, eval_step, val_names=None, labels=Non
     return total / max(count, 1.0)
 
 
+def checkpoint_state(step: int, model: ACR, optimizer: PolySGD) -> dict:
+    """What a checkpoint holds: the JAX loop's params, optimizer state and
+    step. The train step draws no random numbers (no dropout; the data
+    order and augmentations come from ``cfg.seed``), so there is no
+    generator state to keep."""
+    return {"model": model.state_dict(), "optimizer": optimizer.state_dict(), "step": step}
+
+
+def restore_checkpoint(ckpt: CheckpointManager, model: ACR, optimizer: PolySGD
+                       ) -> Optional[int]:
+    """Load the latest entry of ``ckpt`` into ``model`` and ``optimizer``
+    (built over the same parameters); its step, or None when there is
+    none."""
+    restored = ckpt.restore()
+    if restored is None:
+        return None
+    model.load_state_dict(restored["model"])
+    optimizer.load_state_dict(restored["optimizer"])
+    return int(restored["step"])
+
+
+def _start_profiler(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, cfg: TrainConfig) -> None:
+    prof.stop()
+    os.makedirs(cfg.profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(cfg.profile_dir, f"{cfg.session_name}_trace.json"))
+
+
 def train(cfg: TrainConfig) -> TrainState:
     names, val_names, labels = _dataset_setup(cfg)
     steps_per_epoch = len(names) // cfg.batch_size
@@ -179,47 +260,89 @@ def train(cfg: TrainConfig) -> TrainState:
     accum = max(cfg.accum_steps, 1)
     total_micro_steps = max_step * accum
 
-    model, optimizer = create_train_state(cfg, max_step)
+    ckpt = CheckpointManager(os.path.join(cfg.checkpoint_dir, cfg.session_name))
+    # A relaunch restores every parameter: the seeded init of ~10^8 of them
+    # on the host would only delay it.
+    model, optimizer = create_train_state(cfg, max_step, init=ckpt.latest_step() is None)
+    device = next(model.parameters()).device
     state = TrainState(model, optimizer)
     grid = (cfg.crop_size // 16, cfg.crop_size // 16)
     train_step = make_train_step(model, optimizer, cfg, grid)
     eval_step = make_eval_step(model)
 
+    start_step = 0
+    restored = restore_checkpoint(ckpt, model, optimizer)
+    if restored is not None:
+        state.step = restored
+        start_step = restored + 1
+        print(f"resumed from checkpoint step {restored}", flush=True)
+
     source = voc_data.VOCClassificationSource(cfg.image_dir, labels, cfg.crop_size,
                                               cache_decoded=cfg.cache_decoded)
     train_iter = voc_data.TrainIterator(source, names, cfg.batch_size, seed=cfg.seed,
-                                        num_workers=cfg.num_workers)
+                                        num_workers=cfg.num_workers,
+                                        device_aug=cfg.device_aug, aug_pad=cfg.aug_pad)
+    metrics_writer = MetricWriter(
+        os.path.join(cfg.checkpoint_dir, f"{cfg.session_name}_metrics.jsonl"))
     meter = AverageMeter("loss")
     timer = Timer("Session started: ")
+    preempted = False
+    profiler = None
     try:
-        # The next batch is loaded while the device runs this step; the
-        # step's loss read below is the sync point.
-        batch = next(train_iter)
-        for step in range(0, total_micro_steps + 1):
-            parts = train_step(batch)
-            if step < total_micro_steps:
-                batch = next(train_iter)
-            values = dict(zip(parts, torch.stack(list(parts.values())).tolist()))
-            state.history.append(values)
-            state.steps += 1
-            meter.add({"loss": values["loss"]})
+        with PreemptionGuard() as guard, StepWatchdog(cfg.step_timeout_s) as watchdog:
+            # The next batch is loaded while the device runs this step; the
+            # step's loss read below is the sync point.
+            batch = next(train_iter)
+            for step in range(start_step, total_micro_steps + 1):
+                if cfg.profile_dir and step == PROFILE_WINDOW[0]:
+                    profiler = _start_profiler(device)
+                if profiler is not None and step == PROFILE_WINDOW[1]:
+                    _stop_profiler(profiler, cfg)
+                    profiler = None
 
-            if step % cfg.log_every == 0:
-                timer.update_progress(max(step, 1) / total_micro_steps)
-                imps = (step + 1) * cfg.batch_size / max(timer.get_stage_elapsed(), 1e-9)
-                print(f"Iter:{step:5d}/{total_micro_steps:5d}",
-                      "Loss:%.4f" % meter.pop("loss"), "imps:%.1f" % imps,
-                      "Fin:%s" % timer.str_est_finish(), flush=True)
+                parts = train_step(batch)
+                if step < total_micro_steps:
+                    batch = next(train_iter)
+                values = dict(zip(parts, torch.stack(list(parts.values())).tolist()))
+                state.history.append(values)
+                state.steps += 1
+                state.step += 1
+                meter.add({"loss": values["loss"]})
 
-            if step and step % cfg.val_every == 0 and val_names:
-                val_loss = validate(cfg, model, eval_step, val_names, labels)
-                print("val loss: %.4f" % val_loss, flush=True)
+                if step % cfg.log_every == 0:
+                    timer.update_progress(max(step, 1) / total_micro_steps)
+                    imps = (step + 1) * cfg.batch_size / max(timer.get_stage_elapsed(), 1e-9)
+                    loss_avg = meter.pop("loss")
+                    print(f"Iter:{step:5d}/{total_micro_steps:5d}", "Loss:%.4f" % loss_avg,
+                          "imps:%.1f" % imps, "Fin:%s" % timer.str_est_finish(), flush=True)
+                    metrics_writer.write(step, {"loss": loss_avg, "imps": imps, **values})
+
+                if step and step % cfg.val_every == 0 and val_names:
+                    val_loss = validate(cfg, model, eval_step, val_names, labels)
+                    print("val loss: %.4f" % val_loss, flush=True)
+
+                if guard.fired or (step and step % cfg.checkpoint_every == 0):
+                    ckpt.save(step, checkpoint_state(step, model, optimizer))
+                if guard.fired:
+                    preempted = True
+                    print(f"preempted: checkpoint saved at step {step}; relaunch to resume",
+                          flush=True)
+                    break
+                # After the step's one host sync (the .tolist() above), its
+                # validation and its checkpoint: a hung kernel shows as a
+                # missing beat, and neither of those counts against the next.
+                watchdog.beat()
     finally:
         train_iter.close()
-    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-    save_params_npz(os.path.join(cfg.checkpoint_dir, f"{cfg.session_name}_last.npz"),
-                    state_dict_to_flax(model))
-    print("model saved!", flush=True)
+        metrics_writer.close()
+        if profiler is not None:
+            _stop_profiler(profiler, cfg)
+    if not preempted:
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        save_params_npz(os.path.join(cfg.checkpoint_dir, f"{cfg.session_name}_last.npz"),
+                        state_dict_to_flax(model))
+        print("model saved!", flush=True)
+    ckpt.close()
     return state
 
 
@@ -254,6 +377,18 @@ def parse_args(argv: Optional[List[str]] = None) -> TrainConfig:
     parser.add_argument("--s2d_stem", action="store_true",
                         help="hybrid stem: space-to-depth fold of the 7x7/2 stem conv "
                              "(the same function)")
+    parser.add_argument("--step_timeout_s", default=0.0, type=float,
+                        help="hung-step watchdog: exit 75 if no step completes within "
+                             "this budget after the first; a relaunch resumes from the "
+                             "last checkpoint. 0 = off")
+    parser.add_argument("--pretrained", action="store_true",
+                        help="init the trunk from the zoo npz "
+                             "(<ACR_WSSS_ZOO>/<backbone>_in21k.npz)")
+    parser.add_argument("--device_aug", action="store_true",
+                        help="resize, flip, normalize and crop on the device from uint8 "
+                             "rasters (data/device_aug.py)")
+    parser.add_argument("--aug_pad", default=512, type=int,
+                        help="static pad square for --device_aug rasters")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     return TrainConfig(
@@ -265,11 +400,13 @@ def parse_args(argv: Optional[List[str]] = None) -> TrainConfig:
         train_list=args.LISTpath or args.train_list, val_list=args.val_list,
         num_workers=args.num_workers, cls_labels_path=args.cls_labels, seed=args.seed,
         accum_steps=args.accum_steps, cache_decoded=args.cache_decoded,
-        clip_grad_norm=args.clip_grad_norm, device=args.device)
+        clip_grad_norm=args.clip_grad_norm, step_timeout_s=args.step_timeout_s,
+        pretrained=args.pretrained, device_aug=args.device_aug, aug_pad=args.aug_pad,
+        device=args.device)
 
 
-def main(argv: Optional[List[str]] = None) -> None:
-    train(parse_args(argv))
+def main(argv: Optional[List[str]] = None) -> TrainState:
+    return train(parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -17,6 +17,10 @@ the same semantics on ``torch.optim.SGD``:
 * ``accum_steps`` > 1 averages the gradient over that many calls and
   updates on the last one (``optax.MultiSteps``, Welford mean); the poly
   schedule counts updates, not calls.
+
+``state_dict`` / ``load_state_dict`` carry everything a resumed run needs:
+SGD's momentum buffers and lr, the schedule's position, the counters and
+the accumulation buffers of an accumulation in progress.
 """
 
 from __future__ import annotations
@@ -91,6 +95,21 @@ class PolySGD:
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+
+    def state_dict(self) -> dict:
+        """Restore it into a PolySGD built over the same parameters in the
+        same order: SGD keys its state by parameter index."""
+        return {"sgd": self.sgd.state_dict(), "schedule": self.schedule.state_dict(),
+                "mini_step": self.mini_step, "updates": self.updates,
+                "acc": list(self._acc) if self.mini_step else []}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.sgd.load_state_dict(state["sgd"])
+        self.schedule.load_state_dict(state["schedule"])
+        self.mini_step = int(state["mini_step"])
+        self.updates = int(state["updates"])
+        device = self.params[0].device if self.params else None
+        self._acc = [a.to(device) for a in state["acc"]]
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, max_step: int,

@@ -40,11 +40,32 @@ package. Phases, each of which fails the run when it fails:
    seeded random weights on a seeded synthetic VOC fixture of 375x500
    JPEGs, a few steps and a validation pass; launches counted; every loss
    part finite; the final npz read by the port's ``infer_cam``;
-6. one train step of the kernel path against the plain path from the same
+6. resumable training at full width on the training fixture, each part
+   timed: (a) SIGTERM at loop step 2 of ``train.train`` with
+   ``checkpoint_every=2`` leaves a checkpoint at step 2, no final npz and
+   the signal handlers as they were; the checkpoint restores parameters
+   and momentum buffers bit for bit and the lr of update 3; one step from
+   it agrees with one step from the state in memory within the step
+   gates of phase 7; a second ``train.train`` resumes at step 3 and
+   finishes (launches counted), its first step traced by the profiler
+   window, whose trace must name the kernels of K2f and K2b; the seconds
+   and bytes of one checkpoint save; (b) ``--device_aug``: a packed
+   batch's crops made on the card against the host crops of the same seed
+   (3e-4), and one train step on the packed batch against one on the host
+   path fed the card's crops, within the step gates of phase 7 and with
+   the same launches; (c) the relaunch
+   supervisor: a hang injected after the step-1 checkpoint trips the
+   watchdog in a spawned child, which exits 75, and the relaunch resumes
+   and finishes; (d) ``--pretrained``: the trunk from a zoo npz of seeded
+   weights, bit for bit, the head not; (e) COCO: ``train_coco.main`` for 3
+   steps with ``--device_aug`` on 80-class bbox labels and images up to
+   640 px, validation on the separate ``--valpath`` directory, and the CAM
+   pass with ``dataset="coco"`` (launches counted);
+7. one train step of the kernel path against the plain path from the same
    weights and batch, for the fused branch and the per-layer branch (which
    launches K1f and K1b): step-0 loss parts and parameters after the
    update;
-7. attention entries: K5a (``attention_with_probs(impl="kernel")``), K5b
+8. attention entries: K5a (``attention_with_probs(impl="kernel")``), K5b
    (``fused_attention_nhd``) and K5c (``fused_attention_qkv``), forward
    and backward, against their plain versions at the training shape (B=8,
    N=577) with a float32 and a bfloat16 export; then each entry through
@@ -53,12 +74,13 @@ package. Phases, each of which fails the run when it fails:
    "bfloat16"`` (K1f exporting bf16, K1b reading a bf16 de): one step
    against the plain path, and ``train.train`` for a few steps, launches
    counted;
-8. pipeline: ``pipeline.main`` as a user runs it, train -> infer with
+9. pipeline: ``pipeline.main`` as a user runs it, train -> infer with
    ``--pamr 10`` -> 100-threshold eval (vitb_hybrid, crop 384, the
    recipe) on the training fixture with seeded label PNGs; launches
    counted; the npz, one CAM dict per name and the evallog checked;
-9. timing: per-image latency with and without PAMR, the PAMR step's device
-   time, train step time and images/s, device time breakdowns, each
+10. timing: per-image latency with and without PAMR, the PAMR step's device
+   time, train step time and images/s, the training loop's step time fed
+   by the host path and by ``--device_aug``, device time breakdowns, each
    kernel's device time (CUDA events around launches enqueued while the
    device is held busy) beside its plain version, a library call where one
    computes the same function, and its bound.
@@ -77,6 +99,8 @@ import json
 import math
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -95,12 +119,16 @@ from acr_wsss_tpu_torch import evaluate  # noqa: E402
 from acr_wsss_tpu_torch import infer_cam  # noqa: E402
 from acr_wsss_tpu_torch import pipeline  # noqa: E402
 from acr_wsss_tpu_torch import train as train_mod  # noqa: E402
+from acr_wsss_tpu_torch import train_coco  # noqa: E402
 from acr_wsss_tpu_torch.configs import InferConfig, ModelConfig, TrainConfig  # noqa: E402
+from acr_wsss_tpu_torch.data import coco as coco_data  # noqa: E402
+from acr_wsss_tpu_torch.data import device_aug  # noqa: E402
 from acr_wsss_tpu_torch.data import voc as voc_data  # noqa: E402
 from acr_wsss_tpu_torch.infer_cam import build_infer_fn, process_image  # noqa: E402
 from acr_wsss_tpu_torch.models.acr import ACR, init_random_  # noqa: E402
 from acr_wsss_tpu_torch.models import vit as vit_mod  # noqa: E402
-from acr_wsss_tpu_torch.models.convert import flax_to_state_dict  # noqa: E402
+from acr_wsss_tpu_torch.models import zoo  # noqa: E402
+from acr_wsss_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax  # noqa: E402
 from acr_wsss_tpu_torch.ops import _build, attn_pair  # noqa: E402
 from acr_wsss_tpu_torch.ops import pamr as pamr_ops  # noqa: E402
 from acr_wsss_tpu_torch.ops.attention import attention_with_probs  # noqa: E402
@@ -123,7 +151,10 @@ from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_backward,  # noqa
 from acr_wsss_tpu_torch.ops.pamr import (affinity_route, make_pamr_fn,  # noqa: E402
                                          pamr_affinity, pamr_affinity_plain, pamr_plain,
                                          pamr_update, pamr_update_plain)
-from acr_wsss_tpu_torch.utils.checkpoint import load_params_npz  # noqa: E402
+from acr_wsss_tpu_torch.utils.checkpoint import (CheckpointManager,  # noqa: E402
+                                                 load_params_npz, save_params_npz)
+from acr_wsss_tpu_torch.utils.schedule import poly_factor  # noqa: E402
+from acr_wsss_tpu_torch.utils.supervisor import run_train_supervised  # noqa: E402
 
 WEIGHTS = os.path.join(ROOT, "bench_artifacts", "stability_r3", "stability_r3_last.npz")
 CROP, START_LAYER, CLASS_SLOTS, HEADS, HEAD_DIM, DEPTH = 384, 10, 4, 12, 64, 12
@@ -186,6 +217,33 @@ PAMR_RTOL, PAMR_ATOL = 2e-5, 2e-6
 # Pipeline phase: 8 of the training fixture's images (2 updates, 3 train
 # steps) and its 4 validation images as the inference and eval list.
 PIPE_TRAIN_IMAGES = 8
+# Resume phase (a): checkpoints every 2 steps, SIGTERM in loop step 2 of
+# the 5-step run; 3 steps run, then 2 after the resume, the first of them
+# inside the profiler window (train.PROFILE_WINDOW, moved there), whose
+# trace must name the kernels of K2f and K2b.
+RESUME_EVERY, PREEMPT_STEP = 2, 2
+TRACED_KERNELS = ("attn_fwd_out_kernel", "attn_pair_kernel", "attn_pair_sums_kernel",
+                  "attn_bwd_rows_kernel", "attn_bwd_keys_kernel")
+# (b) The card's crops against the host's of the same seed: the constant of
+# tests/test_device_aug.py (the host resizes, then crops; the gather
+# composes both in float32, ~1e-4 apart where the orders differ).
+AUG_ATOL = 3e-4
+# (c) 8 training images (3 steps), a checkpoint every step, the hang at
+# the watchdog's beat 2, after step 1's checkpoint. The timeout must be
+# above the first step's warm-up in a fresh process on the card (CUDA
+# libraries and kernels loaded, cuDNN picking algorithms: 2.4-2.6 s on an
+# H100, measured below), which the clock exempts only because it starts at
+# the first beat, and far above a live step with its checkpoint's copy to
+# the host (0.1 s); 6 s keeps the injected hang's cost to about 7.5 s.
+SUPERVISED_IMAGES, HANG_BEAT, STEP_TIMEOUT_S = 8, 2, 6.0
+# (e) COCO: 8 training images (3 steps), 4 validation images (one batch),
+# the CAM pass on 2; images up to 640 px, COCO's largest side.
+COCO_SIZES = ((480, 640), (640, 427), (427, 640), (640, 480))
+COCO_TRAIN, COCO_VAL, COCO_CAM = 8, 4, 2
+# Phase 10's training loop, per arm (host path, --device_aug, twice each):
+# steps timed, and the first ones left out (the loader's first batches,
+# which nothing overlaps).
+LOOP_STEPS, LOOP_WARMUP = 20, 3
 KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL, pamr_ops.KERNEL)
 
 
@@ -685,9 +743,20 @@ def plain_signs(model, x):
             for p in out["probs_layers"]]
 
 
-def one_step(cfg, attn_impl, fuse, state_dict, batch, grid):
+def step_on(model, opt, cfg, batch):
     """(model, optimizer, step-0 parts, parameters before, after) of one
-    train step from ``state_dict`` on ``batch``."""
+    train step of ``model`` and ``opt`` on ``batch``."""
+    grid = (cfg.crop_size // 16, cfg.crop_size // 16)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    parts = train_mod.make_train_step(model, opt, cfg, grid)(batch)
+    parts = {k: float(v) for k, v in parts.items()}
+    after = {k: v.detach().clone() for k, v in model.named_parameters()}
+    return model, opt, parts, before, after
+
+
+def one_step(cfg, attn_impl, fuse, state_dict, batch):
+    """``step_on`` a model loaded with ``state_dict`` and a fresh
+    optimizer."""
     tcfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, attn_impl=attn_impl, fuse_consistency=fuse))
     model = train_mod.build_model(tcfg.model)
@@ -695,44 +764,50 @@ def one_step(cfg, attn_impl, fuse, state_dict, batch, grid):
     model.to(cfg.device)
     opt = train_mod.make_optimizer(model.parameters(), tcfg.lr, TRAIN_IMAGES // TRAIN_BATCH,
                                    tcfg.weight_decay, tcfg.momentum, tcfg.poly_power)
-    before = {k: v.detach().clone() for k, v in model.named_parameters()}
-    parts = train_mod.make_train_step(model, opt, tcfg, grid)(batch)
-    parts = {k: float(v) for k, v in parts.items()}
-    after = {k: v.detach().clone() for k, v in model.named_parameters()}
-    return model, opt, parts, before, after
+    return step_on(model, opt, tcfg, batch)
 
 
-def compare_steps(name, got, ref) -> None:
-    """Step-0 loss parts and parameters after one update, against the
-    plain path's."""
-    _, _, parts, p0, p1 = got
-    _, _, ref_parts, _, ref_p1 = ref
+def update_rel(got, ref) -> dict:
+    """Per parameter tensor: |(p1 - p0) - (ref p1 - p0)| / |ref p1 - p0|."""
+    _, _, _, p0, p1 = got
+    rel = {}
+    for k, ref_p1 in ref[4].items():
+        ref_u = ref_p1 - p0[k]
+        rel[k] = float((p1[k] - p0[k] - ref_u).norm() / ref_u.norm().clamp_min(1e-30))
+    return rel
+
+
+def compare_steps_losses(name, got, ref, ref_name) -> None:
+    """Step-0 loss parts against ``ref_name``'s."""
+    parts, ref_parts = got[2], ref[2]
     for k in ref_parts:
         rel = abs(parts[k] - ref_parts[k]) / max(abs(ref_parts[k]), 1e-30)
-        log(f"    {k}: {parts[k]:.7g} vs plain {ref_parts[k]:.7g} (rel {rel:.3g}, "
+        log(f"    {k}: {parts[k]:.7g} vs {ref_parts[k]:.7g} (rel {rel:.3g}, "
             f"tolerance {LOSS_RTOL})")
         if rel > LOSS_RTOL:
-            raise AssertionError(f"{name}: step-0 {k} disagrees with the plain path")
-    rel = {}
-    for k in ref_p1:
-        ref_u = ref_p1[k] - p0[k]
-        rel[k] = float((p1[k] - p0[k] - ref_u).norm() / ref_u.norm().clamp_min(1e-30))
+            raise AssertionError(f"{name}: step-0 {k} disagrees with {ref_name}")
+
+
+def compare_steps(name, got, ref, ref_name="the plain path") -> None:
+    """Step-0 loss parts and parameters after one update, against
+    ``ref_name``'s."""
+    compare_steps_losses(name, got, ref, ref_name)
+    rel = update_rel(got, ref)
     worst = sorted(rel, key=rel.get, reverse=True)
     attn = [k for k in rel if ".attn.qkv." in k]
-    log(f"    update p1 - p0 against the plain path's, relative L2 per tensor: worst "
+    log(f"    update p1 - p0 against {ref_name}'s, relative L2 per tensor: worst "
         + ", ".join(f"{k} {rel[k]:.3g}" for k in worst[:3])
         + f"; attention qkv weights at most {max(rel[k] for k in attn):.3g} "
         f"(tolerance {UPDATE_REL})")
     if rel[worst[0]] > UPDATE_REL:
-        raise AssertionError(f"{name}: parameter updates disagree with the plain path")
+        raise AssertionError(f"{name}: parameter updates disagree with {ref_name}")
 
 
 def phase_step_compare(device, cfg):
     """One train step, kernel path against plain path, from the same seeded
     weights and the first training batch. Returns (fused kernel step's
-    model, optimizer, batch, per-layer launches, (weights, grid, batch,
+    model, optimizer, batch, per-layer launches, (weights, batch,
     the plain step))."""
-    grid = (cfg.crop_size // 16, cfg.crop_size // 16)
     weights = init_random_(train_mod.build_model(cfg.model), seed=cfg.seed).state_dict()
     labels = voc_data.load_cls_labels(cfg.cls_labels_path)
     it = voc_data.TrainIterator(
@@ -741,8 +816,8 @@ def phase_step_compare(device, cfg):
     batch = next(it)
     it.close()
 
-    plain = one_step(cfg, "plain", False, weights, batch, grid)
-    fused = one_step(cfg, "kernel", True, weights, batch, grid)
+    plain = one_step(cfg, "plain", False, weights, batch)
+    fused = one_step(cfg, "kernel", True, weights, batch)
     log("  fused branch (K2f, K2b) against the plain per-layer path:")
     compare_steps("fused branch", fused, plain)
     x = torch.as_tensor(batch["image"]).to(device)
@@ -758,7 +833,7 @@ def phase_step_compare(device, cfg):
     del model_k, model_p
 
     reset_counts()
-    per_layer = one_step(cfg, "kernel", False, weights, batch, grid)
+    per_layer = one_step(cfg, "kernel", False, weights, batch)
     torch.cuda.synchronize()
     launches = read_counts()
     depth = per_layer[0].spec.depth
@@ -768,7 +843,344 @@ def phase_step_compare(device, cfg):
         raise AssertionError(f"expected {depth} K1f and {depth} K1b launches, no other")
     compare_steps("per-layer branch", per_layer, plain)
     del per_layer
-    return fused[0], fused[1], batch, launches, (weights, grid, batch, plain)
+    return fused[0], fused[1], batch, launches, (weights, batch, plain)
+
+
+def read_metrics(cfg):
+    with open(os.path.join(cfg.checkpoint_dir, f"{cfg.session_name}_metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def first_batch(cfg, **iterator_kw):
+    labels = voc_data.load_cls_labels(cfg.cls_labels_path)
+    it = voc_data.TrainIterator(
+        voc_data.VOCClassificationSource(cfg.image_dir, labels, cfg.crop_size),
+        voc_data.read_file(cfg.train_list), cfg.batch_size, seed=cfg.seed, num_workers=4,
+        **iterator_kw)
+    try:
+        return next(it)
+    finally:
+        it.close()
+
+
+def resume_after_preemption(device, cfg, card):
+    """(a) SIGTERM at loop step PREEMPT_STEP, checks of the checkpoint and
+    of a step from it, the cost of one save, then the resumed run."""
+    rcfg = dataclasses.replace(cfg, checkpoint_every=RESUME_EVERY, session_name="smoke_resume")
+    ckpt = CheckpointManager(os.path.join(rcfg.checkpoint_dir, rcfg.session_name))
+    npz = os.path.join(rcfg.checkpoint_dir, f"{rcfg.session_name}_last.npz")
+    max_step = TRAIN_IMAGES // TRAIN_BATCH
+    handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+    orig_add, calls = train_mod.AverageMeter.add, []
+
+    def add_then_sigterm(meter, values):   # in the main thread, after each step's sync
+        orig_add(meter, values)
+        calls.append(values)
+        if len(calls) == PREEMPT_STEP + 1:
+            signal.raise_signal(signal.SIGTERM)
+
+    train_mod.AverageMeter.add = add_then_sigterm
+    reset_counts()
+    try:
+        first = train_mod.train(rcfg)
+    finally:
+        train_mod.AverageMeter.add = orig_add
+    torch.cuda.synchronize()
+    launches = read_counts()
+    depth = first.model.spec.depth
+    log(f"  SIGTERM in loop step {PREEMPT_STEP} (checkpoint_every {RESUME_EVERY}): "
+        f"{first.steps} steps ran, checkpoints at steps {ckpt.steps()}, final npz "
+        f"{'written' if os.path.exists(npz) else 'not written'}, launches {launches}")
+    if (first.steps, ckpt.steps(), os.path.exists(npz)) != (PREEMPT_STEP + 1, [PREEMPT_STEP],
+                                                           False):
+        raise AssertionError("the preempted run did not stop with its checkpoint and no npz")
+    if {sig: signal.getsignal(sig) for sig in handlers} != handlers:
+        raise AssertionError("the preemption guard did not restore the signal handlers")
+    if launches != {**zero_counts(), "K2f": depth * first.steps, "K2b": depth * first.steps}:
+        raise AssertionError(f"expected {depth} K2f and K2b launches per step, no other")
+
+    model, opt = train_mod.create_train_state(dataclasses.replace(rcfg, seed=rcfg.seed + 1),
+                                              max_step)
+    t0 = time.perf_counter()
+    step = train_mod.restore_checkpoint(ckpt, model, opt)
+    restore_s = time.perf_counter() - t0
+    same_params = all(torch.equal(a, b) for a, b in zip(first.model.parameters(),
+                                                        model.parameters(), strict=True))
+    buffers = [(first.optimizer.sgd.state[a]["momentum_buffer"],
+                opt.sgd.state[b]["momentum_buffer"])
+               for a, b in zip(first.optimizer.params, opt.params, strict=True)]
+    same_momentum = all(torch.equal(a, b) for a, b in buffers)
+    want_lr = rcfg.lr * poly_factor(PREEMPT_STEP + 1, max_step, rcfg.poly_power)
+    log(f"  restored step {step} in {restore_s:.2f} s: parameters bit for bit {same_params}, "
+        f"{len(buffers)} momentum buffers bit for bit {same_momentum}, updates {opt.updates}, "
+        f"lr {opt.lr!r} (poly_factor({PREEMPT_STEP + 1}, {max_step}) x lr = {want_lr!r})")
+    if not (step == PREEMPT_STEP and same_params and same_momentum and opt.lr == want_lr
+            and opt.updates == PREEMPT_STEP + 1):
+        raise AssertionError("the checkpoint did not restore the preempted state")
+
+    ckpt_timing = CheckpointManager(os.path.join(rcfg.checkpoint_dir, "smoke_save_timing"))
+    t0 = time.perf_counter()
+    ckpt_timing.save(0, train_mod.checkpoint_state(0, model, opt))
+    copy_s = time.perf_counter() - t0
+    ckpt_timing.wait()
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(ckpt_timing.directory, "0.pt"))
+    log(f"  one checkpoint save (fp32 parameters and momentum, step, lr): {save_s:.2f} s, of "
+        f"which {copy_s:.2f} s copying to host memory before save() returns and the rest "
+        f"writing on its thread; {nbytes} bytes [{card}]")
+    shutil.rmtree(ckpt_timing.directory)
+
+    batch = first_batch(rcfg)
+    log("  one step from the restored state against one from the state in memory, same "
+        "batch:")
+    restored = step_on(model, opt, rcfg, batch)
+    in_memory = step_on(first.model, first.optimizer, rcfg, batch)
+    compare_steps("restored state", restored, in_memory, "the state in memory")
+    log(f"    parameters after the two steps bit for bit equal: "
+        f"{all(torch.equal(restored[4][k], in_memory[4][k]) for k in restored[4])}")
+    del model, opt, first, restored, in_memory
+
+    profile_dir = os.path.join(rcfg.checkpoint_dir, "profile")
+    window = train_mod.PROFILE_WINDOW
+    train_mod.PROFILE_WINDOW = (PREEMPT_STEP + 1, PREEMPT_STEP + 2)
+    reset_counts()
+    try:
+        second = train_mod.train(dataclasses.replace(rcfg, profile_dir=profile_dir))
+    finally:
+        train_mod.PROFILE_WINDOW = window
+    torch.cuda.synchronize()
+    launches = read_counts()
+    trace = os.path.join(profile_dir, f"{rcfg.session_name}_trace.json")
+    with open(trace) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+    traced = {k: sum(k in n for n in names) > 0 for k in TRACED_KERNELS}
+    log(f"  profiler window on loop step {PREEMPT_STEP + 1}: {os.path.getsize(trace)} bytes "
+        f"of Chrome trace, {len(names)} distinct kernel names; the port's kernels by name: "
+        f"{traced}")
+    if not all(traced.values()):
+        raise AssertionError("the profiler trace does not name the kernels of K2f and K2b")
+    steps = max_step - PREEMPT_STEP
+    val_passes = math.ceil(VAL_IMAGES / rcfg.batch_size)
+    expected = {**zero_counts(), "K2f": depth * steps, "K2b": depth * steps,
+                "K1n": depth * val_passes}
+    logged = [r["step"] for r in read_metrics(rcfg)]
+    log(f"  relaunch: {second.steps} steps (JAX step count {second.step}), losses "
+        + ", ".join(f"{p['loss']:.5g}" for p in second.history)
+        + f"; metrics logged at steps {logged}; launches {launches} (expected {expected})")
+    if (second.steps, second.step, logged) != (steps, max_step, list(range(max_step + 1))):
+        raise AssertionError("the relaunch did not resume at the step after the checkpoint")
+    if launches != expected:
+        raise AssertionError("the resumed run did not launch the kernels as expected")
+    if not os.path.exists(npz) or not all(math.isfinite(v) for p in second.history
+                                          for v in p.values()):
+        raise AssertionError("the resumed run wrote no npz or a loss part is not finite")
+    shutil.rmtree(ckpt.directory)
+    shutil.rmtree(profile_dir)
+    os.remove(npz)
+
+
+def device_aug_step(device, cfg) -> None:
+    """(b) ``--device_aug`` crops on the card against the host's, then one
+    train step on the packed batch against one on the host path fed the
+    card's own crops, from the seeded init of phase 7: the same input
+    through both paths, held to the step gates."""
+    host = first_batch(cfg)
+    packed = first_batch(cfg, device_aug=True, aug_pad=cfg.aug_pad)
+    t0 = time.perf_counter()
+    crops = device_aug.materialize_batch(packed, cfg.crop_size, device)["image"]
+    torch.cuda.synchronize()
+    aug_ms = (time.perf_counter() - t0) * 1e3
+    err = (crops.cpu() - torch.from_numpy(host["image"])).abs().max().item()
+    log(f"  packed batch {tuple(packed['image_u8'].shape)} uint8 + {tuple(packed['aug'].shape)} "
+        f"descriptors -> crops {tuple(crops.shape)} on {crops.device} in {aug_ms:.1f} ms "
+        f"(first call, upload included); max abs against the host crops {err:.3g} "
+        f"(tolerance {AUG_ATOL})")
+    if crops.device.type != device.type or err > AUG_ATOL or packed["name"] != host["name"]:
+        raise AssertionError("device_aug crops disagree with the host crops")
+    init = init_random_(train_mod.build_model(cfg.model), seed=cfg.seed).state_dict()
+    runs = {}
+    for name, batch in (("host", dict(host, image=crops.cpu().numpy())),
+                        ("device_aug", packed)):
+        reset_counts()
+        runs[name] = one_step(cfg, "kernel", True, init, batch)
+        torch.cuda.synchronize()
+        runs[name] += (read_counts(),)
+    depth = runs["host"][0].spec.depth
+    log(f"  launches: host path on the card's crops {runs['host'][5]}, packed batch "
+        f"{runs['device_aug'][5]}")
+    if not runs["host"][5] == runs["device_aug"][5] == {**zero_counts(), "K2f": depth,
+                                                        "K2b": depth}:
+        raise AssertionError(f"expected {depth} K2f and K2b launches per step, no other")
+    ref, got = runs["host"][:5], runs["device_aug"][:5]
+    log("  one step on the packed batch against one on the host path fed the card's crops, "
+        "from the seeded init:")
+    compare_steps("--device_aug step", got, ref, "the host path")
+    log(f"    parameters after the two steps bit for bit equal: "
+        f"{all(torch.equal(got[4][k], ref[4][k]) for k in ref[4])}")
+
+
+def supervised_relaunch(cfg, root) -> None:
+    """(c) a hang injected at beat HANG_BEAT of a supervised child."""
+    train_list = os.path.join(root, "sup_train.txt")
+    with open(train_list, "w") as f:
+        f.write("\n".join(voc_data.read_file(cfg.train_list)[:SUPERVISED_IMAGES]) + "\n")
+    scfg = dataclasses.replace(cfg, train_list=train_list, session_name="smoke_sup",
+                               checkpoint_every=1, step_timeout_s=STEP_TIMEOUT_S)
+    sentinel = os.path.join(root, "hang_injected")
+    os.environ.update(ACR_FAULT_HANG_ONCE=sentinel, ACR_FAULT_HANG_BEAT=str(HANG_BEAT))
+    try:
+        relaunches = run_train_supervised(scfg, max_relaunches=1)
+    finally:
+        for k in ("ACR_FAULT_HANG_ONCE", "ACR_FAULT_HANG_BEAT"):
+            os.environ.pop(k, None)
+    records = read_metrics(scfg)
+    ckpt = CheckpointManager(os.path.join(scfg.checkpoint_dir, scfg.session_name))
+    steps = SUPERVISED_IMAGES // scfg.batch_size + 1
+    npz = os.path.join(scfg.checkpoint_dir, f"{scfg.session_name}_last.npz")
+    # the Timer starts before the first batch: step 0's record reads the
+    # time to it through imps = batch / elapsed
+    warmup = scfg.batch_size / records[0]["imps"]
+    live = records[1]["time"] - records[0]["time"]
+    log(f"  relaunches {relaunches} (the child exited 75 at the injected hang), hang "
+        f"injected: {os.path.exists(sentinel)}, checkpoints {ckpt.steps()}, steps logged "
+        f"{[r['step'] for r in records]}, final npz {os.path.exists(npz)}; first child: step "
+        f"0 with its batch {warmup:.2f} s after the loop started (exempt), step 1 and its "
+        f"checkpoint {live:.2f} s; watchdog timeout {STEP_TIMEOUT_S} s")
+    if (relaunches, os.path.exists(sentinel), ckpt.steps(), [r["step"] for r in records],
+            os.path.exists(npz)) != (1, True, [steps - 2, steps - 1], list(range(steps)), True):
+        raise AssertionError("the supervised run did not relaunch once and resume to the end")
+    if max(warmup, live) >= STEP_TIMEOUT_S:
+        raise AssertionError("a live step came near the watchdog timeout")
+    shutil.rmtree(ckpt.directory)
+    os.remove(npz)
+
+
+def pretrained_init(cfg, root) -> None:
+    """(d) ``--pretrained`` from a zoo npz of seeded weights."""
+    zoo_dir = os.path.join(root, "zoo")
+    os.makedirs(zoo_dir)
+    path = zoo.npz_path(cfg.model.backbone, zoo_dir)
+    donor = state_dict_to_flax(init_random_(train_mod.build_model(cfg.model),
+                                            seed=cfg.seed + 7))
+    save_params_npz(path, donor)
+    previous = os.environ.get("ACR_WSSS_ZOO")
+    os.environ["ACR_WSSS_ZOO"] = zoo_dir
+    try:
+        model, _ = train_mod.create_train_state(dataclasses.replace(cfg, pretrained=True),
+                                                TRAIN_IMAGES // TRAIN_BATCH)
+    finally:
+        if previous is None:
+            os.environ.pop("ACR_WSSS_ZOO")
+        else:
+            os.environ["ACR_WSSS_ZOO"] = previous
+    got = state_dict_to_flax(model)
+    trunk = [k for k in donor if k.startswith(zoo.TRUNK)]
+    same_trunk = all(np.array_equal(got[k], donor[k]) for k in trunk)
+    head = "params/cls_head/kernel"
+    log(f"  {os.path.basename(path)} ({os.path.getsize(path)} bytes): {len(trunk)} trunk "
+        f"arrays bit for bit {same_trunk}; head kernel equal to the npz's "
+        f"{np.array_equal(got[head], donor[head])}; model on {next(model.parameters()).device}")
+    if not same_trunk or np.array_equal(got[head], donor[head]):
+        raise AssertionError("--pretrained did not graft exactly the trunk")
+    shutil.rmtree(zoo_dir)
+
+
+def make_coco_fixture(root: str, seed: int):
+    """Train and val directories of COCO-sized JPEGs and a bbox txt per
+    image (1-3 categories of the 80). Returns (train dir, val dir, bbox dir)."""
+    rng = np.random.default_rng(seed)
+    dirs = [os.path.join(root, d) for d in ("train2014", "val2014", "bbox")]
+    for d in dirs:
+        os.makedirs(d)
+    for split, d, n in (("train2014", dirs[0], COCO_TRAIN), ("val2014", dirs[1], COCO_VAL)):
+        for i in range(n):
+            h, w = COCO_SIZES[i % len(COCO_SIZES)]
+            name = f"COCO_{split}_{i:012d}"
+            coarse = rng.integers(0, 256, (h // 25, w // 25, 3), dtype=np.uint8)
+            Image.fromarray(coarse).resize((w, h), Image.BILINEAR).save(
+                os.path.join(d, f"{name}.jpg"), quality=90)
+            cats = rng.choice(coco_data.COCO_CATEGORY_IDS, size=int(rng.integers(1, 4)),
+                              replace=False)
+            with open(os.path.join(dirs[2], f"{name}.txt"), "w") as f:
+                f.write("".join(f"{rng.integers(0, w)} {rng.integers(0, h)} {c} 20 20\n"
+                                for c in cats))
+    return dirs
+
+
+def coco_path(cfg, root) -> None:
+    """(e) ``train_coco.main``, validation on ``--valpath``, the CAM pass,
+    at the crop and on the device of ``cfg``."""
+    train_dir, val_dir, bbox_dir = make_coco_fixture(os.path.join(root, "coco"), seed=3)
+    argv = ["--IMpath", train_dir, "--bbox_dir", bbox_dir, "--valpath", val_dir,
+            "--max_epoches", "1", "--device_aug", "--session_name", "smoke_coco",
+            "--crop_size", str(cfg.crop_size), "--device", cfg.device]
+    log("  python -m acr_wsss_tpu_torch.train_coco " + " ".join(argv))
+    reset_counts()
+    with contextlib.chdir(os.path.join(root, "coco")):   # its checkpoint_dir is ./weight
+        state = train_coco.main(argv)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    depth = state.model.spec.depth
+    steps = COCO_TRAIN // TRAIN_BATCH + 1
+    log(f"  {state.steps} steps, losses " + ", ".join(f"{p['loss']:.5g}" for p in state.history)
+        + f"; launches {launches}")
+    if state.steps != steps or not all(math.isfinite(v) for p in state.history
+                                       for v in p.values()):
+        raise AssertionError("COCO training did not run its steps with finite losses")
+    if launches != {**zero_counts(), "K2f": depth * steps, "K2b": depth * steps}:
+        raise AssertionError(f"expected {depth} K2f and K2b launches per step, no other")
+
+    coco_cfg = train_coco.parse_args(argv)
+    reset_counts()
+    val_loss = train_mod.validate(coco_cfg, state.model,
+                                  train_mod.make_eval_step(state.model))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    val_passes = math.ceil(COCO_VAL / coco_cfg.batch_size)
+    log(f"  validation on --valpath ({COCO_VAL} images): loss {val_loss:.5g}, launches "
+        f"{launches}")
+    if not math.isfinite(val_loss) or launches != {**zero_counts(), "K1n": depth * val_passes}:
+        raise AssertionError(f"expected {depth * val_passes} K1n launches and a finite loss")
+    del state
+
+    names = coco_data.list_image_names(train_dir)[:COCO_CAM]
+    infer_list = os.path.join(root, "coco", "cam_list.txt")
+    with open(infer_list, "w") as f:
+        f.write("\n".join(names) + "\n")
+    out_cam = os.path.join(root, "coco", "cams")
+    icfg = InferConfig(model=ModelConfig(num_classes=80), dataset="coco",
+                       weights=os.path.join(root, "coco", "weight", "smoke_coco_last.npz"),
+                       crop_size=cfg.crop_size, image_dir=train_dir, infer_list=infer_list,
+                       cls_labels_path=bbox_dir, out_cam=out_cam, device=cfg.device)
+    labels = [coco_data.get_coco_cls_label(n, bbox_dir) for n in names]
+    passes = sum(math.ceil(int(lab.sum()) / CLASS_SLOTS) for lab in labels)
+    reset_counts()
+    infer_cam.run(icfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    cams = [np.load(os.path.join(out_cam, f"{n}.npy"), allow_pickle=True).item() for n in names]
+    sizes = [Image.open(os.path.join(train_dir, f"{n}.jpg")).size[::-1] for n in names]
+    log(f"  CAM pass, dataset coco, {len(names)} images: classes "
+        f"{[sorted(c) for c in cams]}, launches {launches}")
+    if launches != {**zero_counts(), "K1f": START_LAYER * passes}:
+        raise AssertionError(f"expected {START_LAYER} K1f launches per pass, no other")
+    check_cams(names, labels, cams, sizes)
+
+
+def phase_resume(device, cfg, root, card) -> None:
+    """Phase 6: parts (a)-(e), each timed."""
+    def timed(label, fn, *args):
+        log(f"  {label}")
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"  {label}: {time.perf_counter() - t0:.1f} s [{card}]")
+        return out
+
+    timed("(a) preempt and resume", resume_after_preemption, device, cfg, card)
+    timed("(b) --device_aug", device_aug_step, device, cfg)
+    timed("(c) supervised relaunch", supervised_relaunch, cfg, root)
+    timed("(d) --pretrained", pretrained_init, cfg, root)
+    timed("(e) COCO", coco_path, cfg, root)
 
 
 class _PlainK1(torch.autograd.Function):
@@ -906,12 +1318,12 @@ def phase_attention_entries(device, cfg, step_ctx):
             check_grad("grad", x.grad, ref)
     del runs
 
-    weights, grid, batch, plain = step_ctx
+    weights, batch, plain = step_ctx
     cfg16 = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, fuse_consistency=False, probs_dtype="bfloat16"),
         session_name="smoke_bf16")
     reset_counts()
-    step = one_step(cfg16, "kernel", False, weights, batch, grid)
+    step = one_step(cfg16, "kernel", False, weights, batch)
     torch.cuda.synchronize()
     step_launches = read_counts()
     depth = step[0].spec.depth
@@ -926,7 +1338,7 @@ def phase_attention_entries(device, cfg, step_ctx):
         raise AssertionError(f"the bf16 model exported {dtypes}")
     reset_counts()
     with k1_as_plain():
-        ref = one_step(cfg16, "kernel", False, weights, batch, grid)
+        ref = one_step(cfg16, "kernel", False, weights, batch)
     torch.cuda.synchronize()
     if read_counts() != zero_counts():
         raise AssertionError("the plain reference launched a kernel")
@@ -1061,6 +1473,38 @@ def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
         log("  device busy per step: not measured (profiler saw no device activity)")
     return {"step_ms": step_ms, "images_per_s": cfg.batch_size / step_ms * 1e3,
             "busy_ms": busy_ms}
+
+
+def time_train_loop(model, opt, cfg, card) -> None:
+    """Step time of the training loop as ``train.train`` runs it (the next
+    batch loaded while the device runs this step, the loss parts' read the
+    step's one sync), fed by the host path and by ``--device_aug``,
+    alternating, LOOP_STEPS steps each: median and mean of all but the
+    first LOOP_WARMUP."""
+    labels = voc_data.load_cls_labels(cfg.cls_labels_path)
+    source = voc_data.VOCClassificationSource(cfg.image_dir, labels, cfg.crop_size)
+    names = voc_data.read_file(cfg.train_list)
+    step = train_mod.make_train_step(model, opt, cfg, (cfg.crop_size // 16,) * 2)
+    for aug in (False, True, False, True):
+        it = voc_data.TrainIterator(source, names, cfg.batch_size, seed=cfg.seed,
+                                    num_workers=cfg.num_workers, device_aug=aug,
+                                    aug_pad=cfg.aug_pad)
+        try:
+            times = []
+            batch = next(it)
+            for _ in range(LOOP_STEPS):
+                t0 = time.perf_counter()
+                parts = step(batch)
+                batch = next(it)
+                torch.stack(list(parts.values())).tolist()
+                times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            it.close()
+        kept = times[LOOP_WARMUP:]
+        log(f"  training loop, {'--device_aug' if aug else 'host path  '} ({cfg.num_workers} "
+            f"loader threads, batch {cfg.batch_size}, crop {cfg.crop_size}, {len(names)} "
+            f"375x500-class JPEGs): step median {np.median(kept):.2f} ms, mean "
+            f"{np.mean(kept):.2f} ms over {len(kept)} steps after {LOOP_WARMUP} [{card}]")
 
 
 def time_image(infer, path, label, pamr_fn=None, reps=5) -> float:
@@ -1318,12 +1762,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/9] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/10] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/9] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/10] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         kernel = ""
@@ -1341,29 +1785,35 @@ def main() -> int:
         f"{pamr_ops.affinity_blocks_per_sm(PAMR_DILATIONS)} (at its largest halo), "
         f"pamr_update_kernel<{n_dil}> {pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
-    log("[3/9] kernels against their plain versions on the card")
+    log("[3/10] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/9] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+        log("[4/10] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
             f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
         (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
          pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/9] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/10] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/9] one train step, kernel path against plain path, same weights and batch")
+        log("[6/10] resumable training: preempt and resume, --device_aug, the relaunch "
+            "supervisor, --pretrained, COCO; vitb_hybrid, crop 384")
+        t0 = time.perf_counter()
+        phase_resume(device, cfg, os.path.join(tmp, "train"), card)
+        log(f"  resume phase: {time.perf_counter() - t0:.1f} s")
+
+        log("[7/10] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
         model, opt, batch, layer_launches, step_ctx = phase_step_compare(device, cfg)
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[7/9] attention entries: K5a, K5b, K5c against their plain versions and "
+        log("[8/10] attention entries: K5a, K5b, K5c against their plain versions and "
             "through autograd; the per-layer branch with a bf16 export")
         t0 = time.perf_counter()
         entry_errs, entry_launches, bf16_launches = phase_attention_entries(
@@ -1371,13 +1821,13 @@ def main() -> int:
         del step_ctx
         log(f"  attention entries phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[8/9] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+        log(f"[9/10] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
             f"crop 384, the recipe")
         t0 = time.perf_counter()
         phase_pipeline(cfg, os.path.join(tmp, "train"))
         log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[9/9] timing on {card}")
+        log(f"[10/10] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "
@@ -1395,6 +1845,7 @@ def main() -> int:
         device_breakdown(infer, paths[0], labels[0], pamr_image_ms, card, pamr_fn)
         del infer, pamr_input
         time_train_step(model, opt, cfg, batch, card)
+        time_train_loop(model, opt, cfg, card)
         del model, opt
     torch.cuda.empty_cache()
     timing = phase_kernel_timing(device, card)

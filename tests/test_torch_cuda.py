@@ -9,8 +9,9 @@ K5a, K5b and K5c (forward and backward), their launch counters and what
 they refuse; ragged token counts, more tokens than the earlier kernels'
 shared-memory limit (the attention kernels and the pair forward), the
 same bits from two launches, K4 on an odd shape, and K3 through its
-gather kernel (a dilation beyond the tile kernel's halo).
-Tolerances are those of ``chip_smoke.py``, with the reasons given there.
+gather kernel (a dilation beyond the tile kernel's halo); and the
+on-device augmentation (``data/device_aug.py``, plain torch) against its
+CPU run. Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
 import pytest
@@ -486,3 +487,26 @@ def test_pamr_kernels_raise_on_what_they_do_not_take(device):
         pamr.pamr_update(m, aff, (1, 2))
     with pytest.raises(ValueError, match="1 to 8 dilations"):
         pamr.pamr_update(m, aff, tuple(range(1, 10)))
+
+
+@pytest.mark.parametrize("crop,pad", [(384, 512), (384, 640)])
+def test_device_augment_on_the_card_matches_the_cpu(device, crop, pad):
+    """Not a kernel: the torch gather of ``data/device_aug.py``, float32 on
+    both devices, within 1e-5 (the tolerance against JAX's on the CPU)."""
+    import numpy as np
+
+    from acr_wsss_tpu_torch.data import device_aug, transforms
+
+    rng = np.random.default_rng(pad)
+    images, vecs = [], []
+    for i, (h, w) in enumerate(((375, 500), (500, 375), (333, 500), (pad, pad - 3))):
+        img = rng.integers(0, 255, size=(h, w, 3), dtype=np.uint8)
+        params = transforms.train_aug_params((h, w), crop, np.random.default_rng(i))
+        padded, vec = device_aug.pack_example(img, params, pad)
+        images.append(padded)
+        vecs.append(vec)
+    images, vecs = torch.from_numpy(np.stack(images)), torch.from_numpy(np.stack(vecs))
+    ref = device_aug.device_augment(images, vecs, crop)
+    got = device_aug.device_augment(images.to(device), vecs.to(device), crop)
+    assert got.device.type == "cuda" and got.shape == (4, crop, crop, 3)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5)

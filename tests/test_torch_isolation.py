@@ -5,7 +5,10 @@ whose import system refuses those packages and ``acr_wsss_tpu`` (the exact
 name and its submodules, not ``acr_wsss_tpu_torch``), every module of the
 port and ``chip_smoke`` must import: the inference modules, the
 training ones (``train``, ``losses``, ``data/voc``, ``ops/attn_pair``,
-``utils/{schedule,meters}``), ``ops/pamr`` and ``pipeline``.
+``utils/{schedule,meters}``), ``ops/pamr`` and ``pipeline``, and those of
+resumable training: ``train_coco``, ``data/{coco,lists,device_aug}``,
+``models/zoo`` and ``utils/{checkpoint,logging,preemption,watchdog,
+supervisor}``.
 """
 
 import os
@@ -50,7 +53,9 @@ def test_port_and_chip_smoke_import_without_jax():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count = int(proc.stdout.split()[-2])
-    assert count >= 26, proc.stdout
+    assert count >= 35, proc.stdout
     for name in ("train", "losses", "data.voc", "ops.attn_pair", "utils.schedule",
-                 "utils.meters", "ops.pamr", "pipeline"):
+                 "utils.meters", "ops.pamr", "pipeline", "train_coco", "data.coco",
+                 "data.lists", "data.device_aug", "models.zoo", "utils.checkpoint",
+                 "utils.logging", "utils.preemption", "utils.watchdog", "utils.supervisor"):
         assert f"acr_wsss_tpu_torch.{name}" in proc.stdout, name

@@ -39,6 +39,19 @@ RTOL, ATOL = 2e-5, 2e-6
 PRODUCTION = (1, 2, 4, 8, 12, 24)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one thread (OpenMP and MKL) for this module, the old count
+    restored after it. In a process that has run JAX first, the first
+    multi-threaded ``torch.sqrt`` of ``local_std`` now and then returned
+    about a quarter of its elements up to 4.7e-4 off (5 of 360 fresh
+    processes, the second call exact); on one thread, 0 of 360."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _inputs(seed, x_shape, mask_shape):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=x_shape).astype(np.float32),

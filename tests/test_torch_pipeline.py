@@ -1,7 +1,10 @@
 """The port's one-command pipeline (``python -m acr_wsss_tpu_torch.pipeline``):
 train -> infer (with PAMR) -> eval on a tiny synthetic VOC on the CPU,
 checking every stage's artifact; the pattern of
-``tests/test_pipeline_cli.py``.
+``tests/test_pipeline_cli.py``. Then ``--dataset coco`` on a synthetic
+COCO layout (bbox txts, a separate ``--valpath``): 80 classes in training
+and inference, 81 in the eval, the infer list written into
+``--weight_dir``.
 """
 
 import numpy as np
@@ -13,6 +16,7 @@ import jax.numpy as jnp
 from acr_wsss_tpu.models.acr import ACR as JaxACR
 from acr_wsss_tpu.utils.checkpoint import load_params_npz as jax_load_params_npz
 from acr_wsss_tpu_torch import pipeline
+from tests.torch_port_helpers import write_coco
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +93,7 @@ def test_pipeline_all_stages_then_infer_and_eval_again(tiny_voc, tmp_path, capsy
     assert "rerun" in (tmp_path / "evallog.txt").read_text()
 
 
-@pytest.mark.parametrize("flag", [["--dataset", "coco"], ["--pretrained"], ["--infer_dp", "2"],
+@pytest.mark.parametrize("flag", [["--crf_device"], ["--infer_scan"], ["--infer_dp", "2"],
                                   ["--out_crf", "crf"], ["--stages", "train,export"]])
 def test_unported_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit):
@@ -109,3 +113,48 @@ def test_defaults_are_the_recipe_on_cuda():
     assert (infer_cfg.start_layer, infer_cfg.getam_func, infer_cfg.batch_images) == (
         10, "grad", 4)
     assert eval_cfg.curve and eval_cfg.num_classes == 21 and eval_cfg.comment == "acr_001"
+
+
+def test_coco_pipeline_trains_infers_and_evaluates_80_classes(tmp_path, capsys):
+    root = write_coco(tmp_path / "coco", seed=5, n_train=4, n_val=2)
+    (root / "gt").mkdir()
+    names = sorted(p.stem for p in (root / "train").glob("*.jpg"))
+    rng = np.random.default_rng(6)
+    for name in names:
+        h, w = Image.open(root / "train" / f"{name}.jpg").size[::-1]
+        Image.fromarray(rng.integers(0, 81, size=(h, w), dtype=np.uint8)).save(
+            root / "gt" / f"{name}.png")
+    argv = ["--dataset", "coco", "--session_name", "coco_torch", "--backbone", "vitb",
+            "--device", "cpu", "--IMpath", str(root / "train"), "--bbox_dir", str(root / "bbox"),
+            "--valpath", str(root / "val"), "--gt_dir", str(root / "gt"), "--crop_size", "32",
+            "--max_epoches", "1", "--lr", "0.001", "--alpha", "1", "--device_aug",
+            "--weight_dir", str(tmp_path / "weight"), "--out_cam", str(tmp_path / "cams"),
+            "--logfile", str(tmp_path / "evallog.txt")]
+    train_cfg, infer_cfg, eval_cfg = pipeline.configs(pipeline.parse_args(argv))
+    assert (train_cfg.model.num_classes, infer_cfg.model.num_classes, eval_cfg.num_classes) == (
+        80, 80, 81)
+    assert (train_cfg.aug_pad, train_cfg.val_image_dir, infer_cfg.dataset) == (
+        640, str(root / "val"), "coco")
+    pipeline.main(argv)
+    out = capsys.readouterr().out
+    assert "model saved!" in out and "99/60 background score" in out
+
+    listed = tmp_path / "weight" / "coco_torch_infer_list.txt"
+    assert listed.read_text().split() == names
+    params = jax_load_params_npz(str(tmp_path / "weight" / "coco_torch_last.npz"))
+    assert params["params"]["cls_head"]["kernel"].shape == (768, 80)
+    from acr_wsss_tpu.data.coco import get_coco_cls_label
+
+    for name in names:
+        cam = np.load(tmp_path / "cams" / f"{name}.npy", allow_pickle=True).item()
+        present = np.flatnonzero(get_coco_cls_label(name, str(root / "bbox"))).tolist()
+        assert sorted(cam) == present
+        assert all(np.isfinite(m).all() and 0 <= m.min() and m.max() <= 1 for m in cam.values())
+    text = (tmp_path / "evallog.txt").read_text()
+    assert text.count("coco_torch") == 1 and text.count("mIoU:[") == 1
+
+
+def test_coco_requires_bbox_dir(capsys):
+    with pytest.raises(SystemExit):
+        pipeline.parse_args(["--IMpath", "img", "--gt_dir", "gt", "--dataset", "coco"])
+    assert "--bbox_dir" in capsys.readouterr().err

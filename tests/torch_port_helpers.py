@@ -3,9 +3,11 @@
 Weights are made with numpy from a seed in the flax layout, flattened with
 "/"-joined paths as ``save_params_npz`` writes them, and handed to both
 sides: to JAX as a param tree, to the port through its converter.
+``write_coco`` writes a tiny synthetic COCO layout (images, bbox txts).
 """
 
 import numpy as np
+from PIL import Image
 
 import jax
 import jax.numpy as jnp
@@ -79,3 +81,24 @@ def build_acr_pair(crop, seed=0, backbone="vitb_hybrid", jax_impl="xla",
     port.load_state_dict(flax_to_state_dict(flat, port.state_dict()))
     port.requires_grad_(False).eval()
     return jax_model, unflatten_params(flat), port
+
+
+def write_coco(root, seed=0, n_train=6, n_val=3):
+    """Train and val image directories of small JPEGs and one bbox txt per
+    image (``x y category_id ...`` lines, some repeated, one short line)."""
+    from acr_wsss_tpu_torch.data import coco
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        (root / split).mkdir(parents=True)
+        for i in range(n):
+            name = f"COCO_{split}2014_{i:012d}"
+            h, w = ((48, 64), (64, 40), (40, 40))[i % 3]
+            Image.fromarray(rng.integers(0, 255, size=(h, w, 3), dtype=np.uint8)).save(
+                root / split / f"{name}.jpg")
+            cats = rng.choice(coco.COCO_CATEGORY_IDS, size=int(rng.integers(1, 4)))
+            lines = [f"{rng.integers(0, w)} {rng.integers(0, h)} {c} 5 5" for c in cats]
+            (root / "bbox").mkdir(exist_ok=True)
+            (root / "bbox" / f"{name}.txt").write_text("\n".join(lines + ["x"]) + "\n")
+    (root / "train" / "notes.txt").write_text("not an image\n")
+    return root

@@ -128,6 +128,18 @@ class InferConfig:
     scales: Sequence[float] = (1.0,)
     flip_tta: bool = True
     out_cam: str = ""
+    # Background-power CRF fusion of each CAM dict at both alphas, written
+    # under <out_crf>_<alpha>/ (reference ``infer_cam.py:218-225``); JET
+    # heatmap JPEGs under ``heatmap``. None: not written.
+    out_crf: Optional[str] = None
+    heatmap: Optional[str] = None
+    low_alpha: int = 1
+    high_alpha: int = 12
+    # The --out_crf stage on the device (``ops/crf.py::crf_inference_torch``
+    # at one (crf_pad, crf_pad) bucket) instead of the host engine; images
+    # larger than the bucket still take the host engine, counted by ``run``.
+    crf_device: bool = False
+    crf_pad: int = 512
     image_dir: str = "voc/image/path"
     infer_list: str = "voc12/train_id.txt"
     cls_labels_path: str = "voc12/cls_labels.npy"

@@ -10,12 +10,20 @@ resize and min-max normalization run on the host. With
 ``InferConfig.dataset="coco"`` the labels come from bbox txts
 (``data/coco.py``), as the pipeline's ``--dataset coco`` sets it.
 
+``--out_crf D`` writes each CAM dict fused with a background score at
+both alphas through the dense CRF into ``D_<alpha>/`` (``crf_with_alpha``,
+JAX ``:306-371``): on the host's native engine, or with ``--crf_device``
+on the device at one (``--crf_pad``)^2 bucket, where an image larger than
+the bucket takes the host engine and is counted. ``--heatmap H`` writes
+JET overlays of the CAMs.
+
     python -m acr_wsss_tpu_torch.infer_cam --weights W.npz \
         --LISTpath L.txt --IMpath JPEGs --cls_labels labels.npy \
-        --out_cam out/cam_npy [--pamr 10]
+        --out_cam out/cam_npy [--pamr 10] [--out_crf out/crf --crf_device] \
+        [--heatmap out/heat]
 
-CRF, heatmaps, the data-parallel mesh and the scanned trunk of the JAX CLI
-are not part of this module yet.
+The data-parallel mesh and the scanned trunk of the JAX CLI are not part
+of this module yet.
 """
 
 from __future__ import annotations
@@ -26,14 +34,17 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from PIL import Image
 
-from acr_wsss_tpu_torch.configs import InferConfig, ModelConfig, parse_bool
+from acr_wsss_tpu_torch.configs import VOC_CLASSES, InferConfig, ModelConfig, parse_bool
 from acr_wsss_tpu_torch.data import coco as coco_data
 from acr_wsss_tpu_torch.data import transforms
 from acr_wsss_tpu_torch.data import voc as voc_data
 from acr_wsss_tpu_torch.getam import getam_cams, make_forward_for_getam, tap_config
 from acr_wsss_tpu_torch.models.acr import ACR
 from acr_wsss_tpu_torch.models.convert import SCANNED, flax_to_state_dict, scanned_to_unrolled
+from acr_wsss_tpu_torch.ops import crf as crf_ops
 from acr_wsss_tpu_torch.ops import imops
 from acr_wsss_tpu_torch.ops.pamr import make_pamr_fn
 from acr_wsss_tpu_torch.utils.checkpoint import load_params_npz
@@ -159,6 +170,72 @@ def process_image(infer_fn, img_path: str, label: np.ndarray, crop_size: int,
                                   flip_tta, scales, infer_fns_by_scale, pamr_fn)[0]
 
 
+def crf_with_alpha(cam_dict: Dict[int, np.ndarray], alpha: float,
+                   orig_img: np.ndarray) -> Dict[int, np.ndarray]:
+    """Background-power CRF fusion on the host engine (reference
+    ``infer_cam.py:27-40``): {0: background, c + 1: class c} marginals."""
+    if not cam_dict:
+        # No present class: background with certainty 1.
+        return {0: np.ones(orig_img.shape[:2], np.float32)}
+    v = np.array(list(cam_dict.values()))
+    bg_score = np.power(1 - np.max(v, axis=0, keepdims=True), alpha)
+    bgcam_score = np.concatenate((bg_score, v), axis=0)
+    crf_score = crf_ops.crf_inference(orig_img, bgcam_score, labels=bgcam_score.shape[0])
+    out = {0: crf_score[0]}
+    for i, key in enumerate(cam_dict.keys()):
+        out[key + 1] = crf_score[i + 1]
+    return out
+
+
+def fits_crf_bucket(shape: Sequence[int], pad: int) -> bool:
+    """Whether an (H, W, ...) image fits the (pad, pad) bucket of the
+    device route; a larger one takes the host engine."""
+    return shape[0] <= pad and shape[1] <= pad
+
+
+def crf_with_alpha_device(cam_dict: Dict[int, np.ndarray], alpha: float,
+                          orig_img: np.ndarray, device, num_classes: int = 20,
+                          pad: int = 512) -> Dict[int, np.ndarray]:
+    """``--crf_device``: :func:`crf_with_alpha` on ``device`` (JAX
+    ``:341-371``), ``crf_inference_torch`` with the ``crf_inference``
+    recipe. The label axis is the full (num_classes + 1) slab, the absent
+    classes at 1e-7; image and probabilities are edge-replicated to one
+    (pad, pad) bucket for every image, as JAX compiles one program for it,
+    and the marginals cropped back. An image larger than the bucket takes
+    the host engine."""
+    H, W = orig_img.shape[:2]
+    if not cam_dict:
+        return {0: np.ones((H, W), np.float32)}
+    if not fits_crf_bucket(orig_img.shape, pad):
+        return crf_with_alpha(cam_dict, alpha, orig_img)
+    v = np.array(list(cam_dict.values()))
+    probs = np.full((num_classes + 1, H, W), 1e-7, np.float32)
+    probs[0] = np.power(1 - np.max(v, axis=0), alpha)
+    for i, key in enumerate(cam_dict):
+        probs[key + 1] = v[i]
+    edge = (0, pad - W, 0, pad - H)
+    probs_p = F.pad(torch.from_numpy(probs).to(device)[None], edge, mode="replicate")[0]
+    img = torch.from_numpy(orig_img.astype(np.float32)).to(device)
+    img_p = F.pad(img.permute(2, 0, 1)[None], edge, mode="replicate")[0].permute(1, 2, 0)
+    out = crf_ops.crf_inference_torch(img_p, probs_p, device=device)[:, :H, :W].cpu().numpy()
+    result = {0: out[0]}
+    for key in cam_dict:
+        result[key + 1] = out[key + 1]
+    return result
+
+
+def save_heatmaps(heatmap_dir: str, name: str, rgb: np.ndarray,
+                  cam_dict: Dict[int, np.ndarray]) -> None:
+    """JET overlays (50/50 with the image) of each CAM as
+    ``<name>_<class>_getam.jpg`` (reference ``infer_cam.py:232-247``)."""
+    os.makedirs(heatmap_dir, exist_ok=True)
+    for c, mask in cam_dict.items():
+        heat = imops.apply_colormap_jet(np.uint8(255 * mask))[..., ::-1]  # RGB
+        blend = (heat * 0.5 + rgb * 0.5).astype(np.uint8)
+        cls = VOC_CLASSES[c] if c < len(VOC_CLASSES) else f"class{c}"
+        Image.fromarray(blend).save(os.path.join(heatmap_dir, f"{name}_{cls}_getam.jpg"))
+
+
 def load_model(cfg: InferConfig) -> ACR:
     """The ACR of ``cfg.model`` on ``cfg.device`` with the npz weights.
     Built without ``cfg.model.probs_dtype``, as JAX's ``run`` builds it
@@ -175,7 +252,10 @@ def load_model(cfg: InferConfig) -> ACR:
     return model.to(cfg.device)
 
 
-def run(cfg: InferConfig) -> None:
+def run(cfg: InferConfig) -> Dict[str, int]:
+    """The CAM pass over ``cfg.infer_list`` and what ``cfg`` asks to be
+    written. Returns how many images the --out_crf stage ran on each
+    route, {"device": n, "host": m}."""
     model = load_model(cfg)
     infer_fns = {
         scale: build_infer_fn(model, int(cfg.crop_size * scale), cfg.start_layer,
@@ -201,6 +281,7 @@ def run(cfg: InferConfig) -> None:
         labels = voc_data.load_cls_labels(cfg.cls_labels_path)
     if cfg.out_cam:
         os.makedirs(cfg.out_cam, exist_ok=True)
+    routes = {"device": 0, "host": 0}
     V = max(1, cfg.batch_images)
     print("generating cam...", flush=True)
     for gi in range(0, len(names), V):
@@ -210,11 +291,30 @@ def run(cfg: InferConfig) -> None:
             [os.path.join(cfg.image_dir, f"{n}.jpg") for n in group],
             [labels[n] for n in group], cfg.crop_size, cfg.flip_tta,
             scales=cfg.scales, infer_fns_by_scale=infer_fns, pamr_fn=pamr_fn)
-        for name, (cam_dict, _, _) in zip(group, results):
+        for name, (cam_dict, _, rgb) in zip(group, results):
             if cfg.out_cam:
                 np.save(os.path.join(cfg.out_cam, f"{name}.npy"), cam_dict)
+            if cfg.out_crf:
+                on_device = cfg.crf_device and fits_crf_bucket(rgb.shape, cfg.crf_pad)
+                routes["device" if on_device else "host"] += 1
+                for alpha in (cfg.low_alpha, cfg.high_alpha):
+                    crf = (crf_with_alpha_device(cam_dict, alpha, rgb, cfg.device,
+                                                 num_classes=cfg.model.num_classes,
+                                                 pad=cfg.crf_pad)
+                           if on_device else crf_with_alpha(cam_dict, alpha, rgb))
+                    folder = f"{cfg.out_crf}_{alpha}"
+                    os.makedirs(folder, exist_ok=True)
+                    np.save(os.path.join(folder, f"{name}.npy"), crf)
+            if cfg.heatmap:
+                save_heatmaps(cfg.heatmap, name, rgb, cam_dict)
         if gi % 50 < V:
             print(gi, flush=True)
+    if cfg.out_crf and cfg.crf_device:
+        print(f"crf: {routes['device']} on {cfg.device}, {routes['host']} on host "
+              f"(larger than pad {cfg.crf_pad})", flush=True)
+    elif cfg.out_crf:
+        print(f"crf: {routes['host']} on host", flush=True)
+    return routes
 
 
 def parse_args(argv=None) -> InferConfig:
@@ -225,6 +325,20 @@ def parse_args(argv=None) -> InferConfig:
     parser.add_argument("--IMpath", default="voc/image/path")
     parser.add_argument("--cls_labels", default="voc12/cls_labels.npy")
     parser.add_argument("--out_cam", default="")
+    parser.add_argument("--out_crf", default=None,
+                        help="also write the CRF-fused CAMs at --low_alpha and "
+                             "--high_alpha under <out_crf>_<alpha>/")
+    parser.add_argument("--heatmap", default=None,
+                        help="directory of JET heatmap JPEGs of the CAMs")
+    parser.add_argument("--low_alpha", default=1, type=int)
+    parser.add_argument("--high_alpha", default=12, type=int)
+    parser.add_argument("--crf_device", action="store_true",
+                        help="run the --out_crf stage on --device (a bilateral-grid "
+                             "mean-field at one padded bucket) instead of the host "
+                             "engine")
+    parser.add_argument("--crf_pad", default=512, type=int,
+                        help="the bucket of --crf_device; larger images take the host "
+                             "engine")
     parser.add_argument("--start_layer", default=10, type=int)
     parser.add_argument("--getam_func", default="grad",
                         choices=["grad", "grad_s", "cam_grad", "cam_grad_s"])
@@ -254,7 +368,9 @@ def parse_args(argv=None) -> InferConfig:
         model=ModelConfig(backbone=args.backbone, attn_impl=args.attn_impl),
         weights=args.weights, crop_size=args.crop_size,
         start_layer=args.start_layer, getam_func=args.getam_func,
-        use_aff=args.aff, scales=scales, out_cam=args.out_cam,
+        use_aff=args.aff, scales=scales, out_cam=args.out_cam, out_crf=args.out_crf,
+        heatmap=args.heatmap, low_alpha=args.low_alpha, high_alpha=args.high_alpha,
+        crf_device=args.crf_device, crf_pad=args.crf_pad,
         image_dir=args.IMpath, infer_list=args.LISTpath,
         cls_labels_path=args.cls_labels, class_slots=args.class_slots,
         batch_images=args.batch_images, pamr_iters=args.pamr,

@@ -1,8 +1,10 @@
 """Host-side numpy image ops with ``F.interpolate`` semantics.
 
 Own copy of ``acr_wsss_tpu/ops/imops.py::{resize_bilinear_np,
-minmax_normalize}``: the per-image native-size resize and normalization of
-the CAM pipeline, which run on the host.
+minmax_normalize, apply_colormap_jet, voc_colormap}``: the per-image
+native-size resize and normalization of the CAM pipeline, which run on the
+host, OpenCV's JET colormap of the heatmap dumps (``infer_cam.py:232-247``
+of the reference) and the VOC palette (``tool/visualization.py:100-108``).
 """
 
 from __future__ import annotations
@@ -43,6 +45,41 @@ def resize_bilinear_np(
     bot = x[..., y1, :][..., :, x0] * wy[:, None] * (1 - wx) \
         + x[..., y1, :][..., :, x1] * wy[:, None] * wx
     return (top + bot).astype(x.dtype if x.dtype.kind == "f" else np.float32)
+
+
+_JET_ANCHORS = np.array([
+    # value, (b, g, r): OpenCV COLORMAP_JET control points
+    (0.000, (128, 0, 0)),
+    (0.125, (255, 0, 0)),
+    (0.375, (255, 255, 0)),
+    (0.625, (0, 255, 255)),
+    (0.875, (0, 0, 255)),
+    (1.000, (0, 0, 128)),
+], dtype=object)
+
+
+def apply_colormap_jet(gray: np.ndarray) -> np.ndarray:
+    """uint8 HxW -> BGR uint8 JET heatmap (cv2.applyColorMap equivalent)."""
+    t = gray.astype(np.float32) / 255.0
+    xs = np.array([a[0] for a in _JET_ANCHORS], np.float32)
+    cols = np.array([a[1] for a in _JET_ANCHORS], np.float32)  # (K, 3) BGR
+    out = np.stack([np.interp(t, xs, cols[:, c]) for c in range(3)], axis=-1)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def voc_colormap(n: int = 256) -> np.ndarray:
+    """VOC palette: bit-twiddled (r, g, b) per label id."""
+    cmap = np.zeros((n, 3), np.uint8)
+    for i in range(n):
+        r = g = b = 0
+        cid = i
+        for j in range(8):
+            r |= ((cid >> 0) & 1) << (7 - j)
+            g |= ((cid >> 1) & 1) << (7 - j)
+            b |= ((cid >> 2) & 1) << (7 - j)
+            cid >>= 3
+        cmap[i] = (r, g, b)
+    return cmap
 
 
 def minmax_normalize(cam: np.ndarray, axis=(1, 2), eps: float = 1e-6) -> np.ndarray:

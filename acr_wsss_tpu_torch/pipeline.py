@@ -17,8 +17,10 @@ evaluation on the saved weights. Everything runs on ``--device`` (default
 from ``--bbox_dir`` txts, validation images from ``--valpath``, 81-class
 eval. ``--train_relaunches N`` runs the train stage under the relaunch
 supervisor (``utils/supervisor.py``; pair it with ``--step_timeout_s``).
-Flags of parts not yet ported (``--infer_scan``, ``--infer_dp``, the CRF
-and heatmap outputs) are not defined, so argparse refuses them.
+``--out_crf D [--crf_device]`` and ``--heatmap H`` add the infer stage's
+CRF-fused CAMs and heatmaps (``infer_cam.py``). Flags of parts not yet
+ported (``--infer_scan``, ``--infer_dp``) are not defined, so argparse
+refuses them.
 """
 
 from __future__ import annotations
@@ -149,6 +151,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--getam_func", default="grad",
                         choices=["grad", "grad_s", "cam_grad", "cam_grad_s"])
     parser.add_argument("--out_cam", default="output/cam_npy")
+    parser.add_argument("--out_crf", default=None,
+                        help="also write background-power CRF-fused CAMs (reference "
+                             "infer_cam.py:218-225) under <out_crf>_<low/high alpha>/")
+    parser.add_argument("--crf_device", action="store_true",
+                        help="run the --out_crf stage on --device (ops/crf.py) instead "
+                             "of the host engine")
+    parser.add_argument("--heatmap", default=None,
+                        help="infer stage: directory of JET heatmap JPEGs of the CAMs")
     # eval (train_acr.sh:40-47)
     parser.add_argument("--logfile", default="evallog.txt")
     parser.add_argument("--comment", default=None)
@@ -209,7 +219,8 @@ def configs(args: argparse.Namespace):
         weights=os.path.join(args.weight_dir, f"{args.session_name}_last.npz"),
         crop_size=args.crop_size, start_layer=args.start_layer,
         getam_func=args.getam_func, use_aff=True, scales=args.infer_scales,
-        out_cam=args.out_cam, image_dir=args.IMpath, infer_list=infer_list,
+        out_cam=args.out_cam, out_crf=args.out_crf, crf_device=args.crf_device,
+        heatmap=args.heatmap, image_dir=args.IMpath, infer_list=infer_list,
         cls_labels_path=labels_path, batch_images=args.infer_batch_images,
         pamr_iters=args.pamr, device=args.device)
     eval_cfg = EvalConfig(

@@ -78,7 +78,15 @@ package. Phases, each of which fails the run when it fails:
    ``--pamr 10`` -> 100-threshold eval (vitb_hybrid, crop 384, the
    recipe) on the training fixture with seeded label PNGs; launches
    counted; the npz, one CAM dict per name and the evallog checked;
-10. timing: per-image latency with and without PAMR, the PAMR step's device
+10. CRF and pseudo masks: (a) the device CRF (``ops/crf.py``, plain torch)
+   at the JAX bench's shape (512x512, 21 labels, t=10) against its CPU
+   run and the host's native engine, and two runs' difference; (b) ``infer_cam`` with ``--out_crf --crf_device
+   --heatmap`` on phase 4's images, then with the host route: keys,
+   shapes, argmax agreement of the routes, every image on the route asked
+   for, K1f's launches as in phase 4; (c) ``pseudo_label.main`` on the
+   CAM dicts; (d) the device CRF's, the host engine's and the --out_crf
+   stage's times;
+11. timing: per-image latency with and without PAMR, the PAMR step's device
    time, train step time and images/s, the training loop's step time fed
    by the host path and by ``--device_aug``, device time breakdowns, each
    kernel's device time (CUDA events around launches enqueued while the
@@ -118,6 +126,7 @@ from PIL import Image  # noqa: E402
 from acr_wsss_tpu_torch import evaluate  # noqa: E402
 from acr_wsss_tpu_torch import infer_cam  # noqa: E402
 from acr_wsss_tpu_torch import pipeline  # noqa: E402
+from acr_wsss_tpu_torch import pseudo_label  # noqa: E402
 from acr_wsss_tpu_torch import train as train_mod  # noqa: E402
 from acr_wsss_tpu_torch import train_coco  # noqa: E402
 from acr_wsss_tpu_torch.configs import InferConfig, ModelConfig, TrainConfig  # noqa: E402
@@ -130,6 +139,7 @@ from acr_wsss_tpu_torch.models import vit as vit_mod  # noqa: E402
 from acr_wsss_tpu_torch.models import zoo  # noqa: E402
 from acr_wsss_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax  # noqa: E402
 from acr_wsss_tpu_torch.ops import _build, attn_pair  # noqa: E402
+from acr_wsss_tpu_torch.ops import crf as crf_ops  # noqa: E402
 from acr_wsss_tpu_torch.ops import pamr as pamr_ops  # noqa: E402
 from acr_wsss_tpu_torch.ops.attention import attention_with_probs  # noqa: E402
 from acr_wsss_tpu_torch.ops.attn_cuda import (BWD_KERNEL, KERNEL,  # noqa: E402
@@ -217,6 +227,34 @@ PAMR_RTOL, PAMR_ATOL = 2e-5, 2e-6
 # Pipeline phase: 8 of the training fixture's images (2 updates, 3 train
 # steps) and its 4 validation images as the inference and eval list.
 PIPE_TRAIN_IMAGES = 8
+# CRF phase (a): the JAX bench's on-device CRF shape (bench.py:290-345),
+# 512x512 RGB, 21 labels, t=10, the crf_inference recipe (Gaussian 3/3,
+# bilateral 80/13/10), on the inputs of tests/test_bilateral_crf.py's
+# production-scale case (seed 0). The card against the same function on the
+# CPU: float32 in another order and atomic scatter sums, carried through ten
+# mean-field steps (5e-5 at 64x96 in tests/test_torch_crf.py; the marginals
+# here are sharper) -> 1e-3 on the marginals, argmax agreement >= 0.999.
+# Against the host's native engine, another filter (a permutohedral
+# lattice): JAX's own bound at this shape (test_bilateral_crf.py:265).
+CRF_PAD, CRF_LABELS, CRF_ITERS = 512, 21, 10
+CRF_CPU_ATOL, CRF_CPU_AGREE, CRF_NATIVE_AGREE = 1e-3, 0.999, 0.97
+# (b) --out_crf through the device route: against the same route on the
+# CPU, argmax agreement as in (a); the scatter's atomic sums change order
+# from run to run, and on phase 4's CAMs, near-uniform over wide regions,
+# ten mean-field steps carry that to 4.6e-4 and 7.3e-4 in two calls on an
+# H100 (333x500, alpha 1) -> 5e-3 on the marginals. The device route
+# against the host route measures two approximations, not the port: the
+# device route fills the 512 bucket with edge-replicated rows (179 of them
+# for a 333-row image) and filters on a bilateral grid, the host route runs
+# the permutohedral lattice at the native size. On phase 4's CAMs of the
+# tracked npz JAX's own two routes agree on only 0.877 of the 375x500
+# image, CAMs and both routes on the CPU, as the port's do to the pixel
+# (tests/test_torch_crf_infer.py). So that agreement is printed beside
+# the same route's on the CPU, from which the gate above keeps it within
+# 1 - CRF_CPU_AGREE, and JAX's bound for this wiring
+# (test_bilateral_crf.py:171-190) is held on JAX's own input: a 24x20
+# two-region image, classes 4 and 11 split at column 10, alpha 4, pad 32.
+CRF_ROUTE_CPU_ATOL, CRF_ROUTE_AGREE, CRF_TOY_PAD = 5e-3, 0.9, 32
 # Resume phase (a): checkpoints every 2 steps, SIGTERM in loop step 2 of
 # the 5-step run; 3 steps run, then 2 after the resume, the first of them
 # inside the profiler window (train.PROFILE_WINDOW, moved there), whose
@@ -1432,6 +1470,232 @@ def phase_pipeline(cfg: TrainConfig, root: str) -> dict:
     return launches
 
 
+def crf_inputs(seed=0):
+    """The production-scale inputs of tests/test_bilateral_crf.py: a
+    512x512 image with three coloured discs on a noisy grey ground, and a
+    21-label unary made the way ``--out_crf`` makes it (blurred disc CAMs
+    plus noise, min-max normalized, the background at power 4, the absent
+    classes at 1e-7)."""
+    rng = np.random.default_rng(seed)
+    H = W = CRF_PAD
+    img = rng.integers(90, 150, (H, W, 3)).astype(np.float32)
+    yy, xx = np.mgrid[0:H, 0:W]
+    gt = np.zeros((H, W), np.int32)
+    present = [3, 7, 12]
+    for i, c in enumerate(present):
+        cy, cx = rng.integers(100, 412), rng.integers(100, 412)
+        r = rng.integers(60, 110)
+        sel = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+        img[sel] = (np.array([60 + 60 * i, 200 - 50 * i, 80 + 40 * i])
+                    + rng.normal(0, 8, (int(sel.sum()), 3)))
+        gt[sel] = c
+    img = np.clip(img, 0, 255)
+
+    def blur(x, sigma):
+        k = np.exp(-0.5 * (np.arange(-3 * sigma, 3 * sigma + 1) / sigma) ** 2)
+        k /= k.sum()
+        x = np.apply_along_axis(lambda r_: np.convolve(r_, k, mode="same"), 0, x)
+        return np.apply_along_axis(lambda r_: np.convolve(r_, k, mode="same"), 1, x)
+
+    cams = []
+    for c in present:
+        cam = blur((gt == c).astype(np.float32), 24)
+        cam += rng.uniform(0, 0.1, (H, W))
+        cams.append(((cam - cam.min()) / (cam.max() - cam.min())).astype(np.float32))
+    probs = np.full((CRF_LABELS, H, W), 1e-7, np.float32)
+    probs[0] = np.power(1 - np.max(cams, axis=0), 4)
+    for c, cam in zip(present, cams):
+        probs[c + 1] = cam
+    return img, probs
+
+
+def crf_toy_inputs(seed=0):
+    """The input of tests/test_bilateral_crf.py::
+    test_crf_with_alpha_device_matches_host: a 24x20 two-region image
+    (red left, blue right, noise of sd 5) and CAMs of classes 4 and 11
+    split at column 10."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((24, 20, 3), np.float32)
+    img[:, :10] = [200, 30, 30]
+    img[:, 10:] = [30, 30, 200]
+    img = np.clip(img + rng.normal(0, 5, size=img.shape).astype(np.float32), 0, 255)
+    cam = np.zeros((24, 20), np.float32)
+    cam[:, :10] = 0.95
+    return img.astype(np.uint8), {4: cam, 11: 1.0 - cam}
+
+
+def agreement(a, b) -> float:
+    """Share of pixels where two (L, H, W) maps (or {label: (H, W)} dicts
+    with the same keys) have the same argmax."""
+    if isinstance(a, dict):
+        a, b = (np.stack([m[k] for k in sorted(a)]) for m in (a, b))
+    return float((np.asarray(a).argmax(0) == np.asarray(b).argmax(0)).mean())
+
+
+def time_device_crf(img, probs, reps=10) -> float:
+    """Median ms of ``reps`` calls of the device CRF on ``img``'s device
+    after a warm-up, each between two CUDA events."""
+    crf_ops.crf_inference_torch(img, probs, device=img.device)
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        crf_ops.crf_inference_torch(img, probs, device=img.device)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def host_ms(fn, reps=3) -> float:
+    """Median host-clock ms of ``reps`` synchronized calls."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_crf(device, tmp, paths, labels, infer_launches, card) -> None:
+    """(a) the device CRF alone at the bench's shape against its CPU run
+    and the host engine; (b) ``infer_cam`` with
+    ``--out_crf --crf_device --heatmap`` on phase 4's images, then with the
+    host route; (c) ``pseudo_label.main`` on the CAM dicts; (d) times."""
+    img, probs = crf_inputs()
+    t0 = time.perf_counter()
+    cpu = crf_ops.crf_inference_torch(img, probs, device="cpu").numpy()
+    cpu_s = time.perf_counter() - t0
+    img_d, probs_d = torch.from_numpy(img).to(device), torch.from_numpy(probs).to(device)
+    runs = [crf_ops.crf_inference_torch(img_d, probs_d, device=device) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    native = crf_ops.crf_inference(img, probs, t=CRF_ITERS)
+    native_s = time.perf_counter() - t0
+    dev = runs[0].cpu().numpy()
+    log(f"  (a) crf_inference_torch, {CRF_PAD}x{CRF_PAD} RGB, {CRF_LABELS} labels, "
+        f"t={CRF_ITERS}, recipe 3/3 + 80/13/10 (CPU run {cpu_s:.2f} s, host engine "
+        f"{native_s:.2f} s)")
+    if not np.isfinite(dev).all() or np.abs(dev.sum(0) - 1).max() > 1e-4:
+        raise AssertionError("device CRF: marginals not finite or not normalized")
+    err = float(np.abs(dev - cpu).max())
+    agree = agreement(dev, cpu)
+    log(f"  card against the CPU: max abs {err:.3g} (tolerance {CRF_CPU_ATOL}), "
+        f"argmax agreement {agree:.6f} (>= {CRF_CPU_AGREE})")
+    if err > CRF_CPU_ATOL or agree < CRF_CPU_AGREE:
+        raise AssertionError("device CRF: the card and the CPU disagree")
+    agree = agreement(dev, native)
+    moved = float((native.argmax(0) != probs.argmax(0)).mean())
+    log(f"  card against the host's native engine: argmax agreement {agree:.6f} "
+        f"(> {CRF_NATIVE_AGREE}); the native CRF moved {moved:.4f} of the pixels off the "
+        f"unary's argmax")
+    if agree <= CRF_NATIVE_AGREE:
+        raise AssertionError("device CRF: disagrees with the native engine")
+    log(f"  two runs on the card (atomic index_add_): max difference "
+        f"{(runs[0] - runs[1]).abs().max().item():.3g}, "
+        f"{int((runs[0] != runs[1]).sum())} of {runs[0].numel()} values differ")
+    del runs
+
+    names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+    root = os.path.join(tmp, "crf_phase")
+    os.makedirs(root)
+    lst, labels_npy = os.path.join(root, "list.txt"), os.path.join(root, "labels.npy")
+    with open(lst, "w") as f:
+        f.write("\n".join(names) + "\n")
+    np.save(labels_npy, dict(zip(names, labels)))
+    weights = os.path.join(root, "weights.npz")
+    save_params_npz(weights, state_dict_to_flax(load_model(device, "kernel")))
+    out_cam, heat = os.path.join(root, "cams"), os.path.join(root, "heat")
+    common = ["--weights", weights, "--LISTpath", lst, "--IMpath", tmp,
+              "--cls_labels", labels_npy, "--crop_size", str(CROP), "--batch_images", "1",
+              "--device", device.type]
+    outs = {}
+    for route, extra in (("device", ["--out_cam", out_cam, "--crf_device", "--heatmap", heat]),
+                         ("host", [])):
+        argv = common + ["--out_crf", os.path.join(root, f"crf_{route}"), *extra]
+        log("  (b) python -m acr_wsss_tpu_torch.infer_cam " + " ".join(argv))
+        reset_counts()
+        t0 = time.perf_counter()
+        routes = infer_cam.run(infer_cam.parse_args(argv))
+        torch.cuda.synchronize()
+        launches = read_counts()
+        log(f"  {route} route: {time.perf_counter() - t0:.2f} s for {len(names)} images; "
+            f"images per route {routes}; launches {launches}")
+        if launches != infer_launches:
+            raise AssertionError(f"launches {launches} != phase 4's {infer_launches}")
+        if routes != {"device": 0, "host": 0, route: len(names)}:
+            raise AssertionError(f"expected every image on the {route} route, got {routes}")
+        outs[route] = {(alpha, n): np.load(os.path.join(root, f"crf_{route}_{alpha}",
+                                                        f"{n}.npy"), allow_pickle=True).item()
+                       for alpha in (1, 12) for n in names}
+    cams = [np.load(os.path.join(out_cam, f"{n}.npy"), allow_pickle=True).item()
+            for n in names]
+    rgbs = [np.asarray(Image.open(p).convert("RGB")) for p in paths]
+    for (alpha, name), dev in outs["device"].items():
+        i = names.index(name)
+        ref = infer_cam.crf_with_alpha_device(cams[i], alpha, rgbs[i], "cpu", pad=CRF_PAD)
+        err = max(float(np.abs(dev[k] - ref[k]).max()) for k in ref)
+        agree = agreement(dev, ref)
+        log(f"  {name} alpha {alpha}: device route on the card against it on the CPU, max abs "
+            f"{err:.3g} (tolerance {CRF_ROUTE_CPU_ATOL}), argmax agreement {agree:.6f} "
+            f"(>= {CRF_CPU_AGREE})")
+        if sorted(dev) != sorted(ref) or err > CRF_ROUTE_CPU_ATOL or agree < CRF_CPU_AGREE:
+            raise AssertionError("the device route on the card and on the CPU disagree")
+        host = outs["host"][(alpha, name)]
+        size = IMAGE_SIZES[names.index(name)]
+        present = [0] + [c + 1 for c in np.flatnonzero(labels[names.index(name)])]
+        if sorted(dev) != sorted(host) or sorted(dev) != present:
+            raise AssertionError(f"{name} alpha {alpha}: keys {sorted(dev)} / {sorted(host)}")
+        if any(dev[k].shape != size or host[k].shape != size or not np.isfinite(dev[k]).all()
+               for k in dev):
+            raise AssertionError(f"{name} alpha {alpha}: shapes or values")
+        log(f"  {name} ({size[0]}x{size[1]}) alpha {alpha}: device against host route, "
+            f"argmax agreement {agreement(dev, host):.4f} on the card, "
+            f"{agreement(ref, host):.4f} on the CPU")
+    toy_img, toy_cams = crf_toy_inputs()
+    host = infer_cam.crf_with_alpha(toy_cams, 4.0, toy_img)
+    dev = infer_cam.crf_with_alpha_device(toy_cams, 4.0, toy_img, device, pad=CRF_TOY_PAD)
+    agree = agreement(dev, host)
+    log(f"  JAX's wiring case ({toy_img.shape[0]}x{toy_img.shape[1]}, pad {CRF_TOY_PAD}): device "
+        f"route on the card against the host route, argmax agreement {agree:.4f} "
+        f"(> {CRF_ROUTE_AGREE})")
+    if not sorted(dev) == sorted(host) == [0, 5, 12] or agree <= CRF_ROUTE_AGREE:
+        raise AssertionError("the device and host CRF routes disagree")
+    n_heat = len(os.listdir(heat))
+    if n_heat != int(sum(lab.sum() for lab in labels)):
+        raise AssertionError(f"{n_heat} heatmaps for {sum(lab.sum() for lab in labels)} CAMs")
+    log(f"  keys and shapes equal on both routes, K1f launches as in phase 4; "
+        f"{n_heat} heatmap JPEGs")
+
+    pseudo = os.path.join(root, "pseudo")
+    pseudo_label.main(["--cam_dir", out_cam, "--IMpath", tmp, "--list", lst,
+                       "--out_dir", pseudo])
+    for name, size in zip(names, IMAGE_SIZES):
+        mask = np.asarray(Image.open(os.path.join(pseudo, f"{name}.png")))
+        values = set(np.unique(mask).tolist())
+        if mask.shape != size or not values <= set(range(21)) | {255}:
+            raise AssertionError(f"{name}: pseudo mask {mask.shape}, values {sorted(values)}")
+        log(f"  (c) pseudo_label.main: {name}.png {mask.shape}, values {sorted(values)}")
+
+    dev_ms = time_device_crf(img_d, probs_d)
+    native_ms = host_ms(lambda: crf_ops.crf_inference(img, probs, t=CRF_ITERS), reps=2)
+    log(f"  (d) device CRF per call at {CRF_PAD}x{CRF_PAD}, {CRF_LABELS} labels, "
+        f"t={CRF_ITERS} (CUDA events, median of 10 after a warm-up): "
+        f"{dev_ms:.2f} ms; host engine "
+        f"{native_ms:.1f} ms per call (median of 2) [{card}]")
+    stage = {
+        "device": lambda: [infer_cam.crf_with_alpha_device(c, a, r, device, pad=CRF_PAD)
+                           for c, r in zip(cams, rgbs) for a in (1, 12)],
+        "host": lambda: [infer_cam.crf_with_alpha(c, a, r)
+                         for c, r in zip(cams, rgbs) for a in (1, 12)]}
+    per_image = {route: host_ms(run, reps=2) / len(names) for route, run in stage.items()}
+    log(f"  --out_crf stage per image (both alphas, upload, pad, crop and download "
+        f"included; host clock, median of 2 passes over the {len(names)} images): device "
+        f"route {per_image['device']:.1f} ms, host route {per_image['host']:.1f} ms [{card}]")
+
+
 def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
     """Host-clock step time (synchronized) of the fused kernel step: median
     of ``reps`` after a warm-up; then a profiler window of 2 steps."""
@@ -1762,12 +2026,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/10] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/11] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/10] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/11] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         kernel = ""
@@ -1785,35 +2049,35 @@ def main() -> int:
         f"{pamr_ops.affinity_blocks_per_sm(PAMR_DILATIONS)} (at its largest halo), "
         f"pamr_update_kernel<{n_dil}> {pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
-    log("[3/10] kernels against their plain versions on the card")
+    log("[3/11] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/10] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+        log("[4/11] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
             f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
         (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
          pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/10] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/11] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/10] resumable training: preempt and resume, --device_aug, the relaunch "
+        log("[6/11] resumable training: preempt and resume, --device_aug, the relaunch "
             "supervisor, --pretrained, COCO; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_resume(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  resume phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[7/10] one train step, kernel path against plain path, same weights and batch")
+        log("[7/11] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
         model, opt, batch, layer_launches, step_ctx = phase_step_compare(device, cfg)
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[8/10] attention entries: K5a, K5b, K5c against their plain versions and "
+        log("[8/11] attention entries: K5a, K5b, K5c against their plain versions and "
             "through autograd; the per-layer branch with a bf16 export")
         t0 = time.perf_counter()
         entry_errs, entry_launches, bf16_launches = phase_attention_entries(
@@ -1821,13 +2085,19 @@ def main() -> int:
         del step_ctx
         log(f"  attention entries phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[9/10] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+        log(f"[9/11] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
             f"crop 384, the recipe")
         t0 = time.perf_counter()
         phase_pipeline(cfg, os.path.join(tmp, "train"))
         log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[10/10] timing on {card}")
+        log("[10/11] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
+            "on either route, pseudo_label")
+        t0 = time.perf_counter()
+        phase_crf(device, tmp, paths, labels, infer_launches, card)
+        log(f"  CRF phase: {time.perf_counter() - t0:.1f} s")
+
+        log(f"[11/11] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "

@@ -10,8 +10,8 @@ they refuse; ragged token counts, more tokens than the earlier kernels'
 shared-memory limit (the attention kernels and the pair forward), the
 same bits from two launches, K4 on an odd shape, and K3 through its
 gather kernel (a dilation beyond the tile kernel's halo); and the
-on-device augmentation (``data/device_aug.py``, plain torch) against its
-CPU run. Tolerances are those of ``chip_smoke.py``, with the reasons given there.
+on-device augmentation (``data/device_aug.py``) and the on-device dense
+CRF (``ops/crf.py``), plain torch both, against their CPU runs. Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
 import pytest
@@ -510,3 +510,31 @@ def test_device_augment_on_the_card_matches_the_cpu(device, crop, pad):
     got = device_aug.device_augment(images.to(device), vecs.to(device), crop)
     assert got.device.type == "cuda" and got.shape == (4, crop, crop, 3)
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_crf_on_the_card_matches_the_cpu(device, tf32):
+    """Not a kernel: ``crf_inference_torch`` (plain torch) on the card
+    against its CPU run at 64x96, 5 labels, t=10, the bound of
+    ``tests/test_torch_crf.py`` against JAX (5e-5: float32 in another
+    order, atomic sums), argmax agreement >= 0.999 (near-ties of uniform
+    scores); also with the TF32 switches on, which would miss the bound if
+    a product ran in TF32."""
+    import numpy as np
+
+    from acr_wsss_tpu_torch.ops.crf import crf_inference_torch
+
+    rng = np.random.default_rng(64)
+    img = rng.uniform(0, 255, (64, 96, 3)).astype(np.float32)
+    probs = rng.uniform(0.01, 1, (5, 64, 96)).astype(np.float32)
+    probs /= probs.sum(0, keepdims=True)
+    ref = crf_inference_torch(img, probs, t=10, sxy_b=20.0, device="cpu")
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        got = crf_inference_torch(img, probs, t=10, sxy_b=20.0, device=device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=5e-5)
+    assert (got.cpu().argmax(0) == ref.argmax(0)).float().mean() >= 0.999

@@ -8,7 +8,8 @@ training ones (``train``, ``losses``, ``data/voc``, ``ops/attn_pair``,
 ``utils/{schedule,meters}``), ``ops/pamr`` and ``pipeline``, and those of
 resumable training: ``train_coco``, ``data/{coco,lists,device_aug}``,
 ``models/zoo`` and ``utils/{checkpoint,logging,preemption,watchdog,
-supervisor}``.
+supervisor}``; and those from CAMs to pseudo masks: ``ops/{crf,bilateral}``,
+``pseudo_label`` and ``utils/visualization``.
 """
 
 import os
@@ -53,9 +54,10 @@ def test_port_and_chip_smoke_import_without_jax():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count = int(proc.stdout.split()[-2])
-    assert count >= 35, proc.stdout
+    assert count >= 39, proc.stdout
     for name in ("train", "losses", "data.voc", "ops.attn_pair", "utils.schedule",
                  "utils.meters", "ops.pamr", "pipeline", "train_coco", "data.coco",
                  "data.lists", "data.device_aug", "models.zoo", "utils.checkpoint",
-                 "utils.logging", "utils.preemption", "utils.watchdog", "utils.supervisor"):
+                 "utils.logging", "utils.preemption", "utils.watchdog", "utils.supervisor",
+                 "ops.crf", "ops.bilateral", "pseudo_label", "utils.visualization"):
         assert f"acr_wsss_tpu_torch.{name}" in proc.stdout, name

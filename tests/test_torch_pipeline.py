@@ -4,11 +4,12 @@ checking every stage's artifact; the pattern of
 ``tests/test_pipeline_cli.py``. Then ``--dataset coco`` on a synthetic
 COCO layout (bbox txts, a separate ``--valpath``): 80 classes in training
 and inference, 81 in the eval, the infer list written into
-``--weight_dir``.
+``--weight_dir``. The infer stage alone with the CRF and heatmap outputs.
 """
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 import jax.numpy as jnp
@@ -93,12 +94,48 @@ def test_pipeline_all_stages_then_infer_and_eval_again(tiny_voc, tmp_path, capsy
     assert "rerun" in (tmp_path / "evallog.txt").read_text()
 
 
-@pytest.mark.parametrize("flag", [["--crf_device"], ["--infer_scan"], ["--infer_dp", "2"],
-                                  ["--out_crf", "crf"], ["--stages", "train,export"]])
+@pytest.mark.parametrize("flag", [["--infer_scan"], ["--infer_dp", "2"],
+                                  ["--stages", "train,export"]])
 def test_unported_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit):
         pipeline.parse_args(["--IMpath", "img", "--gt_dir", "gt", *flag])
     assert "error" in capsys.readouterr().err
+
+
+def test_crf_and_heatmap_flags_reach_the_infer_config():
+    _, infer_cfg, _ = pipeline.configs(pipeline.parse_args(
+        ["--IMpath", "img", "--gt_dir", "gt", "--out_crf", "out/crf", "--crf_device",
+         "--heatmap", "out/heat"]))
+    assert (infer_cfg.out_crf, infer_cfg.crf_device, infer_cfg.heatmap) == (
+        "out/crf", True, "out/heat")
+    assert (infer_cfg.low_alpha, infer_cfg.high_alpha, infer_cfg.crf_pad) == (1, 12, 512)
+    _, infer_cfg, _ = pipeline.configs(pipeline.parse_args(["--IMpath", "img", "--gt_dir", "gt"]))
+    assert (infer_cfg.out_crf, infer_cfg.crf_device, infer_cfg.heatmap) == (None, False, None)
+
+
+def test_infer_stage_writes_the_crf_folders_and_heatmaps(tiny_voc, tmp_path, capsys):
+    """``--stages infer --out_crf --crf_device --heatmap`` on the saved npz
+    of a seeded vitb: both alpha folders, one CRF dict per name over the
+    background and the present class, every image on the device route."""
+    from acr_wsss_tpu_torch.models.acr import ACR, init_random_
+    from acr_wsss_tpu_torch.models.convert import state_dict_to_flax
+    from acr_wsss_tpu_torch.utils.checkpoint import save_params_npz
+
+    root, names = tiny_voc
+    (tmp_path / "weight").mkdir()
+    model = init_random_(ACR(backbone_name="vitb", dtype=torch.float32), seed=1)
+    save_params_npz(str(tmp_path / "weight" / "pipe_torch_last.npz"), state_dict_to_flax(model))
+    pipeline.main(_argv(root, tmp_path, "--stages", "infer", "--out_crf",
+                        str(tmp_path / "crf"), "--crf_device", "--heatmap",
+                        str(tmp_path / "heat")))
+    assert "crf: 4 on cpu, 0 on host (larger than pad 512)" in capsys.readouterr().out
+    cams = _read_cams(tmp_path, names)
+    for alpha in (1, 12):
+        for name, cam in zip(names, cams):
+            crf = np.load(tmp_path / f"crf_{alpha}" / f"{name}.npy", allow_pickle=True).item()
+            assert sorted(crf) == [0] + [c + 1 for c in sorted(cam)]
+            assert all(m.shape == (48, 56) and np.isfinite(m).all() for m in crf.values())
+    assert len(list((tmp_path / "heat").glob("*_getam.jpg"))) == len(names)
 
 
 def test_defaults_are_the_recipe_on_cuda():

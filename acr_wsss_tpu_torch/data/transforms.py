@@ -2,8 +2,9 @@
 numpy and PIL.
 
 Own copy of ``acr_wsss_tpu/data/transforms.py`` (``load_image_rgb``,
-``val_transform`` and the training chain ``:75-199``: random resize of the
-long side, horizontal flip, normalize, random crop; all randomness from an
+``val_transform``, the training chain ``:75-199``: random resize of the
+long side, horizontal flip, normalize, random crop; and the segmentation
+stage's ``random_scale_crop``, ``:222-244``; all randomness from an
 explicit ``numpy.random.Generator``, drawn in the same order). The resize
 has OpenCV's ``INTER_LINEAR`` semantics (half-pixel centres, two taps, no
 antialiasing), which the JAX package gets from ``cv2.resize``; here it is
@@ -138,3 +139,29 @@ def train_transform(img: np.ndarray, crop_size: int,
         img = img[:, ::-1]
     img = normalize(img)
     return apply_crop(img, p, crop_size)
+
+
+def random_scale_crop(img: np.ndarray, mask: np.ndarray, crop_size: int,
+                      rng: np.random.Generator,
+                      scale_range: Tuple[float, float] = (0.5, 2.0),
+                      ignore_value: int = 255) -> Tuple[np.ndarray, np.ndarray]:
+    """Joint random scale and crop of an HWC image and its label map
+    (reference ``RandomScaleCrop``, ``tool/imutils.py:306-338``): a uniform
+    scale, the image resized bilinearly and the mask by PIL NEAREST, both
+    padded at the bottom and right (image 0, mask ``ignore_value``) to at
+    least ``crop_size``, then cropped at the same random offset (top drawn
+    first)."""
+    scale = rng.uniform(*scale_range)
+    h, w = img.shape[:2]
+    nh, nw = int(h * scale), int(w * scale)
+    img = resize_hwc(img, (nh, nw))
+    mask = np.asarray(Image.fromarray(mask.astype(np.uint8)).resize((nw, nh), Image.NEAREST))
+    pad_h, pad_w = max(crop_size - nh, 0), max(crop_size - nw, 0)
+    if pad_h or pad_w:
+        img = np.pad(img, ((0, pad_h), (0, pad_w), (0, 0)))
+        mask = np.pad(mask, ((0, pad_h), (0, pad_w)), constant_values=ignore_value)
+        nh, nw = img.shape[:2]
+    top = int(rng.integers(0, nh - crop_size + 1))
+    left = int(rng.integers(0, nw - crop_size + 1))
+    return (img[top:top + crop_size, left:left + crop_size],
+            mask[top:top + crop_size, left:left + crop_size])

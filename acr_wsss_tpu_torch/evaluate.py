@@ -9,6 +9,10 @@ threshold is scored from its per-pixel (best class, best score).
 
     python -m acr_wsss_tpu_torch.evaluate --list L.txt --predict_dir P \
         --gt_dir G --comment x --type npy --curve True
+
+``seg_validation`` (``:229-270``) scores a segmentation model instead:
+its logits at crop size resized back to each image, optionally refined by
+the host CRF, through ``utils/metrics.py::Evaluator``.
 """
 
 from __future__ import annotations
@@ -131,6 +135,37 @@ def read_name_list(path: str) -> List[str]:
     """The non-empty, stripped lines of a name list."""
     with open(path) as f:
         return [line.strip() for line in f if line.strip()]
+
+
+def seg_validation(predict_fn, names: Sequence[str], image_dir: str, gt_dir: str,
+                   crop_size: int = 384, use_crf: bool = False,
+                   num_classes: int = 21) -> float:
+    """mIoU of a segmentation model (reference ``myTool.py:1826-1895``):
+    per image, the validation transform to crop^2, ``predict_fn`` ((1,
+    crop, crop, 3) float32 -> (C, crop, crop) logits, as numpy), a
+    bilinear resize of the logits back to the image's size, with
+    ``use_crf`` the host CRF (``crf_inference_inf``) over their softmax,
+    then the argmax into the confusion matrix (255 ignored)."""
+    # Here, not at the top: the CAM evaluation's worker processes import
+    # this module and need none of these (the CRF brings in torch).
+    from acr_wsss_tpu_torch.data import transforms
+    from acr_wsss_tpu_torch.ops import crf as crf_ops
+    from acr_wsss_tpu_torch.ops.imops import resize_bilinear_np
+    from acr_wsss_tpu_torch.utils.metrics import Evaluator
+
+    evaluator = Evaluator(num_classes)
+    for name in names:
+        rgb = transforms.load_image_rgb(os.path.join(image_dir, f"{name}.jpg"))
+        target = np.asarray(Image.open(os.path.join(gt_dir, f"{name}.png")), dtype=np.int32)
+        h, w = rgb.shape[:2]
+        logits = np.asarray(predict_fn(transforms.val_transform(rgb, crop_size)[None]))
+        logits = resize_bilinear_np(logits, (h, w))
+        if use_crf:
+            probs = np.exp(logits - logits.max(0, keepdims=True))
+            probs /= probs.sum(0, keepdims=True)
+            logits = crf_ops.crf_inference_inf(rgb, probs, labels=num_classes)
+        evaluator.add_batch(target, np.argmax(logits, axis=0).astype(np.int64))
+    return evaluator.Mean_Intersection_over_Union()
 
 
 def main(argv=None) -> None:

@@ -13,7 +13,12 @@ self-inverse permutation of :func:`hflip_token_permutation`. The fused path
 takes per-pair sums of |p1 - p2| computed in the attention kernel
 (``ops/attn_pair.py``) and normalizes them to the same losses.
 
-The seg, Swin and prototype losses of the JAX module are not ported yet.
+The segmentation stage's losses (``:246-283``, ``:345-438``):
+``softmax_cross_entropy_ignore`` and ``focal_loss_ignore`` (mean over the
+pixels not labelled 255), ``compute_joint_ce`` (the bg/fg split of a
+pseudo mask) and ``prototype_contrast_loss`` (class centroids, masked
+over the classes present, no Python branch on the data). The Swin loss
+is not ported.
 """
 
 from __future__ import annotations
@@ -155,3 +160,101 @@ def acr_total_loss(logits1, logits2, attn1, attn2, labels, perm, alpha):
     return _total(multilabel_soft_margin_loss(logits1, labels),
                   multilabel_soft_margin_loss(logits2, labels),
                   cls_align, aff_align, alpha)
+
+
+def _picked_log_probs(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log softmax over the class axis of (B, C, H, W) logits at each
+    pixel's label, in float32; the mask of pixels not ``ignore_index``)."""
+    labels = torch.as_tensor(labels, device=logits.device)
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    log_probs = F.log_softmax(logits.float(), dim=1)
+    return torch.gather(log_probs, 1, safe[:, None])[:, 0], valid
+
+
+def softmax_cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                                 ignore_index: int = 255) -> torch.Tensor:
+    """Mean cross-entropy over the pixels not labelled ``ignore_index``
+    (reference ``tool/loss.py:14-26``); 0 when every pixel is."""
+    picked, valid = _picked_log_probs(logits, labels, ignore_index)
+    loss = -torch.where(valid, picked, 0.0)
+    return loss.sum() / valid.sum().clamp_min(1)
+
+
+def focal_loss_ignore(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
+                      alpha: float = 0.5, ignore_index: int = 255) -> torch.Tensor:
+    """-alpha (1 - p_t)^gamma log p_t, mean over the pixels not ignored
+    (reference ``tool/loss.py:28-51``)."""
+    logpt, valid = _picked_log_probs(logits, labels, ignore_index)
+    loss = -alpha * (1.0 - torch.exp(logpt)) ** gamma * logpt
+    return torch.where(valid, loss, 0.0).sum() / valid.sum().clamp_min(1)
+
+
+def compute_joint_ce(pred_logits: torch.Tensor, seg_label: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy of the background-only view of a pseudo mask (every
+    foreground pixel ignored) plus that of its foreground-only view
+    (reference ``compute_joint_loss``, ``myTool.py:838-855``); 255 stays
+    ignored in both."""
+    seg_label = torch.as_tensor(seg_label, device=pred_logits.device)
+    bg_label = torch.where(seg_label != 0, 255, seg_label)
+    fg_label = torch.where(seg_label == 0, 255, seg_label)
+    return (softmax_cross_entropy_ignore(pred_logits, bg_label)
+            + softmax_cross_entropy_ignore(pred_logits, fg_label))
+
+
+def _masked_cos(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Cosine similarity matrix between row sets a (N, D) and b (M, D)."""
+    na = a.norm(dim=1, keepdim=True)
+    nb = b.norm(dim=1, keepdim=True)
+    return (a @ b.T) / (na @ nb.T + eps)
+
+
+def prototype_contrast_loss(seg_logits: torch.Tensor, features: torch.Tensor,
+                            num_classes: int = 21) -> torch.Tensor:
+    """Prototype contrast regularizer (reference ``compute_dis_no_batch``,
+    ``myTool.py:1624-1710``): the mean (1 - cos) distance of background
+    pixels to their sample's background centroid and of each present
+    foreground class's pixels to its batch-wide centroid, plus half the
+    mean (1 + cos) between distinct foreground centroids and half that
+    between foreground and background centroids. A class is present when
+    it wins at least one pixel of ``seg_logits`` (B, C, N); ``features``
+    is (B, D, N). The centroid of an absent class is a zero vector that
+    every term masks out; its norm's gradient is taken as 0 there (JAX's
+    is NaN)."""
+    B = seg_logits.shape[0]
+    D = features.shape[1]
+    labels = seg_logits.argmax(dim=1)                           # (B, N)
+    feats = features.transpose(1, 2)                            # (B, N, D)
+    dtype = features.dtype
+
+    bg_mask = (labels == 0).to(dtype)
+    bg_num = bg_mask.sum(dim=1) + 1e-7
+    bg_center = torch.einsum("bn,bnd->bd", bg_mask, feats) / bg_num[:, None]
+    bg_cos = torch.einsum("bnd,bd->bn", feats, bg_center) / (
+        feats.norm(dim=-1) * bg_center.norm(dim=-1)[:, None] + 1e-7)
+    bg_pixel_dis = ((1.0 - bg_cos) * bg_mask).sum(dim=1) / bg_num
+    bg_present = (bg_mask.sum(dim=1) >= 1).to(dtype)
+    pixel_dis = torch.where(bg_present > 0, bg_pixel_dis, 2.0).sum()
+
+    flat_feats = feats.reshape(-1, D)
+    cls_ids = torch.arange(1, num_classes, device=labels.device)
+    cls_mask = (labels.reshape(1, -1) == cls_ids[:, None]).to(dtype)   # (C - 1, B*N)
+    cls_num = cls_mask.sum(dim=1)
+    present = (cls_num >= 1).to(dtype)
+    centers = (cls_mask @ flat_feats) / (cls_num[:, None] + 1e-7)
+    fg_pix_dis = ((1.0 - _masked_cos(flat_feats, centers)).T * cls_mask).sum(dim=1) / (
+        cls_num + 1e-7)
+    pixel_dis = pixel_dis + (fg_pix_dis * present).sum()
+    pixel_dis = pixel_dis / (present.sum() + B).clamp_min(1.0)
+
+    off_eye = 1.0 - torch.eye(num_classes - 1, dtype=dtype, device=labels.device)
+    pm = present[:, None] * present[None, :]
+    n_pairs = (pm * off_eye).sum()
+    fg_fg = (1.0 + _masked_cos(centers, centers)) * pm
+    fg_fg_loss = torch.where(n_pairs > 0, (fg_fg * off_eye).sum() / n_pairs.clamp_min(1.0),
+                             0.0)
+    fg_bg = (1.0 + _masked_cos(centers, bg_center)) * present[:, None] * bg_present[None, :]
+    n_fb = present.sum() * bg_present.sum()
+    fg_bg_loss = torch.where(n_fb > 0, fg_bg.sum() / n_fb.clamp_min(1.0), 0.0)
+    return pixel_dis + 0.5 * fg_fg_loss + 0.5 * fg_bg_loss

@@ -11,9 +11,16 @@ path maps one to one:
   trunk becomes ``blocks.<i>``;
 * a Dense ``kernel`` (in, out) becomes ``weight`` (out, in);
 * a conv ``kernel`` HWIO becomes ``weight`` OIHW;
-* LayerNorm ``scale``/``bias`` become ``weight``/``bias``; GroupNorm's
-  sit one level down in flax (``norm1/GroupNorm_0/scale``) and become
-  ``norm1.weight``/``norm1.bias``.
+* a ConvTranspose ``kernel`` (kh, kw, in, out), which flax applies
+  unflipped, becomes ``weight`` (in, out, kh, kw) flipped in both spatial
+  axes, which ``conv_transpose2d`` applies flipped; the DPT's ``up4`` and
+  ``up2`` are the transposed convs, told by their flax names, since their
+  kernels are square with in == out and a shape check cannot tell;
+* LayerNorm and GroupNorm ``scale``/``bias`` become ``weight``/``bias``;
+  the stem's GroupNorms sit one level down in flax
+  (``norm1/GroupNorm_0/scale``) and become ``norm1.weight``/``norm1.bias``;
+* the layers of a flax ``nn.Sequential`` (``seg_head/layers_0/``) are the
+  torch ``nn.Sequential``'s indices (``seg_head.0.``).
 
 ``scanned_to_unrolled`` / ``unrolled_to_scanned`` are the numpy side of
 the JAX functions of the same names (``models/convert.py:1004-1045``): a
@@ -33,6 +40,8 @@ import torch.nn as nn
 from acr_wsss_tpu_torch.models.layers import GroupNormAct, WSConv
 
 _TRUNK_BLOCK = re.compile(r"^trunk/blocks_(\d+)/")
+_SEQUENTIAL = re.compile(r"/layers_(\d+)/")
+_TRANSPOSED = re.compile(r"(^|/)up\d+/kernel$")
 _UNROLLED = re.compile(r"^(.*?)trunk/blocks_(\d+)/(.*)$")
 SCANNED = "trunk/blocks_scan/block/"
 
@@ -71,6 +80,7 @@ def _torch_key(path: str) -> str:
         path = path[len("params/"):]
     path = _TRUNK_BLOCK.sub(r"trunk/blocks/\1/", path)
     path = path.replace("/GroupNorm_0/", "/")
+    path = _SEQUENTIAL.sub(r"/\1/", path)
     key = path.replace("/", ".")
     if key.endswith(".kernel"):
         return key[: -len("kernel")] + "weight"
@@ -83,6 +93,8 @@ def _torch_value(path: str, value: np.ndarray) -> np.ndarray:
     if path.endswith("/kernel"):
         if value.ndim == 2:                       # Dense (in, out)
             return value.T
+        if value.ndim == 4 and _TRANSPOSED.search(path):
+            return value[::-1, ::-1].transpose(2, 3, 0, 1)
         if value.ndim == 4:                       # conv HWIO
             return value.transpose(3, 2, 0, 1)
         raise ValueError(f"{path}: kernel of rank {value.ndim}")
@@ -118,7 +130,8 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, np.ndarray]:
     """The flat ``{flax_path: np.ndarray}`` dict of ``module``'s parameters,
     "params/"-prefixed as the JAX trainer saves them: the inverse of
     :func:`flax_to_state_dict`. Module types decide the leaf names
-    (GroupNorm one level down, ``kernel`` for Dense and conv weights)."""
+    (the stem's GroupNorm one level down, ``kernel`` for Dense and conv
+    weights, a transposed conv's flipped back)."""
     kinds = {name: type(m) for name, m in module.named_modules()}
     flat: Dict[str, np.ndarray] = {}
     for key, tensor in module.state_dict().items():
@@ -127,13 +140,16 @@ def state_dict_to_flax(module: nn.Module) -> Dict[str, np.ndarray]:
         kind = kinds.get(owner)
         if leaf == "weight" and kind in (nn.Linear,):
             leaf, value = "kernel", value.T
+        elif leaf == "weight" and kind is nn.ConvTranspose2d:
+            leaf, value = "kernel", value.transpose(2, 3, 0, 1)[::-1, ::-1]
         elif leaf == "weight" and kind is not None and issubclass(kind, (nn.Conv2d, WSConv)):
             leaf, value = "kernel", value.transpose(2, 3, 1, 0)
-        elif leaf == "weight" and kind is nn.LayerNorm:
+        elif leaf == "weight" and kind in (nn.LayerNorm, nn.GroupNorm):
             leaf = "scale"
         elif kind is GroupNormAct:
             owner, leaf = owner + ".GroupNorm_0", "scale" if leaf == "weight" else leaf
         path = (owner + "." + leaf if owner else leaf).replace(".", "/")
         path = re.sub(r"^trunk/blocks/(\d+)/", r"trunk/blocks_\1/", path)
+        path = re.sub(r"/(\d+)/", r"/layers_\1/", path)
         flat["params/" + path] = np.ascontiguousarray(value)
     return flat

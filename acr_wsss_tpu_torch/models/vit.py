@@ -176,13 +176,15 @@ class VisionTransformer(nn.Module):
         """x: (B, H, W, 3) NHWC image. ``probs_offsets``: (L', B, heads, N, N)
         taps for the last L' blocks. Returns taps, probs (B, L, N, N) or
         (B, L, heads, N, N) and per layer (``probs_layers``), or the per-layer
-        ``consistency_sums`` for export "pair_l1", the final-norm tokens and
-        ``n_tokens``."""
+        ``consistency_sums`` for export "pair_l1", the final-norm tokens,
+        ``n_tokens`` and the hybrid stem's NCHW stage maps
+        (``stem_features``: "stage0".."stage2", None without a stem)."""
         B, H, W, _ = x.shape
         gh, gw = H // self.patch_size, W // self.patch_size
         x = x.permute(0, 3, 1, 2).to(self.dtype)
+        stem_features = None
         if self.backbone is not None:
-            x, _ = self.backbone(x)
+            x, stem_features = self.backbone(x)
         x = self.patch_embed(x)
         prefix = [self.cls_token.expand(B, -1, -1)]
         if self.num_prefix_tokens == 2:
@@ -209,7 +211,7 @@ class VisionTransformer(nn.Module):
             if i in self.taps:
                 taps[i] = x
         out = {"taps": taps, "tokens": self.norm(x.float()), "grid": (gh, gw),
-               "n_tokens": x.shape[1]}
+               "n_tokens": x.shape[1], "stem_features": stem_features}
         if export == "pair_l1":
             out["consistency_sums"] = tuple(probs_list)
         else:

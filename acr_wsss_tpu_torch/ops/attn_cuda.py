@@ -30,7 +30,9 @@ Each entry takes its plain version (``*_plain``) for a CPU tensor; for a
 CUDA tensor it launches its kernel or raises, and counts the launch:
 ``launches`` (forward), ``launches_noexport`` (of which export "none") and
 ``backward_launches`` on the entry, K1's backward on
-``attention_qkv_cols_backward.launches``.
+``attention_qkv_cols_backward.launches``; a backward with no de also on
+the same counter's ``_no_de`` twin (``backward_launches_no_de``,
+``launches_no_de``).
 """
 
 from __future__ import annotations
@@ -305,6 +307,8 @@ def backward(layout: str, inputs: Sequence[torch.Tensor], g: torch.Tensor,
         None if de is None else de.data_ptr(), 0 if de is None else DTYPE_CODES[de.dtype],
         stats.data_ptr(), B, N, H, D, float(scale), stream))
     setattr(entry, counter, getattr(entry, counter) + 1)
+    if de is None:
+        setattr(entry, counter + "_no_de", getattr(entry, counter + "_no_de") + 1)
     return grads
 
 
@@ -408,7 +412,7 @@ def attention_qkv_cols_backward(qkv: torch.Tensor, g: torch.Tensor,
                     attention_qkv_cols_backward, "launches")[0]
 
 
-attention_qkv_cols_backward.launches = 0
+attention_qkv_cols_backward.launches = attention_qkv_cols_backward.launches_no_de = 0
 
 
 def fused_attention_qkv_cols(qkv: torch.Tensor, scale: float, num_heads: int,
@@ -461,6 +465,7 @@ def fused_attention_qkv(qkv: torch.Tensor, scale: float, num_heads: int,
 for _entry in (fused_attention_qkv_cols, fused_attention_with_probs, fused_attention_nhd,
                fused_attention_qkv):
     _entry.launches = _entry.launches_noexport = _entry.backward_launches = 0
+    _entry.backward_launches_no_de = 0
 del _entry
 
 # name: (layout, forward's counter, backward's counter and its attribute)

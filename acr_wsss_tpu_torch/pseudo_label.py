@@ -23,11 +23,14 @@ locations are arguments). Host numpy and the native CRF engine
     python -m acr_wsss_tpu_torch.pseudo_label --cam_dir out/cam_npy \
         --IMpath JPEGs --list L.txt --out_dir out/pseudo [--recipe rrm]
 
-``compute_joint_loss`` (bg/fg split cross-entropy, ``myTool.py:825-857``)
-needs the segmentation losses and comes with the port of ``train_seg``; so
-do the recipes no ``--recipe`` reaches (``compute_seg_label_coco``,
+JAX's ``compute_joint_loss`` (the bg/fg split cross-entropy,
+``myTool.py:838-857``) is one call of ``losses.compute_joint_ce``; the port's
+callers use that directly.
+
+The recipes no ``--recipe`` reaches (``compute_seg_label_coco``,
 ``_crf_sure``, ``_2``, ``_old``, ``_no_saliency``, ``_4``, ``_5`` and
-``_two_step_coco``), with the caller that needs them.
+``_two_step_coco``) are not ported; they come with a caller that needs
+them.
 """
 
 from __future__ import annotations

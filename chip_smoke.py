@@ -86,7 +86,20 @@ package. Phases, each of which fails the run when it fails:
    for, K1f's launches as in phase 4; (c) ``pseudo_label.main`` on the
    CAM dicts; (d) the device CRF's, the host engine's and the --out_crf
    stage's times;
-11. timing: per-image latency with and without PAMR, the PAMR step's device
+11. segmentation: (a) ``train_seg`` as a user runs it, at JAX's defaults
+   (float32, plain attention; vitb_hybrid, crop 384, batch 8, 2 epochs
+   over 16 names: 5 steps) on phase 10's pseudo masks and seeded masks of
+   phase 5's images, then ``seg_validation`` on 4 images with seeded
+   ground truth: no kernel launched, every loss part finite, the
+   ``_last.npz`` read back into a fresh model with the same logits to the
+   bit, mIoU in [0, 1]; (b) one step of the bf16 DPT model on the kernel
+   path, whose trunk runs K1n and K1b with no de in each block under
+   autograd, against the plain path from the same weights and batch,
+   within phase 7's step gates and, tighter, in the attention blocks'
+   tensors, launches counted; (c) the seg step's time
+   and images/s and its device time per step (CUDA events), for (a)'s
+   model and both bf16 paths;
+12. timing: per-image latency with and without PAMR, the PAMR step's device
    time, train step time and images/s, the training loop's step time fed
    by the host path and by ``--device_aug``, device time breakdowns, each
    kernel's device time (CUDA events around launches enqueued while the
@@ -129,6 +142,7 @@ from acr_wsss_tpu_torch import pipeline  # noqa: E402
 from acr_wsss_tpu_torch import pseudo_label  # noqa: E402
 from acr_wsss_tpu_torch import train as train_mod  # noqa: E402
 from acr_wsss_tpu_torch import train_coco  # noqa: E402
+from acr_wsss_tpu_torch import train_seg  # noqa: E402
 from acr_wsss_tpu_torch.configs import InferConfig, ModelConfig, TrainConfig  # noqa: E402
 from acr_wsss_tpu_torch.data import coco as coco_data  # noqa: E402
 from acr_wsss_tpu_torch.data import device_aug  # noqa: E402
@@ -138,6 +152,7 @@ from acr_wsss_tpu_torch.models.acr import ACR, init_random_  # noqa: E402
 from acr_wsss_tpu_torch.models import vit as vit_mod  # noqa: E402
 from acr_wsss_tpu_torch.models import zoo  # noqa: E402
 from acr_wsss_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax  # noqa: E402
+from acr_wsss_tpu_torch.models.dpt import DPTSegmentationModel  # noqa: E402
 from acr_wsss_tpu_torch.ops import _build, attn_pair  # noqa: E402
 from acr_wsss_tpu_torch.ops import crf as crf_ops  # noqa: E402
 from acr_wsss_tpu_torch.ops import pamr as pamr_ops  # noqa: E402
@@ -163,7 +178,7 @@ from acr_wsss_tpu_torch.ops.pamr import (affinity_route, make_pamr_fn,  # noqa: 
                                          pamr_update, pamr_update_plain)
 from acr_wsss_tpu_torch.utils.checkpoint import (CheckpointManager,  # noqa: E402
                                                  load_params_npz, save_params_npz)
-from acr_wsss_tpu_torch.utils.schedule import poly_factor  # noqa: E402
+from acr_wsss_tpu_torch.utils.schedule import make_optimizer, poly_factor  # noqa: E402
 from acr_wsss_tpu_torch.utils.supervisor import run_train_supervised  # noqa: E402
 
 WEIGHTS = os.path.join(ROOT, "bench_artifacts", "stability_r3", "stability_r3_last.npz")
@@ -278,7 +293,23 @@ SUPERVISED_IMAGES, HANG_BEAT, STEP_TIMEOUT_S = 8, 2, 6.0
 # the CAM pass on 2; images up to 640 px, COCO's largest side.
 COCO_SIZES = ((480, 640), (640, 427), (427, 640), (640, 480))
 COCO_TRAIN, COCO_VAL, COCO_CAM = 8, 4, 2
-# Phase 10's training loop, per arm (host path, --device_aug, twice each):
+# Segmentation phase (a): train_seg at its defaults but for the corpus and
+# the lr: vitb_hybrid, crop 384, batch 8, 2 epochs over 16 names (4
+# updates, 5 steps), validation on 4 images with ground truth. lr 1e-4
+# (tests/test_train_seg.py's step test): from the seeded init, the CLI's
+# 0.01, the recipe for an ImageNet-initialized trunk that train_seg cannot
+# load, takes the loss 9.9, 95.6, 4.3e5, NaN, and 1e-3 still 9.9 to 122 in
+# 5 steps; at 1e-4 it falls (CPU, crop 64; JAX's steps behave alike,
+# tests/test_torch_train_seg.py).
+SEG_BATCH, SEG_TRAIN, SEG_EPOCHS, SEG_VAL, SEG_LR = 8, 16, 2, 4, 1e-4
+# Phase 11 (b) holds the attention blocks' tensors (qkv and proj, weights
+# and biases), the ones the kernels' gradients reach first, to a tighter
+# update bound than UPDATE_REL: the qkv weights read at most 0.0046 there
+# (H100, 700 W), while the whole-model gate is set by the stem's GroupNorm
+# scales (0.047), which bf16 rounding through weight standardization moves
+# on either attention path.
+SEG_ATTN_UPDATE_REL = 1.5e-2
+# The timing phase's training loop, per arm (host path, --device_aug, twice each):
 # steps timed, and the first ones left out (the loader's first batches,
 # which nothing overlaps).
 LOOP_STEPS, LOOP_WARMUP = 20, 3
@@ -309,7 +340,8 @@ def check_close(name, got, ref, rtol, atol) -> float:
 
 def check_k1(device, errs) -> None:
     gen = torch.Generator(device=device).manual_seed(0)
-    for B, N in ((2, N_TOKENS), (4, N_TOKENS), (3, 37), (3, 17), (2, 1025)):
+    for B, N in ((2, N_TOKENS), (4, N_TOKENS), (SEG_BATCH, N_TOKENS), (3, 37), (3, 17),
+                 (2, 1025)):
         qkv = torch.randn((B, N, 3 * HEADS * HEAD_DIM), generator=gen, device=device,
                           dtype=torch.float32).to(torch.bfloat16)
         for export in ("mean", "none"):
@@ -524,7 +556,7 @@ def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     fused_attention_qkv_cols.launches = 0
     fused_attention_qkv_cols.launches_noexport = 0
-    attention_qkv_cols_backward.launches = 0
+    attention_qkv_cols_backward.launches = attention_qkv_cols_backward.launches_no_de = 0
     pair_consistency_forward.launches = 0
     pair_consistency_backward.launches = 0
     pamr_affinity.launches = 0
@@ -1559,11 +1591,12 @@ def host_ms(fn, reps=3) -> float:
     return float(np.median(times))
 
 
-def phase_crf(device, tmp, paths, labels, infer_launches, card) -> None:
+def phase_crf(device, tmp, paths, labels, infer_launches, card) -> str:
     """(a) the device CRF alone at the bench's shape against its CPU run
     and the host engine; (b) ``infer_cam`` with
     ``--out_crf --crf_device --heatmap`` on phase 4's images, then with the
-    host route; (c) ``pseudo_label.main`` on the CAM dicts; (d) times."""
+    host route; (c) ``pseudo_label.main`` on the CAM dicts; (d) times.
+    Returns the directory of (c)'s pseudo masks."""
     img, probs = crf_inputs()
     t0 = time.perf_counter()
     cpu = crf_ops.crf_inference_torch(img, probs, device="cpu").numpy()
@@ -1694,6 +1727,188 @@ def phase_crf(device, tmp, paths, labels, infer_launches, card) -> None:
     log(f"  --out_crf stage per image (both alphas, upload, pad, crop and download "
         f"included; host clock, median of 2 passes over the {len(names)} images): device "
         f"route {per_image['device']:.1f} ms, host route {per_image['host']:.1f} ms [{card}]")
+    return pseudo
+
+
+def make_seg_fixture(root: str, cfg: TrainConfig, tmp: str, pseudo_dir: str):
+    """The segmentation stage's corpus: phase 4's two images with phase
+    10's pseudo masks and the first SEG_TRAIN - 2 training images of phase
+    5's fixture with seeded masks (0, the image's classes + 1, 255 on a few
+    cells), in one directory; phase 5's validation images with seeded
+    ground truth. Returns (image dir, mask dir, train list, val list, gt
+    dir, the training names with seeded masks)."""
+    rng = np.random.default_rng(11)
+    img_dir, mask_dir, gt_dir = (os.path.join(root, d) for d in ("img", "pseudo", "gt"))
+    for d in (img_dir, mask_dir, gt_dir):
+        os.makedirs(d)
+    smoke = sorted(os.path.splitext(n)[0] for n in os.listdir(pseudo_dir)
+                   if re.fullmatch(r"smoke_\d+\.png", n))
+    for name in smoke:
+        shutil.copy(os.path.join(tmp, f"{name}.jpg"), img_dir)
+        shutil.copy(os.path.join(pseudo_dir, f"{name}.png"), mask_dir)
+    labels = voc_data.load_cls_labels(cfg.cls_labels_path)
+    train_names = voc_data.read_file(cfg.train_list)[:SEG_TRAIN - len(smoke)]
+    val_names = voc_data.read_file(cfg.val_list)[:SEG_VAL]
+    for name, out_dir, ignore in ([(n, mask_dir, 0.05) for n in train_names]
+                                  + [(n, gt_dir, 0.0) for n in val_names]):
+        src = os.path.join(cfg.image_dir, f"{name}.jpg")
+        shutil.copy(src, img_dir)
+        w, h = Image.open(src).size
+        values = np.concatenate([[0], np.flatnonzero(labels[name]) + 1])
+        coarse = rng.choice(values, size=(h // 25, w // 25))
+        coarse[rng.uniform(size=coarse.shape) < ignore] = 255
+        Image.fromarray(coarse.astype(np.uint8)).resize((w, h), Image.NEAREST).save(
+            os.path.join(out_dir, f"{name}.png"))
+    lists = []
+    for kind, names in (("train", smoke + train_names), ("val", val_names)):
+        lists.append(os.path.join(root, f"{kind}.txt"))
+        with open(lists[-1], "w") as f:
+            f.write("\n".join(names) + "\n")
+    return img_dir, mask_dir, lists[0], lists[1], gt_dir, train_names
+
+
+def seg_step_on(model, batch, max_step):
+    """(model, optimizer, step-0 parts, parameters before, after) of one
+    ``train_seg`` step with a fresh optimizer (phase (a)'s lr)."""
+    opt = make_optimizer(model.parameters(), SEG_LR, max_step)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    parts = {k: float(v) for k, v in train_seg.make_seg_train_step(model, opt)(batch).items()}
+    after = {k: v.detach().clone() for k, v in model.named_parameters()}
+    return model, opt, parts, before, after
+
+
+def time_seg_step(label, model, batch, max_step, card, reps=5) -> dict:
+    """One seg step on ``batch``: host-clock median of ``reps``
+    synchronized steps after a warm-up (the batch uploaded in each), and
+    the device time per step (CUDA events around steps on a batch already
+    on the card, enqueued while the device is held busy)."""
+    step = train_seg.make_seg_train_step(model, make_optimizer(model.parameters(), SEG_LR,
+                                                               max_step))
+    device = next(model.parameters()).device
+    step(batch)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(times))
+    on_card = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    device_ms = time_call(lambda: step(on_card), reps)
+    n = batch["image"].shape[0]
+    log(f"  seg step, {label}, batch {n}, crop {batch['image'].shape[1]}: median of {reps} "
+        f"after a warm-up {step_ms:.2f} ms (all: {', '.join(f'{t:.2f}' for t in times)}), "
+        f"{n / step_ms * 1e3:.2f} images/s; device time per step (CUDA events) "
+        f"{device_ms:.2f} ms [{card}]")
+    return {"step_ms": step_ms, "device_ms": device_ms}
+
+
+def phase_seg(device, cfg: TrainConfig, tmp: str, pseudo_dir: str, card) -> dict:
+    """(a) ``train_seg`` as a user runs it (JAX's defaults: float32, plain
+    attention; vitb_hybrid, crop 384, batch 8, SEG_EPOCHS epochs over
+    SEG_TRAIN names, validation on SEG_VAL images with ground truth): no
+    kernel launched, finite losses, the ``_last.npz`` read back into a
+    fresh model with the same logits to the bit, mIoU in [0, 1]; (b) one
+    step of the bf16 model on the kernel path (K1n and K1b with no de in
+    each block) against the plain path, same weights and batch, within the
+    step gates of phase 7, launches counted; (c) step times: (a)'s model,
+    then the bf16 paths in turns (plain, kernel, kernel, plain). Returns
+    the kernel step's launches, its no-de K1b launches and the times."""
+    root = os.path.join(tmp, "seg")
+    img_dir, mask_dir, train_list, val_list, gt_dir, seeded = make_seg_fixture(
+        root, cfg, tmp, pseudo_dir)
+    weight_dir = os.path.join(root, "weight")
+    argv = ["--IMpath", img_dir, "--pseudo_dir", mask_dir, "--train_list", train_list,
+            "--backbone", "vitb_hybrid", "--batch_size", str(SEG_BATCH),
+            "--max_epoches", str(SEG_EPOCHS), "--lr", str(SEG_LR), "--crop_size", str(CROP),
+            "--session_name", "smoke_seg", "--weight_dir", weight_dir,
+            "--val_list", val_list, "--gt_dir", gt_dir]
+    log("  (a) python -m acr_wsss_tpu_torch.train_seg " + " ".join(argv))
+    reset_counts()
+    t0 = time.perf_counter()
+    run = train_seg.train(train_seg.parse_args(argv))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    max_step = SEG_TRAIN // SEG_BATCH * SEG_EPOCHS
+    log(f"  {len(run.history)} steps ({max_step} updates) and validation in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    if launches != zero_counts() or len(run.history) != max_step + 1:
+        raise AssertionError("the float32 plain trainer launched a kernel or ran "
+                             f"{len(run.history)} steps")
+    for i, parts in enumerate(run.history):
+        log(f"  step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in parts.items()))
+        if not all(math.isfinite(v) for v in parts.values()):
+            raise AssertionError(f"seg step {i}: a loss part is not finite")
+    if run.miou is None or not 0.0 <= run.miou <= 1.0:
+        raise AssertionError(f"seg validation mIoU {run.miou}")
+    npz = os.path.join(weight_dir, "smoke_seg_last.npz")
+    fresh = DPTSegmentationModel(backbone_name="vitb_hybrid")
+    fresh.load_state_dict(flax_to_state_dict(load_params_npz(npz), fresh.state_dict()))
+    fresh.to(device)
+    x = torch.from_numpy(train_seg.load_seg_batch(img_dir, mask_dir, ["smoke_0"], CROP,
+                                                  np.random.default_rng(1))["image"])
+    with torch.no_grad():
+        got = fresh(x.to(device), export="none")["seg_logits"]
+        ref = run.model(x.to(device), export="none")["seg_logits"]
+    if not torch.equal(got, ref) or not torch.isfinite(ref).all():
+        raise AssertionError("the _last.npz read back gives other seg_logits")
+    log(f"  mIoU {run.miou:.4f} on {SEG_VAL} images; {os.path.basename(npz)} "
+        f"({os.path.getsize(npz) / 1e6:.1f} MB) read back into a fresh model: seg_logits "
+        f"{tuple(ref.shape)} equal to the bit")
+    del fresh
+
+    # (b)'s batch has seeded masks only: phase 10's depend on the weights
+    # phase 4 loads, which differ between checkouts (the tracked npz).
+    weights = init_random_(DPTSegmentationModel(backbone_name="vitb_hybrid"), seed=1).state_dict()
+    batch = train_seg.load_seg_batch(img_dir, mask_dir, seeded[:SEG_BATCH], CROP,
+                                     np.random.default_rng(0))
+
+    def seg_model(attn_impl):
+        model = DPTSegmentationModel(backbone_name="vitb_hybrid", dtype=torch.bfloat16,
+                                     attn_impl=attn_impl)
+        model.load_state_dict(weights)
+        return model.to(device)
+
+    plain = seg_step_on(seg_model("plain"), batch, max_step)
+    reset_counts()
+    kernel = seg_step_on(seg_model("kernel"), batch, max_step)
+    torch.cuda.synchronize()
+    step_launches = read_counts()
+    no_de = attention_qkv_cols_backward.launches_no_de
+    depth = kernel[0].spec.depth
+    log(f"  (b) one bf16 seg step, kernel path against the plain path (batch {SEG_BATCH}, "
+        f"crop {CROP}); launches {step_launches}, K1b with no de {no_de}")
+    if step_launches != {**zero_counts(), "K1n": depth, "K1b": depth} or no_de != depth:
+        raise AssertionError(f"expected {depth} K1n and {depth} K1b (no de) launches, "
+                             "no other")
+    compare_steps("bf16 seg step", kernel, plain)
+    rel = update_rel(kernel, plain)
+    attn = {k: v for k, v in rel.items() if ".attn.qkv." in k or ".attn.proj." in k}
+    worst = max(attn, key=attn.get)
+    log(f"    attention blocks' qkv and proj tensors ({len(attn)}): update at most "
+        f"{attn[worst]:.3g} ({worst}; tolerance {SEG_ATTN_UPDATE_REL}); the whole model's "
+        f"worst {max(rel.values()):.3g} ({max(rel, key=rel.get)}) against its gate "
+        f"{UPDATE_REL}")
+    if attn[worst] > SEG_ATTN_UPDATE_REL:
+        raise AssertionError("bf16 seg step: an attention block's update disagrees with "
+                             "the plain path")
+    again = seg_step_on(seg_model("plain"), batch, max_step)
+    rel = update_rel(again, plain)
+    log(f"  the plain step again, against its first run (the floor of the update gate): "
+        f"loss {again[2]['loss']:.7g} vs {plain[2]['loss']:.7g}, worst update "
+        f"{max(rel.values()):.3g} ({max(rel, key=rel.get)})")
+    del again
+    times = {"float32 plain": [time_seg_step(
+        "float32, plain attention (train_seg's model)", run.model, batch, max_step, card)]}
+    del run
+    torch.cuda.empty_cache()
+    models = {"bf16 plain": plain[0], "bf16 kernel": kernel[0]}
+    for name in ("bf16 plain", "bf16 kernel", "bf16 kernel", "bf16 plain"):
+        times.setdefault(name, []).append(time_seg_step(name, models[name], batch, max_step,
+                                                        card))
+    del plain, kernel, models
+    return {"launches": step_launches, "no_de": no_de, "times": times}
 
 
 def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
@@ -1868,8 +2083,9 @@ def time_kernel(label, kernel, plain, library, nbytes, flops, reps, card,
 
 def phase_kernel_timing(device, card) -> dict:
     """Each kernel's time at its main path's shape: K1f at B=2 (inference),
-    K1n at B=2 and B=4 (validation), K2f, K2b, K1b and K1f with either
-    export dtype at B=8 (training), and K5a, K5b and K5c forward and
+    K1n at B=2 and B=4 (validation) and B=8 (the seg step), K2f, K2b, K1b
+    (with a float32 or bf16 de, or none: the seg step's) and K1f with
+    either export dtype at B=8 (training), and K5a, K5b and K5c forward and
     backward at B=8."""
     H, D, N = HEADS, HEAD_DIM, N_TOKENS
     scale = D ** -0.5
@@ -1898,7 +2114,7 @@ def phase_kernel_timing(device, card) -> dict:
         lambda: attention_qkv_cols_forward(qkv, scale, H, "mean"),
         lambda: attention_qkv_cols_plain(qkv, scale, H, "mean"), sdpa(q, k, v),
         io + 2 * N * N * 4, 4 * 2 * H * N * N * D, 50, card, "SDPA (output only)")
-    for B in (2, 4):
+    for B in (2, 4, SEG_BATCH):
         qkv, q, k, v = inputs(B)
         out[f"K1n_B{B}"] = time_kernel(
             f"{KERNEL} (K1n) at B={B}, export none",
@@ -1937,6 +2153,12 @@ def phase_kernel_timing(device, card) -> dict:
         sdpa_fwd_bwd(q, k, v, g_heads),
         2 * qkv.numel() * 2 + g.numel() * 2 + de.numel() * 4, bwd_flops, 10,
         card, "SDPA forward+backward (no de)")
+    out["K1b_none"] = time_kernel(
+        f"{BWD_KERNEL} (K1b, no de: the seg step's) at B={B}",
+        lambda: attention_qkv_cols_backward(qkv, g, None, scale, H),
+        lambda: attention_qkv_cols_backward_plain(qkv, g, None, scale, H),
+        sdpa_fwd_bwd(q, k, v, g_heads), 2 * qkv.numel() * 2 + g.numel() * 2, bwd_flops, 10,
+        card, "SDPA forward+backward (the same gradients)")
     de16 = de.to(torch.bfloat16)
     out["K1b_bf16"] = time_kernel(
         f"{BWD_KERNEL} (K1b, dense bf16 de) at B={B}",
@@ -2026,12 +2248,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/11] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/12] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/11] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/12] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         kernel = ""
@@ -2049,35 +2271,35 @@ def main() -> int:
         f"{pamr_ops.affinity_blocks_per_sm(PAMR_DILATIONS)} (at its largest halo), "
         f"pamr_update_kernel<{n_dil}> {pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
-    log("[3/11] kernels against their plain versions on the card")
+    log("[3/12] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/11] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+        log("[4/12] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
             f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
         (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
          pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/11] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/12] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/11] resumable training: preempt and resume, --device_aug, the relaunch "
+        log("[6/12] resumable training: preempt and resume, --device_aug, the relaunch "
             "supervisor, --pretrained, COCO; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_resume(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  resume phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[7/11] one train step, kernel path against plain path, same weights and batch")
+        log("[7/12] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
         model, opt, batch, layer_launches, step_ctx = phase_step_compare(device, cfg)
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[8/11] attention entries: K5a, K5b, K5c against their plain versions and "
+        log("[8/12] attention entries: K5a, K5b, K5c against their plain versions and "
             "through autograd; the per-layer branch with a bf16 export")
         t0 = time.perf_counter()
         entry_errs, entry_launches, bf16_launches = phase_attention_entries(
@@ -2085,19 +2307,25 @@ def main() -> int:
         del step_ctx
         log(f"  attention entries phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[9/11] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+        log(f"[9/12] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
             f"crop 384, the recipe")
         t0 = time.perf_counter()
         phase_pipeline(cfg, os.path.join(tmp, "train"))
         log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[10/11] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
+        log("[10/12] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
             "on either route, pseudo_label")
         t0 = time.perf_counter()
-        phase_crf(device, tmp, paths, labels, infer_launches, card)
+        pseudo_dir = phase_crf(device, tmp, paths, labels, infer_launches, card)
         log(f"  CRF phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[11/11] timing on {card}")
+        log("[11/12] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
+            f"{SEG_BATCH}; one bf16 seg step, kernel path against plain path")
+        t0 = time.perf_counter()
+        seg = phase_seg(device, cfg, tmp, pseudo_dir, card)
+        log(f"  segmentation phase: {time.perf_counter() - t0:.1f} s")
+
+        log(f"[12/12] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "
@@ -2130,11 +2358,19 @@ def main() -> int:
          "max_abs_err": errs[("K1", 2, n, "mean")], **timing["K1f"]},
         {"name": KERNEL + " (export none)", "route": "cuda",
          "source": src + "attn_fwd_headmean.cu", "replaces": tpu + "873",
-         "launches": train_launches["K1n"], "max_abs_err": errs[("K1", 4, n, "none")],
-         **timing["K1n_B4"]},
+         "launches": train_launches["K1n"],
+         "max_abs_err": errs[("K1", 4, n, "none")], **timing["K1n_B4"]},
+        {"name": KERNEL + " (export none, seg step)", "route": "cuda",
+         "source": src + "attn_fwd_headmean.cu", "replaces": tpu + "873",
+         "launches": seg["launches"]["K1n"],
+         "max_abs_err": errs[("K1", SEG_BATCH, n, "none")],
+         **timing[f"K1n_B{SEG_BATCH}"]},
         {"name": BWD_KERNEL + " (dense de)", "route": "cuda", "source": src + "attn_bwd.cu",
          "replaces": tpu + "421", "launches": layer_launches["K1b"],
          "max_abs_err": errs[("K1b", b_train, n, True)], **timing["K1b"]},
+        {"name": BWD_KERNEL + " (no de)", "route": "cuda", "source": src + "attn_bwd.cu",
+         "replaces": tpu + "421", "launches": seg["no_de"],
+         "max_abs_err": errs[("K1b", b_train, n, False)], **timing["K1b_none"]},
         {"name": attn_pair.KERNEL, "route": "cuda", "source": src + "attn_pair_fwd.cu",
          "replaces": tpu + "1028", "launches": train_launches["K2f"],
          "max_abs_err": errs[("K2f", b_train, n)], **timing["K2f"]},

@@ -11,7 +11,10 @@ shared-memory limit (the attention kernels and the pair forward), the
 same bits from two launches, K4 on an odd shape, and K3 through its
 gather kernel (a dilation beyond the tile kernel's halo); and the
 on-device augmentation (``data/device_aug.py``) and the on-device dense
-CRF (``ops/crf.py``), plain torch both, against their CPU runs. Tolerances are those of ``chip_smoke.py``, with the reasons given there.
+CRF (``ops/crf.py``), plain torch both, against their CPU runs; and one
+bf16 seg step of the DPT model on the kernels (K1n, K1b with no de)
+against the plain path. Tolerances are those of ``chip_smoke.py``, with
+the reasons given there.
 """
 
 import pytest
@@ -538,3 +541,52 @@ def test_crf_on_the_card_matches_the_cpu(device, tf32):
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=5e-5)
     assert (got.cpu().argmax(0) == ref.argmax(0)).float().mean() >= 0.999
+
+
+def test_dpt_seg_step_on_the_kernels_matches_the_plain_path(device):
+    """One seg step (``train_seg.make_seg_train_step``) of the bf16 DPT
+    model (vitb_hybrid, crop 64, batch 2) with K1n and K1b (no de) in each
+    block under autograd, against the same step on the plain path from the
+    same weights and batch: the step gates of ``chip_smoke.py`` (loss parts
+    2e-2 relative, each parameter's update 5e-2 in L2), 12 launches of each
+    kernel and no other; a float32 model on the kernel path raises."""
+    import numpy as np
+
+    from acr_wsss_tpu_torch.models.acr import init_random_
+    from acr_wsss_tpu_torch.models.dpt import DPTSegmentationModel
+    from acr_wsss_tpu_torch.ops.attn_cuda import attention_qkv_cols_backward
+    from acr_wsss_tpu_torch.train_seg import make_seg_train_step
+    from acr_wsss_tpu_torch.utils.schedule import make_optimizer
+
+    weights = init_random_(DPTSegmentationModel(backbone_name="vitb_hybrid"), 1).state_dict()
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.normal(size=(2, 64, 64, 3)).astype(np.float32),
+             "seg_label": rng.integers(0, 3, size=(2, 64, 64)).astype(np.int32)}
+
+    def step(attn_impl):
+        model = DPTSegmentationModel(backbone_name="vitb_hybrid", dtype=torch.bfloat16,
+                                     attn_impl=attn_impl)
+        model.load_state_dict(weights)
+        model.to(device)
+        before = {k: v.detach().clone() for k, v in model.named_parameters()}
+        parts = make_seg_train_step(model, make_optimizer(model.parameters(), 1e-4, 4))(batch)
+        return {k: float(v) for k, v in parts.items()}, before, dict(model.named_parameters())
+
+    ref_parts, p0, ref_p1 = step("plain")
+    counts = (fused_attention_qkv_cols.launches, fused_attention_qkv_cols.launches_noexport,
+              attention_qkv_cols_backward.launches, attention_qkv_cols_backward.launches_no_de)
+    parts, _, p1 = step("kernel")
+    torch.cuda.synchronize()
+    after = (fused_attention_qkv_cols.launches, fused_attention_qkv_cols.launches_noexport,
+             attention_qkv_cols_backward.launches, attention_qkv_cols_backward.launches_no_de)
+    assert [a - b for a, b in zip(after, counts)] == [12, 12, 12, 12]
+    for k, ref in ref_parts.items():
+        assert abs(parts[k] - ref) <= 2e-2 * abs(ref), (k, parts[k], ref)
+    for k, ref in ref_p1.items():
+        ref_u = ref.detach() - p0[k]
+        rel = float((p1[k].detach() - p0[k] - ref_u).norm() / ref_u.norm().clamp_min(1e-30))
+        assert rel <= 5e-2, (k, rel)
+
+    model = DPTSegmentationModel(backbone_name="vitb_hybrid", attn_impl="kernel").to(device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        model(torch.zeros((1, 64, 64, 3), device=device), export="none")

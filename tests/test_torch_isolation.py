@@ -8,8 +8,9 @@ training ones (``train``, ``losses``, ``data/voc``, ``ops/attn_pair``,
 ``utils/{schedule,meters}``), ``ops/pamr`` and ``pipeline``, and those of
 resumable training: ``train_coco``, ``data/{coco,lists,device_aug}``,
 ``models/zoo`` and ``utils/{checkpoint,logging,preemption,watchdog,
-supervisor}``; and those from CAMs to pseudo masks: ``ops/{crf,bilateral}``,
-``pseudo_label`` and ``utils/visualization``.
+supervisor}``; those from CAMs to pseudo masks: ``ops/{crf,bilateral}``,
+``pseudo_label`` and ``utils/visualization``; and those of the
+segmentation stage: ``models/dpt``, ``train_seg`` and ``utils/metrics``.
 """
 
 import os
@@ -54,10 +55,11 @@ def test_port_and_chip_smoke_import_without_jax():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count = int(proc.stdout.split()[-2])
-    assert count >= 39, proc.stdout
+    assert count >= 42, proc.stdout
     for name in ("train", "losses", "data.voc", "ops.attn_pair", "utils.schedule",
                  "utils.meters", "ops.pamr", "pipeline", "train_coco", "data.coco",
                  "data.lists", "data.device_aug", "models.zoo", "utils.checkpoint",
                  "utils.logging", "utils.preemption", "utils.watchdog", "utils.supervisor",
-                 "ops.crf", "ops.bilateral", "pseudo_label", "utils.visualization"):
+                 "ops.crf", "ops.bilateral", "pseudo_label", "utils.visualization",
+                 "models.dpt", "train_seg", "utils.metrics"):
         assert f"acr_wsss_tpu_torch.{name}" in proc.stdout, name

@@ -4,7 +4,12 @@ Weights are made with numpy from a seed in the flax layout, flattened with
 "/"-joined paths as ``save_params_npz`` writes them, and handed to both
 sides: to JAX as a param tree, to the port through its converter.
 ``write_coco`` writes a tiny synthetic COCO layout (images, bbox txts).
+``dpt_flax_params`` and ``jax_dpt_apply`` are cached per process, so the
+segmentation test files that one worker runs trace and compile JAX's DPT
+model once per backbone (and dtype).
 """
+
+import functools
 
 import numpy as np
 from PIL import Image
@@ -14,6 +19,7 @@ import jax.numpy as jnp
 import torch
 
 from acr_wsss_tpu.models.acr import ACR as JaxACR
+from acr_wsss_tpu.models.dpt import DPTSegmentationModel as JaxDPT
 from acr_wsss_tpu_torch.models.acr import ACR as TorchACR
 from acr_wsss_tpu_torch.models.convert import flax_to_state_dict
 
@@ -36,15 +42,19 @@ def unflatten_params(flat):
     return tree
 
 
-def random_flax_params(jax_module, example, seed):
-    """Seeded numpy weights in the flax layout of ``jax_module``: fan-in
-    normal kernels, scales 1 + N(0, 0.1^2), biases and tokens N(0, 0.1^2)
-    (nonzero, so that a mapping mistake shows), pos_embed N(0, 0.02^2)."""
-    shapes = jax.eval_shape(lambda: jax_module.init(jax.random.key(0), example))
+def random_flax_params(jax_module, example, seed, args=()):
+    """Seeded numpy weights in the flax layout of ``jax_module`` (called on
+    ``example`` and ``args``): fan-in normal kernels, scales
+    1 + N(0, 0.1^2), biases and tokens N(0, 0.1^2) (nonzero, so that a
+    mapping mistake shows), pos_embed N(0, 0.02^2)."""
+    shapes = jax.eval_shape(lambda: jax_module.init(jax.random.key(0), example, *args))
+    return _draw_flax_params({k: v.shape for k, v in flatten_params(shapes).items()}, seed)
+
+
+def _draw_flax_params(shapes, seed):
     rng = np.random.default_rng(seed)
     flat = {}
-    for key, leaf in flatten_params(shapes).items():
-        shape = leaf.shape
+    for key, shape in shapes.items():
         name = key.rsplit("/", 1)[-1]
         if name == "kernel":
             val = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
@@ -56,6 +66,26 @@ def random_flax_params(jax_module, example, seed):
             val = 0.1 * rng.standard_normal(shape)
         flat[key] = val.astype(np.float32)
     return flat
+
+
+@functools.lru_cache(maxsize=None)
+def _dpt_param_shapes(backbone, crop):
+    model = JaxDPT(backbone_name=backbone)
+    shapes = jax.eval_shape(lambda: model.init(jax.random.key(0), jnp.zeros((1, crop, crop, 3))))
+    return {k: v.shape for k, v in flatten_params(shapes).items()}
+
+
+@functools.lru_cache(maxsize=None)
+def dpt_flax_params(backbone, seed, crop=32):
+    """``random_flax_params`` of JAX's ``DPTSegmentationModel``; callers
+    must not modify the arrays."""
+    return _draw_flax_params(_dpt_param_shapes(backbone, crop), seed)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dpt_apply(backbone, dtype="float32"):
+    """The jitted ``apply`` of JAX's ``DPTSegmentationModel``."""
+    return jax.jit(JaxDPT(backbone_name=backbone, dtype=getattr(jnp, dtype)).apply)
 
 
 def assert_within_one_bf16_ulp(actual, desired, atol=1e-6):

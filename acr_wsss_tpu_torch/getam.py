@@ -49,7 +49,7 @@ def getam_cams(
     func: str = "grad",
     start_index: int = 1,
     use_aff: bool = False,
-    class_ids: Optional[Sequence[int]] = None,
+    class_ids: Optional[Sequence[int] | torch.Tensor] = None,
     offsets_start: int = 0,
     device: torch.device | str = "cuda",
 ):
@@ -82,9 +82,12 @@ def getam_cams(
 
     if class_ids is None:
         class_ids = range(num_classes)
+    # A tensor of ids stays a tensor, so that a traced program takes its
+    # class ids as an input (serving.py).
+    ids = torch.as_tensor(class_ids, dtype=torch.long, device=logits.device)
     cams = []
-    for c in class_ids:
-        (grads,) = torch.autograd.grad(logits[:, int(c)].sum(), offsets,
+    for k in range(len(ids)):
+        (grads,) = torch.autograd.grad(logits.index_select(1, ids[k:k + 1]).sum(), offsets,
                                        retain_graph=True)
         per_layer = getam_reduce(grads, probs_full[offsets_start:] if per_head else None,
                                  func)
@@ -111,9 +114,10 @@ def make_forward_for_getam(model, x: torch.Tensor, export: str = "full",
 
 
 def tap_config(model, start_layer: int, func: str) -> Tuple[int, str]:
-    """(first tapped layer, export mode): taps only from ``start_layer``
-    (the lower gradients are never read), and per-head probs only for the
-    ``cam_grad`` variants (``getam.py:209-226``)."""
+    """(first tapped layer, export mode), shared by ``infer_cam`` and
+    ``serving``: taps only from ``start_layer`` (the lower gradients are
+    never read), and per-head probs only for the ``cam_grad`` variants
+    (``getam.py:209-226``)."""
     off_start = min(start_layer, model.spec.depth)
     export = "full" if func in ("cam_grad", "cam_grad_s") else "mean"
     return off_start, export

@@ -99,7 +99,19 @@ package. Phases, each of which fails the run when it fails:
    tensors, launches counted; (c) the seg step's time
    and images/s and its device time per step (CUDA events), for (a)'s
    model and both bf16 paths;
-12. timing: per-image latency with and without PAMR, the PAMR step's device
+12. serving and the reference import, at full width (vitb_hybrid, crop
+   384, the tracked npz's weights where present, else seeded ones): (a)
+   ``serving.export_infer`` (plain attention, batch 2, 4 slots), loaded
+   and called on phase 4's first image and its mirror with other class
+   ids in a child process whose import system refuses
+   ``acr_wsss_tpu_torch``: against the live plain path (1e-5) and the live
+   kernel path (the CAM gates), export seconds, bytes and call ms; the
+   embedded-weights variant the same way at a small width (vit_small,
+   crop 64); (b) the phase's weights as a reference-layout state dict
+   (``flax_params_to_torch_state_dict``), ``torch.save``d, through the
+   convert CLI with and without ``--scan``: ``infer_cam`` on each npz
+   gives the original weights' CAMs to the bit;
+13. timing: per-image latency with and without PAMR, the PAMR step's device
    time, train step time and images/s, the training loop's step time fed
    by the host path and by ``--device_aug``, device time breakdowns, each
    kernel's device time (CUDA events around launches enqueued while the
@@ -140,6 +152,7 @@ from acr_wsss_tpu_torch import evaluate  # noqa: E402
 from acr_wsss_tpu_torch import infer_cam  # noqa: E402
 from acr_wsss_tpu_torch import pipeline  # noqa: E402
 from acr_wsss_tpu_torch import pseudo_label  # noqa: E402
+from acr_wsss_tpu_torch import serving  # noqa: E402
 from acr_wsss_tpu_torch import train as train_mod  # noqa: E402
 from acr_wsss_tpu_torch import train_coco  # noqa: E402
 from acr_wsss_tpu_torch import train_seg  # noqa: E402
@@ -150,11 +163,12 @@ from acr_wsss_tpu_torch.data import voc as voc_data  # noqa: E402
 from acr_wsss_tpu_torch.infer_cam import build_infer_fn, process_image  # noqa: E402
 from acr_wsss_tpu_torch.models.acr import ACR, init_random_  # noqa: E402
 from acr_wsss_tpu_torch.models import vit as vit_mod  # noqa: E402
-from acr_wsss_tpu_torch.models import zoo  # noqa: E402
+from acr_wsss_tpu_torch.models import convert, zoo  # noqa: E402
 from acr_wsss_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax  # noqa: E402
 from acr_wsss_tpu_torch.models.dpt import DPTSegmentationModel  # noqa: E402
 from acr_wsss_tpu_torch.ops import _build, attn_pair  # noqa: E402
 from acr_wsss_tpu_torch.ops import crf as crf_ops  # noqa: E402
+from acr_wsss_tpu_torch.ops import imops  # noqa: E402
 from acr_wsss_tpu_torch.ops import pamr as pamr_ops  # noqa: E402
 from acr_wsss_tpu_torch.ops.attention import attention_with_probs  # noqa: E402
 from acr_wsss_tpu_torch.ops.attn_cuda import (BWD_KERNEL, KERNEL,  # noqa: E402
@@ -313,6 +327,53 @@ SEG_ATTN_UPDATE_REL = 1.5e-2
 # steps timed, and the first ones left out (the loader's first batches,
 # which nothing overlaps).
 LOOP_STEPS, LOOP_WARMUP = 20, 3
+# Phase 12, serving. The artifact against the live plain path: the same
+# ATen operations on the same card -> 1e-5 absolute; against the live
+# kernel path, the CAM gates on min-max normalized CAMs. Class ids of the
+# call, other than the traced 0-3. The embedded-weights variant at a small
+# width (vit_small, crop 64), where it exports in seconds.
+SERVE_ATOL, SERVE_IDS, SERVE_SMALL_CROP = 1e-5, (14, 2, 7, 19), 64
+SERVE_CHILD = """
+import importlib.abc, json, sys, time
+
+REFUSED = ("acr_wsss_tpu_torch", "acr_wsss_tpu", "jax", "jaxlib", "flax")
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == r or name.startswith(r + ".") for r in REFUSED):
+            raise ImportError(f"refused import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import torch
+
+sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+tmp = sys.argv[1]
+inputs = torch.load(f"{tmp}/inputs.pt", weights_only=True)
+params = torch.load(f"{tmp}/params.pt", weights_only=True)
+outs, ms = {}, {}
+for name, args in (("cam", (params, inputs["x"], inputs["ids"])),
+                   ("cam_embedded", (inputs["x_small"], inputs["ids"]))):
+    program = torch.export.load(f"{tmp}/{name}.pt2").module()
+    outs[name] = {k: v.cpu() for k, v in program(*args).items()}
+    times = []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        program(*args)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms[name] = sorted(times)[2]
+torch.save(outs, f"{tmp}/child_out.pt")
+try:
+    import acr_wsss_tpu_torch  # noqa: F401
+    raise SystemExit("acr_wsss_tpu_torch was importable in the child")
+except ImportError:
+    pass
+print(json.dumps({"ms": ms, "device": str(inputs["x"].device)}))
+"""
 KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL, pamr_ops.KERNEL)
 
 
@@ -1911,6 +1972,123 @@ def phase_seg(device, cfg: TrainConfig, tmp: str, pseudo_dir: str, card) -> dict
     return {"launches": step_launches, "no_de": no_de, "times": times}
 
 
+def normalized(cams: torch.Tensor) -> np.ndarray:
+    """(K, B, n) CAMs min-max normalized per slot and view, on the host."""
+    return imops.minmax_normalize(cams.float().cpu().numpy(), axis=(2,))
+
+
+def serve_inputs(path, device):
+    """The image at ``path`` and its mirror, normalized, as one batch."""
+    from acr_wsss_tpu_torch.data import transforms
+
+    x = transforms.val_transform(transforms.load_image_rgb(path), CROP)
+    return torch.as_tensor(np.stack([x, x[:, ::-1]])).to(device)
+
+
+def phase_surface(device, tmp, paths, labels, card) -> None:
+    """Serving and the reference import at full width (vitb_hybrid, crop
+    384), on the tracked npz where the checkout has it, else seeded
+    weights: (a) the serving export, called in a child process that cannot
+    import the port, and its embedded-weights variant at a small width;
+    (b) the reference import and the convert CLI."""
+    ref_model = load_model(device, "kernel")
+    weights = {k: v.detach().clone() for k, v in ref_model.state_dict().items()}
+    infer_k = build_infer_fn(ref_model, CROP, START_LAYER, "grad", True, NUM_CLASSES,
+                             class_slots=CLASS_SLOTS)
+
+    log("  (a) serving: export_infer (batch 2, grad from layer 10, affinity, 4 slots) on "
+        "cuda, loaded in a child process that cannot import acr_wsss_tpu_torch")
+    serve_dir = os.path.join(tmp, "serve")
+    os.makedirs(serve_dir)
+    plain = load_model(device, "plain", state=weights)
+    small = init_random_(ACR(backbone_name="vit_small", attn_impl="plain"), seed=3).to(device)
+    sizes, export_s = {}, {}
+    for name, model, crop, embed in (("cam", plain, CROP, False),
+                                     ("cam_embedded", small, SERVE_SMALL_CROP, True)):
+        t0 = time.perf_counter()
+        exported = serving.export_infer(model, crop, 2, start_layer=START_LAYER,
+                                        getam_func="grad", use_aff=True,
+                                        num_classes=NUM_CLASSES, class_slots=CLASS_SLOTS,
+                                        embed_weights=embed)
+        path = os.path.join(serve_dir, f"{name}.pt2")
+        serving.save_exported(path, exported)
+        export_s[name] = time.perf_counter() - t0
+        sizes[name] = os.path.getsize(path)
+        del exported
+    x = serve_inputs(paths[0], device)
+    x_small = torch.randn((2, SERVE_SMALL_CROP, SERVE_SMALL_CROP, 3),
+                          generator=torch.Generator(device).manual_seed(5), device=device)
+    ids = torch.tensor(SERVE_IDS, device=device)
+    torch.save({"x": x, "x_small": x_small, "ids": ids}, os.path.join(serve_dir, "inputs.pt"))
+    torch.save(dict(plain.state_dict()), os.path.join(serve_dir, "params.pt"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", SERVE_CHILD, serve_dir], cwd=serve_dir,
+                          env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError("the serving child failed:\n" + proc.stdout + proc.stderr[-4000:])
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = torch.load(os.path.join(serve_dir, "child_out.pt"), weights_only=True)
+    live_plain = build_infer_fn(plain, CROP, START_LAYER, "grad", True, NUM_CLASSES,
+                                class_slots=CLASS_SLOTS)
+    live_small = build_infer_fn(small, SERVE_SMALL_CROP, START_LAYER, "grad", True,
+                                NUM_CLASSES, class_slots=CLASS_SLOTS)
+    refs = {"cam": {k: v.cpu() for k, v in live_plain(x, ids).items()},
+            "cam_embedded": {k: v.cpu() for k, v in live_small(x_small, ids).items()}}
+    for name, ref in refs.items():
+        err = max(float((got[name][k] - ref[k]).abs().max()) for k in ref)
+        log(f"    {name}.pt2: against the live plain path max abs {err:.3g} (tolerance "
+            f"{SERVE_ATOL})")
+        if err > SERVE_ATOL:
+            raise AssertionError(f"{name}: the artifact disagrees with the live plain path")
+    ker = {k: v.cpu() for k, v in infer_k(x, ids).items()}
+    diff = np.abs(normalized(got["cam"]["cams"]) - normalized(ker["cams"]))
+    log(f"    cam.pt2's CAMs against the live kernel path, normalized: max abs "
+        f"{diff.max():.4g}, mean abs {diff.mean():.4g} (gates {CAM_MAX_ABS}, {CAM_MEAN_ABS})")
+    if diff.max() > CAM_MAX_ABS or diff.mean() > CAM_MEAN_ABS:
+        raise AssertionError("cam: the artifact disagrees with the live kernel path")
+    live_ms = {}
+    for label, fn in (("plain", live_plain), ("kernel", infer_k)):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(x, ids)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        live_ms[label] = float(np.median(times[1:]))
+    log(f"  cam.pt2 (vitb_hybrid, crop {CROP}): export {export_s['cam']:.1f} s, "
+        f"{sizes['cam']} bytes, call median of 5 in the child {child['ms']['cam']:.2f} ms; "
+        f"live build_infer_fn on the same inputs, median of 5: plain {live_ms['plain']:.2f} "
+        f"ms, kernel {live_ms['kernel']:.2f} ms [{card}]")
+    log(f"  cam_embedded.pt2 (vit_small, crop {SERVE_SMALL_CROP}): export "
+        f"{export_s['cam_embedded']:.1f} s, {sizes['cam_embedded']} bytes, call median of 5 "
+        f"in the child {child['ms']['cam_embedded']:.2f} ms [{card}]")
+    del plain, live_plain, small, live_small
+
+    log("  (b) reference import: flax_params_to_torch_state_dict, torch.save, the "
+        "convert CLI with and without --scan, infer_cam on the npz")
+    reference = convert.flax_params_to_torch_state_dict(state_dict_to_flax(ref_model))
+    ref_path = os.path.join(serve_dir, "ref.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in reference.items()}}, ref_path)
+    cams_ref = process_image(infer_k, paths[0], labels[0], CROP)[0]
+    for scan in (False, True):
+        npz = os.path.join(serve_dir, f"converted_{int(scan)}.npz")
+        convert.main([ref_path, npz, "--backbone", "vitb_hybrid"] + (["--scan"] if scan else []))
+        model = infer_cam.load_model(InferConfig(weights=npz, device=str(device)))
+        if not all(torch.equal(model.state_dict()[k], v) for k, v in weights.items()):
+            raise AssertionError(f"{npz}: the weights do not round-trip")
+        cams = process_image(build_infer_fn(model, CROP, START_LAYER, "grad", True,
+                                            NUM_CLASSES, class_slots=CLASS_SLOTS),
+                             paths[0], labels[0], CROP)[0]
+        if sorted(cams) != sorted(cams_ref) or not all(
+                np.array_equal(cams[c], cams_ref[c]) for c in cams):
+            raise AssertionError(f"infer_cam on {npz}: CAMs differ from the original weights'")
+        log(f"    {len(reference)} reference tensors -> {os.path.basename(npz)} "
+            f"({'scanned' if scan else 'unrolled'} layout): infer_cam's CAMs the same bits")
+        del model
+    del ref_model, infer_k
+
+
 def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
     """Host-clock step time (synchronized) of the fused kernel step: median
     of ``reps`` after a warm-up; then a profiler window of 2 steps."""
@@ -2248,12 +2426,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/12] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/13] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/12] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/13] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         kernel = ""
@@ -2271,35 +2449,35 @@ def main() -> int:
         f"{pamr_ops.affinity_blocks_per_sm(PAMR_DILATIONS)} (at its largest halo), "
         f"pamr_update_kernel<{n_dil}> {pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
-    log("[3/12] kernels against their plain versions on the card")
+    log("[3/13] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/12] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+        log("[4/13] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
             f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
         (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
          pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/12] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/13] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/12] resumable training: preempt and resume, --device_aug, the relaunch "
+        log("[6/13] resumable training: preempt and resume, --device_aug, the relaunch "
             "supervisor, --pretrained, COCO; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_resume(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  resume phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[7/12] one train step, kernel path against plain path, same weights and batch")
+        log("[7/13] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
         model, opt, batch, layer_launches, step_ctx = phase_step_compare(device, cfg)
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[8/12] attention entries: K5a, K5b, K5c against their plain versions and "
+        log("[8/13] attention entries: K5a, K5b, K5c against their plain versions and "
             "through autograd; the per-layer branch with a bf16 export")
         t0 = time.perf_counter()
         entry_errs, entry_launches, bf16_launches = phase_attention_entries(
@@ -2307,25 +2485,31 @@ def main() -> int:
         del step_ctx
         log(f"  attention entries phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[9/12] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+        log(f"[9/13] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
             f"crop 384, the recipe")
         t0 = time.perf_counter()
         phase_pipeline(cfg, os.path.join(tmp, "train"))
         log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[10/12] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
+        log("[10/13] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
             "on either route, pseudo_label")
         t0 = time.perf_counter()
         pseudo_dir = phase_crf(device, tmp, paths, labels, infer_launches, card)
         log(f"  CRF phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[11/12] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
+        log("[11/13] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
             f"{SEG_BATCH}; one bf16 seg step, kernel path against plain path")
         t0 = time.perf_counter()
         seg = phase_seg(device, cfg, tmp, pseudo_dir, card)
         log(f"  segmentation phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[12/12] timing on {card}")
+        log("[12/13] serving and the reference import: the serving export, the convert "
+            "CLI; vitb_hybrid, crop 384")
+        t0 = time.perf_counter()
+        phase_surface(device, tmp, paths, labels, card)
+        log(f"  serving phase: {time.perf_counter() - t0:.1f} s")
+
+        log(f"[13/13] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "

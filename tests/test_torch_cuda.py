@@ -13,8 +13,9 @@ gather kernel (a dilation beyond the tile kernel's halo); and the
 on-device augmentation (``data/device_aug.py``) and the on-device dense
 CRF (``ops/crf.py``), plain torch both, against their CPU runs; and one
 bf16 seg step of the DPT model on the kernels (K1n, K1b with no de)
-against the plain path. Tolerances are those of ``chip_smoke.py``, with
-the reasons given there.
+against the plain path; and the serving artifact exported on the card,
+with and without embedded weights, against the live plain path.
+Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
 import pytest
@@ -590,3 +591,28 @@ def test_dpt_seg_step_on_the_kernels_matches_the_plain_path(device):
     model = DPTSegmentationModel(backbone_name="vitb_hybrid", attn_impl="kernel").to(device)
     with pytest.raises(TypeError, match="bfloat16"):
         model(torch.zeros((1, 64, 64, 3), device=device), export="none")
+
+
+# --- the serving export -----------------------------------------------------
+
+@pytest.mark.parametrize("embed", [False, True], ids=["params", "embedded"])
+def test_serving_artifact_on_the_card_matches_the_live_plain_path(device, tmp_path, embed):
+    """The artifact exported on the card (vit_small, crop 64, bf16, 4
+    slots), with the parameters as an input or embedded, saved, loaded and
+    called on other images and ids: the live plain path's outputs to 1e-5."""
+    from acr_wsss_tpu_torch import serving
+    from acr_wsss_tpu_torch.infer_cam import build_infer_fn
+    from acr_wsss_tpu_torch.models.acr import ACR, init_random_
+
+    model = init_random_(ACR(backbone_name="vit_small", attn_impl="plain"), seed=3).to(device)
+    path = str(tmp_path / "cam.pt2")
+    serving.save_exported(path, serving.export_infer(model, 64, 2, class_slots=4,
+                                                     embed_weights=embed))
+    x = torch.randn((2, 64, 64, 3), device=device)
+    ids = torch.tensor([6, 1, 13, 2], device=device)
+    args = (x, ids) if embed else (dict(model.state_dict()), x, ids)
+    out = serving.load_exported(path)(*args)
+    live = build_infer_fn(model, 64, 10, "grad", True, 20, class_slots=4)(x, ids)
+    for k in live:
+        assert out[k].device.type == "cuda"
+        torch.testing.assert_close(out[k], live[k], rtol=0, atol=1e-5)

@@ -10,7 +10,11 @@ resumable training: ``train_coco``, ``data/{coco,lists,device_aug}``,
 ``models/zoo`` and ``utils/{checkpoint,logging,preemption,watchdog,
 supervisor}``; those from CAMs to pseudo masks: ``ops/{crf,bilateral}``,
 ``pseudo_label`` and ``utils/visualization``; and those of the
-segmentation stage: ``models/dpt``, ``train_seg`` and ``utils/metrics``.
+segmentation stage: ``models/dpt``, ``train_seg`` and ``utils/metrics``;
+and those of serving and the reference import: ``serving`` and
+``models/convert``, whose CLIs also run there: the reference-checkpoint
+import on a ``torch.save``d checkpoint, then the serving export of the npz
+it wrote, and the artifact's call.
 """
 
 import os
@@ -61,5 +65,37 @@ def test_port_and_chip_smoke_import_without_jax():
                  "data.lists", "data.device_aug", "models.zoo", "utils.checkpoint",
                  "utils.logging", "utils.preemption", "utils.watchdog", "utils.supervisor",
                  "ops.crf", "ops.bilateral", "pseudo_label", "utils.visualization",
-                 "models.dpt", "train_seg", "utils.metrics"):
+                 "models.dpt", "train_seg", "utils.metrics", "serving", "models.convert"):
         assert f"acr_wsss_tpu_torch.{name}" in proc.stdout, name
+
+
+CLIS = textwrap.dedent("""
+    import torch
+    from acr_wsss_tpu_torch import serving
+    from acr_wsss_tpu_torch.models import convert
+    from acr_wsss_tpu_torch.models.acr import ACR, init_random_
+
+    flat = convert.state_dict_to_flax(init_random_(ACR(backbone_name="vit_small"), seed=0))
+    ref = convert.flax_params_to_torch_state_dict(flat)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in ref.items()}}, f"{TMP}/ref.pth")
+    convert.main([f"{TMP}/ref.pth", f"{TMP}/w.npz", "--backbone", "vit_small"])
+    serving.main(["--weights", f"{TMP}/w.npz", "--backbone", "vit_small", "--crop", "32",
+                  "--class_slots", "2", "--device", "cpu", "--out", f"{TMP}/cam.pt2"])
+    params = torch.load(f"{TMP}/cam_params.pt", weights_only=True)
+    out = serving.load_exported(f"{TMP}/cam.pt2")(params, torch.zeros(2, 32, 32, 3),
+                                                  torch.tensor([1, 4]))
+    assert out["cams"].shape == (2, 2, 4) and bool(torch.isfinite(out["cams"]).all())
+    loaded = [m for m in sys.modules
+              if any(m == r or m.startswith(r + ".") for r in REFUSED)]
+    assert not loaded, loaded
+""")
+
+
+def test_convert_and_serving_clis_run_without_jax(tmp_path):
+    script = SCRIPT.split("import acr_wsss_tpu_torch\n")[0] + CLIS
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", f"ROOT = {ROOT!r}\nTMP = {str(tmp_path)!r}\n" + script],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "wrote" in proc.stdout and "exported" in proc.stdout

@@ -110,6 +110,17 @@ class TrainConfig:
     # Hung-step watchdog (utils/watchdog.py): exit 75 when no step completes
     # within this many seconds after the first one; 0 = off.
     step_timeout_s: float = 0.0
+    # Data parallelism (parallel/): one process per GPU over a "data" mesh.
+    # (-1,): every rank, cut to the largest divisor of the global batch;
+    # the JAX package's model, seq and pipe axes are refused.
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
+    # The launcher's environment (RANK, WORLD_SIZE, ...) is required: the
+    # nodes of a multi-node run join one process group.
+    multihost: bool = False
+    # FSDP2 (ZeRO-3) over the data axis instead of DDP: parameters,
+    # gradients and momentum sharded; the same step.
+    fsdp: bool = False
     device: str = "cuda"
 
 
@@ -150,6 +161,9 @@ class InferConfig:
     # pixel-adaptive affinities (``ops/pamr.py``) before TTA summation.
     pamr_iters: int = 0
     pamr_dilations: Sequence[int] = (1, 2, 4, 8, 12, 24)
+    # Data-parallel inference (0/1 = one process): one worker process per
+    # GPU, each on its share of the list (``data/voc.py::shard_names``).
+    dp: int = 0
     device: str = "cuda"
 
 

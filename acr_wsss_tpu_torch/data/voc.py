@@ -4,7 +4,8 @@ Own copy of ``acr_wsss_tpu/data/voc.py`` (``:40-252``): ``read_file``,
 ``load_cls_labels``, the example source, and the train and eval iterators,
 with the same ``numpy`` seed streams, so that one seed gives the same
 batches as the JAX package: a seeded permutation per epoch (``(seed,
-epoch)``), host sharding ``order[host_id::num_hosts]``, and a per-example
+epoch)``), host sharding ``order[host_id::num_hosts]`` (one host per rank of a
+data-parallel run), and a per-example
 generator seeded by ``(seed, epoch, host_id, crc32(name))``. Batches are
 NHWC float32 numpy arrays; with ``device_aug`` the train batches carry
 the uint8 rasters and augmentation descriptors that ``data/device_aug.py``
@@ -104,6 +105,12 @@ class VOCClassificationSource:
     def load_val(self, name: str):
         return (transforms.val_transform(self._decoded(name), self.crop_size),
                 self.labels[name].astype(np.float32))
+
+
+def shard_names(names: Sequence[str], host_id: int, num_hosts: int) -> List[str]:
+    """The names of one host (a rank, a ``--dp`` worker): every
+    ``num_hosts``-th from ``host_id``."""
+    return list(names[host_id::num_hosts])
 
 
 class TrainIterator:

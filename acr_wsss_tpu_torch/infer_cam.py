@@ -22,15 +22,25 @@ JET overlays of the CAMs.
         --out_cam out/cam_npy [--pamr 10] [--out_crf out/crf --crf_device] \
         [--heatmap out/heat]
 
-The data-parallel mesh and the scanned trunk of the JAX CLI are not part
-of this module yet.
+``--dp N`` (JAX ``:413-449``) starts N worker processes, one per GPU
+(``cuda:i``), each on its share of the list (``shard_names(names, i, N)``)
+and writing its own images' files, as the reference scales inference (one
+process per GPU over a split list); no collective is needed. JAX's one
+controller shards the TTA views over N chips instead; the port's
+per-image time is mostly host work, which one Python thread would
+serialize. With ``--pamr``, each worker runs K3 and K4 on its own images
+(JAX's ``pamr_sharded``). The scanned trunk of the JAX CLI is not part
+of this module.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import multiprocessing
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from concurrent.futures import ProcessPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +56,8 @@ from acr_wsss_tpu_torch.models.acr import ACR
 from acr_wsss_tpu_torch.models.convert import flax_to_state_dict
 from acr_wsss_tpu_torch.ops import crf as crf_ops
 from acr_wsss_tpu_torch.ops import imops
-from acr_wsss_tpu_torch.ops.pamr import make_pamr_fn
+from acr_wsss_tpu_torch.ops.attn_cuda import fused_attention_qkv_cols
+from acr_wsss_tpu_torch.ops.pamr import make_pamr_fn, pamr_affinity, pamr_update
 from acr_wsss_tpu_torch.utils.checkpoint import load_params_npz
 
 
@@ -252,8 +263,63 @@ def load_model(cfg: InferConfig) -> ACR:
 
 def run(cfg: InferConfig) -> Dict[str, int]:
     """The CAM pass over ``cfg.infer_list`` and what ``cfg`` asks to be
-    written. Returns how many images the --out_crf stage ran on each
-    route, {"device": n, "host": m}."""
+    written, in ``cfg.dp`` worker processes when it is above 1. Returns
+    how many images the --out_crf stage ran on each route, {"device": n,
+    "host": m}."""
+    if cfg.dp > 1:
+        reports = run_workers(cfg)
+        return {k: sum(r["routes"][k] for r in reports) for k in ("device", "host")}
+    return _run(cfg, 0, 1)
+
+
+def run_workers(cfg: InferConfig, devices: Optional[Sequence[str]] = None) -> List[dict]:
+    """``--dp``: ``cfg.dp`` spawned worker processes, worker i on
+    ``devices[i]`` (default ``cuda:i``; every worker on the CPU for
+    ``--device cpu``) and ``shard_names(names, i, dp)``. Returns each
+    worker's report: its routes and its kernel launches
+    (:func:`launch_counts`). Fails, as JAX does, when fewer GPUs are
+    visible than workers asked for."""
+    dp = cfg.dp
+    if devices is None:
+        if torch.device(cfg.device).type == "cuda":
+            visible = torch.cuda.device_count()
+            if dp > visible:
+                raise ValueError(f"--dp {dp} requested but only {visible} devices "
+                                 "visible (cuda)")
+            devices = [f"cuda:{i}" for i in range(dp)]
+        else:
+            devices = [cfg.device] * dp
+    threads = cpu_threads_per_worker(dp)
+    with ProcessPoolExecutor(max_workers=dp,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(_worker, dataclasses.replace(cfg, dp=0, device=str(d)), i, dp,
+                               threads) for i, d in enumerate(devices)]
+        return [f.result() for f in futures]
+
+
+def cpu_threads_per_worker(dp: int) -> int:
+    """Torch threads of a worker on the CPU: this process's, shared out."""
+    return max(1, torch.get_num_threads() // dp)
+
+
+def _worker(cfg: InferConfig, index: int, count: int, threads: int) -> dict:
+    if torch.device(cfg.device).type == "cpu":
+        torch.set_num_threads(threads)
+    routes = _run(cfg, index, count)
+    return {"routes": routes, "launches": launch_counts()}
+
+
+def launch_counts() -> Dict[str, int]:
+    """This process's launches of the inference path's kernels: K1f
+    (``attention_qkv_cols``), K1n, K3 (``pamr_affinity``), K4."""
+    noexport = fused_attention_qkv_cols.launches_noexport
+    return {"attention_qkv_cols": fused_attention_qkv_cols.launches - noexport,
+            "attention_qkv_cols_noexport": noexport,
+            "pamr_affinity": pamr_affinity.launches, "pamr_update": pamr_update.launches}
+
+
+def _run(cfg: InferConfig, index: int, count: int) -> Dict[str, int]:
+    """``run`` on ``shard_names(names, index, count)``."""
     model = load_model(cfg)
     infer_fns = {
         scale: build_infer_fn(model, int(cfg.crop_size * scale), cfg.start_layer,
@@ -277,6 +343,7 @@ def run(cfg: InferConfig) -> Dict[str, int]:
         names = (voc_data.read_file_2(cfg.infer_list) if first_line.startswith("/")
                  else voc_data.read_file(cfg.infer_list))
         labels = voc_data.load_cls_labels(cfg.cls_labels_path)
+    names = voc_data.shard_names(names, index, count)
     if cfg.out_cam:
         os.makedirs(cfg.out_cam, exist_ok=True)
     routes = {"device": 0, "host": 0}
@@ -356,6 +423,9 @@ def parse_args(argv=None) -> InferConfig:
     parser.add_argument("--scales", default="1.0",
                         help="comma-separated multi-scale TTA factors; each "
                              "crop_size*scale must be a multiple of 16")
+    parser.add_argument("--dp", default=0, type=int,
+                        help="data-parallel inference: worker processes, one per GPU, "
+                             "each on its share of the list (0/1 = one process)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     scales = tuple(float(s) for s in args.scales.split(",") if s.strip())
@@ -373,7 +443,7 @@ def parse_args(argv=None) -> InferConfig:
         cls_labels_path=args.cls_labels, class_slots=args.class_slots,
         batch_images=args.batch_images, pamr_iters=args.pamr,
         pamr_dilations=tuple(int(d) for d in args.pamr_dilations.split(",") if d.strip()),
-        device=args.device)
+        dp=args.dp, device=args.device)
 
 
 def main(argv=None) -> None:

@@ -144,15 +144,18 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray],
     return out
 
 
-def state_dict_to_flax(module: nn.Module) -> Dict[str, np.ndarray]:
-    """The flat ``{flax_path: np.ndarray}`` dict of ``module``'s parameters,
-    "params/"-prefixed as the JAX trainer saves them: the inverse of
-    :func:`flax_to_state_dict`. Module types decide the leaf names
-    (the stem's GroupNorm one level down, ``kernel`` for Dense and conv
-    weights, a transposed conv's flipped back)."""
+def state_dict_to_flax(module: nn.Module, state_dict: Optional[Mapping[str, torch.Tensor]] = None
+                       ) -> Dict[str, np.ndarray]:
+    """The flat ``{flax_path: np.ndarray}`` dict of ``module``'s parameters
+    (or of ``state_dict``, full tensors of ``module``'s, e.g. FSDP's
+    gathered), "params/"-prefixed as the JAX trainer saves them: the
+    inverse of :func:`flax_to_state_dict`. Module types decide the leaf
+    names (the stem's GroupNorm one level down, ``kernel`` for Dense and
+    conv weights, a transposed conv's flipped back)."""
     kinds = {name: type(m) for name, m in module.named_modules()}
     flat: Dict[str, np.ndarray] = {}
-    for key, tensor in module.state_dict().items():
+    state_dict = module.state_dict() if state_dict is None else state_dict
+    for key, tensor in state_dict.items():
         owner, leaf = key.rsplit(".", 1) if "." in key else ("", key)
         value = tensor.detach().cpu().float().numpy()
         kind = kinds.get(owner)

@@ -1,0 +1,15 @@
+"""Data parallelism of the port: process groups, meshes, DDP and FSDP.
+
+Counterpart of ``acr_wsss_tpu/parallel`` on its data axis. Tensor,
+sequence and pipeline parallelism (``TP_RULES``, ``seq_axis``,
+``make_train_step_pp``) are not ported.
+"""
+
+from acr_wsss_tpu_torch.parallel.mesh import (  # noqa: F401
+    make_data_mesh_for_batch,
+    make_mesh,
+)
+from acr_wsss_tpu_torch.parallel.sharding import (  # noqa: F401
+    apply_fsdp,
+    wrap_ddp,
+)

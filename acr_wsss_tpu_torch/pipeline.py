@@ -18,9 +18,11 @@ from ``--bbox_dir`` txts, validation images from ``--valpath``, 81-class
 eval. ``--train_relaunches N`` runs the train stage under the relaunch
 supervisor (``utils/supervisor.py``; pair it with ``--step_timeout_s``).
 ``--out_crf D [--crf_device]`` and ``--heatmap H`` add the infer stage's
-CRF-fused CAMs and heatmaps (``infer_cam.py``). Flags of parts not yet
-ported (``--infer_scan``, ``--infer_dp``) are not defined, so argparse
-refuses them.
+CRF-fused CAMs and heatmaps (``infer_cam.py``). ``--infer_dp N`` runs
+the infer stage in N worker processes, one per GPU. Launched by
+``torchrun``, the train stage runs data-parallel on every rank (``train.py``)
+and rank 0 alone then runs infer and eval. ``--infer_scan`` (the scanned
+trunk) is refused.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import os
 from typing import Optional, Sequence
 
 from acr_wsss_tpu_torch.configs import EvalConfig, InferConfig, ModelConfig, TrainConfig
+from acr_wsss_tpu_torch.parallel import distributed
 
 STAGES = ("train", "infer", "eval")
 
@@ -44,7 +47,10 @@ def run_pipeline(train_cfg: TrainConfig, infer_cfg: InferConfig, eval_cfg: EvalC
         else:
             from acr_wsss_tpu_torch.train import train
 
+            # Every rank returns once rank 0 has written the npz.
             train(train_cfg)
+    if distributed.rank() != 0:
+        return
     if "infer" in stages:
         from acr_wsss_tpu_torch.infer_cam import run as infer_run
 
@@ -143,6 +149,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--infer_batch_images", default=4, type=int,
                         help="images per inference pass (identical outputs "
                              "to one-at-a-time)")
+    parser.add_argument("--infer_dp", default=0, type=int,
+                        help="infer stage: worker processes, one per GPU (0/1 = one "
+                             "process)")
+    parser.add_argument("--infer_scan", action="store_true",
+                        help="refused: the scanned trunk is not ported")
     parser.add_argument("--infer_scales", default="1.0",
                         help="infer stage: comma-separated multi-scale TTA "
                              "factors; each crop_size*scale must be a "
@@ -169,6 +180,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if not set(stages) <= set(STAGES):
         parser.error(f"--stages takes a subset of {','.join(STAGES)}, got {args.stages}")
     args.stages = stages
+    if args.infer_scan:
+        parser.error("--infer_scan: the scanned trunk (and the pipeline parallelism it "
+                     "serves) is not ported; the unrolled trunk reads a scanned "
+                     "checkpoint")
+    if args.train_relaunches and distributed.launched():
+        parser.error("--train_relaunches under a launcher: use the launcher's restarts "
+                     "(torchrun --max-restarts)")
     if args.dataset == "coco" and not args.bbox_dir:
         parser.error("--dataset coco requires --bbox_dir")
     args.infer_scales = tuple(float(s) for s in args.infer_scales.split(",") if s.strip())
@@ -222,7 +240,7 @@ def configs(args: argparse.Namespace):
         out_cam=args.out_cam, out_crf=args.out_crf, crf_device=args.crf_device,
         heatmap=args.heatmap, image_dir=args.IMpath, infer_list=infer_list,
         cls_labels_path=labels_path, batch_images=args.infer_batch_images,
-        pamr_iters=args.pamr, device=args.device)
+        pamr_iters=args.pamr, dp=args.infer_dp, device=args.device)
     eval_cfg = EvalConfig(
         predict_dir=args.out_cam, gt_dir=args.gt_dir, name_list=infer_list,
         logfile=args.logfile,
@@ -234,7 +252,11 @@ def configs(args: argparse.Namespace):
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
-    run_pipeline(*configs(args), stages=args.stages, train_relaunches=args.train_relaunches)
+    try:
+        run_pipeline(*configs(args), stages=args.stages,
+                     train_relaunches=args.train_relaunches)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

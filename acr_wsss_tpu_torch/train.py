@@ -32,20 +32,41 @@ come back exits the process with 75 (``utils/watchdog.py``), which
 end the loop writes ``<checkpoint_dir>/<session>_last.npz`` in the JAX
 package's flat flax format, which both packages' ``infer_cam`` read.
 
-Multi-host and multi-GPU data parallelism, FSDP and the pipeline mesh are
-not part of this module.
+Data parallelism (``:229-441`` under a data mesh; ``parallel/``): one
+process per GPU, started by a launcher::
+
+    torchrun --standalone --nproc_per_node 8 -m acr_wsss_tpu_torch.train \\
+        --mesh data=8 [--fsdp] ...
+
+joins a process group (NCCL; gloo on the CPU), and the ranks of the
+data mesh (``--mesh data=-1``: the largest divisor of the global batch;
+the rest idle) each take ``batch_size / ranks`` examples of every step
+from their share of the data order (``TrainIterator``'s host sharding)
+and train one model, wrapped in DDP or, with ``--fsdp``, sharded by FSDP2.
+The loss parts and the validation loss are averaged over the ranks; rank
+0 alone prints, writes metrics, traces and saves. A checkpoint holds the
+one-device layout (FSDP's shards gathered), and any world size, with or
+without FSDP, resumes from it. A preemption signal is agreed over the
+ranks every ``log_every`` steps, so that all of them stop at one step.
+``--multihost`` requires the launcher's environment (multi-node runs).
+The model, seq and pipe axes of the JAX mesh are refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
+import math
 import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.nn.parallel import DistributedDataParallel
 
 from acr_wsss_tpu_torch import losses
 from acr_wsss_tpu_torch.configs import ModelConfig, TrainConfig
@@ -54,6 +75,11 @@ from acr_wsss_tpu_torch.data import voc as voc_data
 from acr_wsss_tpu_torch.models import zoo
 from acr_wsss_tpu_torch.models.acr import ACR, init_random_
 from acr_wsss_tpu_torch.models.convert import state_dict_to_flax
+from acr_wsss_tpu_torch.parallel import distributed
+from acr_wsss_tpu_torch.parallel.mesh import (check_axes, in_mesh, make_data_mesh_for_batch,
+                                              make_mesh)
+from acr_wsss_tpu_torch.parallel.sharding import (apply_fsdp, full_tensors, mean_over_ranks_,
+                                                  shard_like, unwrap, wrap_ddp)
 from acr_wsss_tpu_torch.utils.checkpoint import CheckpointManager, save_params_npz
 from acr_wsss_tpu_torch.utils.logging import MetricWriter
 from acr_wsss_tpu_torch.utils.meters import AverageMeter, Timer
@@ -67,10 +93,11 @@ PROFILE_WINDOW = (10, 20)
 
 @dataclasses.dataclass
 class TrainState:
-    """What ``train`` returns: the model, its optimizer, the number of
-    train steps run in this call (``steps``), the JAX ``TrainState.step``
-    (``step``: the restored checkpoint's step, plus one per step run) and
-    every step's loss parts."""
+    """What ``train`` returns: the model (unwrapped from DDP; FSDP's is
+    sharded), its optimizer, the number of train steps run in this call
+    (``steps``), the JAX ``TrainState.step`` (``step``: the restored
+    checkpoint's step, plus one per step run) and every step's loss parts
+    (averaged over the ranks)."""
 
     model: ACR
     optimizer: PolySGD
@@ -85,31 +112,35 @@ def build_model(cfg: ModelConfig) -> ACR:
                probs_dtype=getattr(torch, cfg.probs_dtype), s2d_stem=cfg.s2d_stem)
 
 
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device visible; pass --device cpu to train on the CPU")
-    return device
-
-
-def create_train_state(cfg: TrainConfig, max_step: int, init: bool = True
-                       ) -> Tuple[ACR, PolySGD]:
+def create_train_state(cfg: TrainConfig, max_step: int, init: bool = True,
+                       mesh=None) -> Tuple[torch.nn.Module, PolySGD]:
     """The model with seeded random weights (``cfg.seed``), its trunk from
-    the zoo npz with ``cfg.pretrained``, on ``cfg.device``, and its
-    optimizer; ``max_step`` counts optimizer updates. ``init=False`` skips
-    the seeded init and the graft, for a caller that restores a checkpoint
-    over every parameter."""
-    device = _device(cfg.device)
+    the zoo npz with ``cfg.pretrained``, on ``cfg.device`` (this rank's
+    GPU), and its optimizer; ``max_step`` counts optimizer updates.
+    ``init=False`` skips the seeded init and the graft, for a caller that
+    restores a checkpoint over every parameter. On a data ``mesh`` the
+    model comes back wrapped in DDP, or sharded by FSDP2 with
+    ``cfg.fsdp``; every rank draws the same init."""
+    device = distributed.local_device(cfg.device)
     model = build_model(cfg.model)
     if init and cfg.pretrained:
         zoo.init_with_pretrained(model, cfg.seed)
     elif init:
         init_random_(model, seed=cfg.seed)
     model.to(device)
+    if mesh is not None and cfg.fsdp:
+        apply_fsdp(model, mesh)
     optimizer = make_optimizer(
         model.parameters(), cfg.lr, max_step, cfg.weight_decay, cfg.momentum,
         cfg.poly_power, reference_quirk=cfg.reference_optimizer_quirk,
         clip_grad_norm=cfg.clip_grad_norm, accum_steps=cfg.accum_steps)
+    if mesh is not None and not cfg.fsdp:
+        model = wrap_ddp(model, device, mesh)
+        # Accumulating micro-steps skip DDP's all-reduce (make_train_step):
+        # the optimizer's running mean is averaged over the ranks instead,
+        # once per update.
+        optimizer.average_accumulated = functools.partial(mean_over_ranks_,
+                                                          group=mesh.get_group())
     return model, optimizer
 
 
@@ -118,28 +149,33 @@ def uses_fused_consistency(cfg: TrainConfig) -> bool:
             and cfg.model.attn_impl == "kernel")
 
 
-def make_train_step(model: ACR, optimizer: PolySGD, cfg: TrainConfig,
-                    grid: Tuple[int, int]):
+def make_train_step(model: torch.nn.Module, optimizer: PolySGD, cfg: TrainConfig,
+                    grid: Tuple[int, int], mesh=None):
     """batch {"image" (B, H, W, 3), "label" (B, C)}, or a packed
     ``--device_aug`` batch {"image_u8", "aug", "label"} -> loss parts
     (detached tensors on the device); one forward, backward and optimizer
-    call."""
+    call. ``model`` is an ``ACR``, FSDP's or DDP's; on a data ``mesh``
+    (this rank's share of the global batch) the loss parts come back
+    averaged over its ranks. Under DDP with ``accum_steps`` > 1 no
+    micro-step all-reduces (``no_sync``): the optimizer averages the
+    accumulated mean at the update."""
     alpha = cfg.alpha
     aligned = cfg.aligned_mirror
     fused = uses_fused_consistency(cfg)
-    device = next(model.parameters()).device
+    device = next(unwrap(model).parameters()).device
+    group = None if mesh is None else mesh.get_group()
+    no_sync = isinstance(model, DistributedDataParallel) and optimizer.accum_steps > 1
 
     def loss_fn(x1, labels):
         x2 = torch.flip(x1, dims=(2,))          # horizontal flip (train_acr.py:135)
         b = x1.shape[0]
         if fused:
             xi = torch.stack([x1, x2], dim=1).reshape((2 * b,) + x1.shape[1:])
-            out = model.forward_cls(xi, export="pair_l1",
-                                    mirror_second_half="interleaved")
+            out = model(xi, export="pair_l1", mirror_second_half="interleaved")
             return losses.acr_total_loss_fused(
                 out["logits"][0::2], out["logits"][1::2], out["consistency_sums"],
                 labels, out["n_tokens"], alpha)
-        out = model.forward_cls(torch.cat([x1, x2], dim=0), mirror_second_half=aligned)
+        out = model(torch.cat([x1, x2], dim=0), mirror_second_half=aligned)
         return losses.acr_total_loss_layers(
             out["logits"][:b], out["logits"][b:], out["probs_layers"], labels, grid,
             alpha, aligned=aligned)
@@ -148,18 +184,27 @@ def make_train_step(model: ACR, optimizer: PolySGD, cfg: TrainConfig,
         batch = device_aug.materialize_batch(batch, cfg.crop_size, device)
         x1 = torch.as_tensor(batch["image"], dtype=torch.float32).to(device)
         labels = torch.as_tensor(np.asarray(batch["label"], np.float32)).to(device)
-        total, parts = loss_fn(x1, labels)
-        total.backward()
+        with model.no_sync() if no_sync else contextlib.nullcontext():
+            total, parts = loss_fn(x1, labels)
+            total.backward()
         optimizer.step()
-        return {k: v.detach() for k, v in parts.items()}
+        parts = {k: v.detach() for k, v in parts.items()}
+        if group is not None:
+            values = torch.stack([v.float() for v in parts.values()])
+            dist.all_reduce(values, group=group)
+            parts = dict(zip(parts, values / dist.get_world_size(group)))
+        return parts
 
     return train_step
 
 
-def make_eval_step(model: ACR):
+def make_eval_step(model: torch.nn.Module):
     """batch {"image", "label", "weight"} -> (sum of weighted per-example
     MLSM losses, sum of weights). The weights let validation pad its last
-    batch to the train batch size."""
+    batch to the train batch size. DDP's model runs unwrapped (no
+    collective); FSDP's gathers its shards, so every rank of its mesh
+    calls it the same number of times."""
+    model = unwrap(model)
     device = next(model.parameters()).device
 
     @torch.no_grad()
@@ -167,7 +212,7 @@ def make_eval_step(model: ACR):
         image = torch.as_tensor(np.asarray(batch["image"], np.float32)).to(device)
         labels = torch.as_tensor(np.asarray(batch["label"], np.float32)).to(device)
         weight = torch.as_tensor(np.asarray(batch["weight"], np.float32)).to(device)
-        logits = model.forward_cls(image, export="none")["logits"].float()
+        logits = model(image, export="none")["logits"].float()
         per_class = -(labels * F.logsigmoid(logits) + (1.0 - labels) * F.logsigmoid(-logits))
         return (per_class.mean(dim=-1) * weight).sum(), weight.sum()
 
@@ -190,16 +235,26 @@ def _dataset_setup(cfg: TrainConfig):
             voc_data.load_cls_labels(cfg.cls_labels_path))
 
 
-def validate(cfg: TrainConfig, model: ACR, eval_step, val_names=None, labels=None) -> float:
-    """Mean validation MLSM loss; the last batch is padded with zero-weight
-    rows to the train batch size."""
+def validate(cfg: TrainConfig, model: ACR, eval_step, val_names=None, labels=None,
+             mesh=None) -> float:
+    """Mean validation MLSM loss; each batch is padded with zero-weight
+    rows to the train batch size. On a data ``mesh`` each rank takes its
+    share of the names (``shard_names``) in batches of its share of the
+    batch size, all ranks the same number of batches, and the sums are
+    added over the ranks: the one-process value."""
     if labels is None:
         _, val_names, labels = _dataset_setup(cfg)
     source = voc_data.VOCClassificationSource(cfg.val_image_dir or cfg.image_dir, labels,
                                               cfg.crop_size)
-    bs = max(cfg.batch_size, 1)
+    world, host = (1, 0) if mesh is None else (mesh.size(), mesh.get_local_rank())
+    bs = max(cfg.batch_size // world, 1)
+    batches = iter(voc_data.EvalIterator(source, voc_data.shard_names(val_names, host, world),
+                                         batch_size=bs))
+    empty = {"image": np.zeros((0, cfg.crop_size, cfg.crop_size, 3), np.float32),
+             "label": np.zeros((0, cfg.model.num_classes), np.float32)}
     total, count = 0.0, 0.0
-    for batch in voc_data.EvalIterator(source, val_names, batch_size=bs):
+    for _ in range(math.ceil(math.ceil(len(val_names) / world) / bs)):
+        batch = next(batches, empty)
         n = batch["image"].shape[0]
         image, label = batch["image"], batch["label"]
         if n < bs:
@@ -210,26 +265,34 @@ def validate(cfg: TrainConfig, model: ACR, eval_step, val_names=None, labels=Non
         s, c = eval_step({"image": image, "label": label, "weight": weight})
         total += float(s)
         count += float(c)
+    if mesh is not None:
+        sums = torch.tensor([total, count], dtype=torch.float64, device=mesh.device_type)
+        dist.all_reduce(sums, group=mesh.get_group())
+        total, count = sums.tolist()
     return total / max(count, 1.0)
 
 
-def checkpoint_state(step: int, model: ACR, optimizer: PolySGD) -> dict:
+def checkpoint_state(step: int, model: torch.nn.Module, optimizer: PolySGD) -> dict:
     """What a checkpoint holds: the JAX loop's params, optimizer state and
-    step. The train step draws no random numbers (no dropout; the data
-    order and augmentations come from ``cfg.seed``), so there is no
-    generator state to keep."""
-    return {"model": model.state_dict(), "optimizer": optimizer.state_dict(), "step": step}
+    step, in the one-device layout (FSDP's shards gathered: a collective,
+    called on every rank). The train step draws no random numbers (no
+    dropout; the data order and augmentations come from ``cfg.seed``), so
+    there is no generator state to keep."""
+    return full_tensors({"model": unwrap(model).state_dict(),
+                         "optimizer": optimizer.state_dict(), "step": step})
 
 
-def restore_checkpoint(ckpt: CheckpointManager, model: ACR, optimizer: PolySGD
+def restore_checkpoint(ckpt: CheckpointManager, model: torch.nn.Module, optimizer: PolySGD
                        ) -> Optional[int]:
     """Load the latest entry of ``ckpt`` into ``model`` and ``optimizer``
-    (built over the same parameters); its step, or None when there is
-    none."""
+    (built over the same parameters, on one device, DDP or FSDP with any
+    number of ranks); its step, or None when there is none."""
     restored = ckpt.restore()
     if restored is None:
         return None
-    model.load_state_dict(restored["model"])
+    model = unwrap(model)
+    current = model.state_dict()
+    model.load_state_dict({k: shard_like(v, current[k]) for k, v in restored["model"].items()})
     optimizer.load_state_dict(restored["optimizer"])
     return int(restored["step"])
 
@@ -251,7 +314,44 @@ def _stop_profiler(prof, cfg: TrainConfig) -> None:
     prof.export_chrome_trace(os.path.join(cfg.profile_dir, f"{cfg.session_name}_trace.json"))
 
 
-def train(cfg: TrainConfig) -> TrainState:
+def _fit_data_mesh(cfg: TrainConfig, device: torch.device):
+    """None for one process; else the data mesh, whose extent divides the
+    global batch (``make_data_mesh_for_batch``), or the explicit
+    ``cfg.mesh_shape``."""
+    if not dist.is_initialized():
+        return None
+    if tuple(cfg.mesh_shape) != (-1,) or tuple(cfg.mesh_axes) != ("data",):
+        mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes, device.type)
+    else:
+        mesh = make_data_mesh_for_batch(cfg.batch_size, device.type)
+    if cfg.batch_size % mesh.size():
+        raise ValueError(f"batch {cfg.batch_size} does not split over a data mesh of "
+                         f"{mesh.size()} ranks")
+    return mesh
+
+
+def _agree(flag: bool, mesh, device: torch.device) -> bool:
+    """Whether ``flag`` is set on any rank of ``mesh`` (an all-reduce MAX)."""
+    value = torch.tensor([int(flag)], device=device)
+    dist.all_reduce(value, op=dist.ReduceOp.MAX, group=mesh.get_group())
+    return bool(value.item())
+
+
+def train(cfg: TrainConfig) -> Optional[TrainState]:
+    """The training run of ``cfg``; under a launcher, this rank's part of
+    it. None on a rank outside the data mesh, which idles."""
+    check_axes(cfg.mesh_axes)
+    if cfg.multihost:
+        distributed.require_launcher()
+    distributed.initialize(cfg.device)
+    device = distributed.local_device(cfg.device)
+    mesh = _fit_data_mesh(cfg, device)
+    if not in_mesh(mesh):
+        print(f"rank {distributed.rank()}: outside the data mesh of {mesh.size()} ranks "
+              f"(global batch {cfg.batch_size}); idle", flush=True)
+        return None
+    world, host = (1, 0) if mesh is None else (mesh.size(), mesh.get_local_rank())
+    lead = host == 0
     names, val_names, labels = _dataset_setup(cfg)
     steps_per_epoch = len(names) // cfg.batch_size
     # max_step counts optimizer updates (the poly horizon); with gradient
@@ -263,11 +363,11 @@ def train(cfg: TrainConfig) -> TrainState:
     ckpt = CheckpointManager(os.path.join(cfg.checkpoint_dir, cfg.session_name))
     # A relaunch restores every parameter: the seeded init of ~10^8 of them
     # on the host would only delay it.
-    model, optimizer = create_train_state(cfg, max_step, init=ckpt.latest_step() is None)
-    device = next(model.parameters()).device
-    state = TrainState(model, optimizer)
+    model, optimizer = create_train_state(cfg, max_step, init=ckpt.latest_step() is None,
+                                          mesh=mesh)
+    state = TrainState(unwrap(model), optimizer)
     grid = (cfg.crop_size // 16, cfg.crop_size // 16)
-    train_step = make_train_step(model, optimizer, cfg, grid)
+    train_step = make_train_step(model, optimizer, cfg, grid, mesh)
     eval_step = make_eval_step(model)
 
     start_step = 0
@@ -275,15 +375,17 @@ def train(cfg: TrainConfig) -> TrainState:
     if restored is not None:
         state.step = restored
         start_step = restored + 1
-        print(f"resumed from checkpoint step {restored}", flush=True)
+        if lead:
+            print(f"resumed from checkpoint step {restored}", flush=True)
 
     source = voc_data.VOCClassificationSource(cfg.image_dir, labels, cfg.crop_size,
                                               cache_decoded=cfg.cache_decoded)
-    train_iter = voc_data.TrainIterator(source, names, cfg.batch_size, seed=cfg.seed,
+    train_iter = voc_data.TrainIterator(source, names, cfg.batch_size // world, seed=cfg.seed,
+                                        host_id=host, num_hosts=world,
                                         num_workers=cfg.num_workers,
                                         device_aug=cfg.device_aug, aug_pad=cfg.aug_pad)
     metrics_writer = MetricWriter(
-        os.path.join(cfg.checkpoint_dir, f"{cfg.session_name}_metrics.jsonl"))
+        os.path.join(cfg.checkpoint_dir, f"{cfg.session_name}_metrics.jsonl") if lead else None)
     meter = AverageMeter("loss")
     timer = Timer("Session started: ")
     preempted = False
@@ -294,7 +396,7 @@ def train(cfg: TrainConfig) -> TrainState:
             # step's loss read below is the sync point.
             batch = next(train_iter)
             for step in range(start_step, total_micro_steps + 1):
-                if cfg.profile_dir and step == PROFILE_WINDOW[0]:
+                if lead and cfg.profile_dir and step == PROFILE_WINDOW[0]:
                     profiler = _start_profiler(device)
                 if profiler is not None and step == PROFILE_WINDOW[1]:
                     _stop_profiler(profiler, cfg)
@@ -309,7 +411,7 @@ def train(cfg: TrainConfig) -> TrainState:
                 state.step += 1
                 meter.add({"loss": values["loss"]})
 
-                if step % cfg.log_every == 0:
+                if step % cfg.log_every == 0 and lead:
                     timer.update_progress(max(step, 1) / total_micro_steps)
                     imps = (step + 1) * cfg.batch_size / max(timer.get_stage_elapsed(), 1e-9)
                     loss_avg = meter.pop("loss")
@@ -318,15 +420,25 @@ def train(cfg: TrainConfig) -> TrainState:
                     metrics_writer.write(step, {"loss": loss_avg, "imps": imps, **values})
 
                 if step and step % cfg.val_every == 0 and val_names:
-                    val_loss = validate(cfg, model, eval_step, val_names, labels)
-                    print("val loss: %.4f" % val_loss, flush=True)
+                    val_loss = validate(cfg, model, eval_step, val_names, labels, mesh)
+                    if lead:
+                        print("val loss: %.4f" % val_loss, flush=True)
 
-                if guard.fired or (step and step % cfg.checkpoint_every == 0):
-                    ckpt.save(step, checkpoint_state(step, model, optimizer))
-                if guard.fired:
+                # A signal may reach some ranks only: the flag is agreed
+                # over the ranks every log_every steps (JAX's allgather,
+                # :395-425), so that every rank stops at the same step.
+                fired = guard.fired
+                if mesh is not None:
+                    fired = step % cfg.log_every == 0 and _agree(guard.fired, mesh, device)
+                if fired or (step and step % cfg.checkpoint_every == 0):
+                    full = checkpoint_state(step, model, optimizer)
+                    if lead:
+                        ckpt.save(step, full)
+                if fired:
                     preempted = True
-                    print(f"preempted: checkpoint saved at step {step}; relaunch to resume",
-                          flush=True)
+                    if lead:
+                        print(f"preempted: checkpoint saved at step {step}; relaunch to "
+                              "resume", flush=True)
                     break
                 # After the step's one host sync (the .tolist() above), its
                 # validation and its checkpoint: a hung kernel shows as a
@@ -338,11 +450,16 @@ def train(cfg: TrainConfig) -> TrainState:
         if profiler is not None:
             _stop_profiler(profiler, cfg)
     if not preempted:
-        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-        save_params_npz(os.path.join(cfg.checkpoint_dir, f"{cfg.session_name}_last.npz"),
-                        state_dict_to_flax(model))
-        print("model saved!", flush=True)
+        full = full_tensors(state.model.state_dict())
+        if lead:
+            os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+            save_params_npz(os.path.join(cfg.checkpoint_dir, f"{cfg.session_name}_last.npz"),
+                            state_dict_to_flax(state.model, full))
+            print("model saved!", flush=True)
     ckpt.close()
+    if mesh is not None:
+        # Every rank leaves with rank 0's files written.
+        dist.barrier(group=mesh.get_group())
     return state
 
 
@@ -389,8 +506,19 @@ def parse_args(argv: Optional[List[str]] = None) -> TrainConfig:
                              "rasters (data/device_aug.py)")
     parser.add_argument("--aug_pad", default=512, type=int,
                         help="static pad square for --device_aug rasters")
+    parser.add_argument("--mesh", default="data=-1",
+                        help="device mesh as 'axis=size': 'data=-1' (every rank, cut to "
+                             "the largest divisor of the batch) or 'data=N'")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="shard parameters, gradients and momentum over the data "
+                             "axis (FSDP2) instead of replicating them (DDP)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="require the launcher's environment (RANK, WORLD_SIZE, "
+                             "LOCAL_RANK, MASTER_ADDR, MASTER_PORT): multi-node runs")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    mesh_axes, mesh_shape = zip(*((a.strip(), int(n)) for a, n in
+                                  (kv.split("=") for kv in args.mesh.split(","))))
     return TrainConfig(
         model=ModelConfig(backbone=args.backbone, attn_impl=args.attn_impl,
                           s2d_stem=args.s2d_stem),
@@ -402,11 +530,15 @@ def parse_args(argv: Optional[List[str]] = None) -> TrainConfig:
         accum_steps=args.accum_steps, cache_decoded=args.cache_decoded,
         clip_grad_norm=args.clip_grad_norm, step_timeout_s=args.step_timeout_s,
         pretrained=args.pretrained, device_aug=args.device_aug, aug_pad=args.aug_pad,
-        device=args.device)
+        mesh_shape=tuple(mesh_shape), mesh_axes=tuple(mesh_axes), fsdp=args.fsdp,
+        multihost=args.multihost, device=args.device)
 
 
-def main(argv: Optional[List[str]] = None) -> TrainState:
-    return train(parse_args(argv))
+def main(argv: Optional[List[str]] = None) -> Optional[TrainState]:
+    try:
+        return train(parse_args(argv))
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -39,7 +39,7 @@ from acr_wsss_tpu_torch.data import voc as voc_data
 from acr_wsss_tpu_torch.models.acr import init_random_
 from acr_wsss_tpu_torch.models.convert import state_dict_to_flax
 from acr_wsss_tpu_torch.models.dpt import DPTSegmentationModel
-from acr_wsss_tpu_torch.train import _device
+from acr_wsss_tpu_torch.parallel.distributed import local_device
 from acr_wsss_tpu_torch.utils.checkpoint import save_params_npz
 from acr_wsss_tpu_torch.utils.meters import AverageMeter, Timer
 from acr_wsss_tpu_torch.utils.preemption import PreemptionGuard
@@ -127,7 +127,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def train(args: argparse.Namespace) -> SegRun:
-    device = _device(args.device)
+    device = local_device(args.device)
     names = voc_data.read_file(args.train_list)
     max_step = len(names) // args.batch_size * args.max_epoches
     model = init_random_(DPTSegmentationModel(num_classes=21, backbone_name=args.backbone),

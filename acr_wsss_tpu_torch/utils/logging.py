@@ -10,18 +10,23 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 
 class MetricWriter:
-    """Append-only JSONL metric stream."""
+    """Append-only JSONL metric stream; with ``path`` None it writes
+    nothing (the ranks other than 0 of a data-parallel run)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: Optional[str]):
         self.path = path
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        self._file = open(path, "a", buffering=1)
+        self._file = None
+        if path is not None:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            self._file = open(path, "a", buffering=1)
 
     def write(self, step: int, metrics: Dict[str, Any], kind: str = "train") -> None:
+        if self._file is None:
+            return
         record = {
             "time": time.time(),
             "step": int(step),
@@ -31,7 +36,8 @@ class MetricWriter:
         self._file.write(json.dumps(record) + "\n")
 
     def close(self) -> None:
-        self._file.close()
+        if self._file is not None:
+            self._file.close()
 
     def __enter__(self) -> "MetricWriter":
         return self

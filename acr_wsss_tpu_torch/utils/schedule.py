@@ -21,13 +21,24 @@ the same semantics on ``torch.optim.SGD``:
 ``state_dict`` / ``load_state_dict`` carry everything a resumed run needs:
 SGD's momentum buffers and lr, the schedule's position, the counters and
 the accumulation buffers of an accumulation in progress.
+
+Under data parallelism (``parallel/``) the parameters may be FSDP's
+``DTensor`` shards: the momentum and the accumulation follow their
+placement, clipping takes the global norm over the shards, and
+``load_state_dict`` takes full tensors (the one-device layout of a
+checkpoint) and keeps each rank's shard. A DDP trainer whose micro-steps
+skip the gradient all-reduce sets ``average_accumulated``, which averages
+the accumulated mean over the ranks before each update.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Callable, Iterable, List, Optional
 
 import torch
+import torch.distributed as dist
+
+from acr_wsss_tpu_torch.parallel.sharding import is_dtensor, shard_like
 
 
 def poly_factor(step: int, max_step: int, power: float = 0.9) -> float:
@@ -59,6 +70,7 @@ class PolySGD:
         self.mini_step = 0
         self.updates = 0
         self._acc: List[torch.Tensor] = []
+        self.average_accumulated: Optional[Callable[[List[torch.Tensor]], None]] = None
 
     @property
     def lr(self) -> float:
@@ -80,8 +92,10 @@ class PolySGD:
                 return False
             self.mini_step = 0
             grads = self._acc
+            if self.average_accumulated is not None:
+                self.average_accumulated(grads)
         if self.clip_grad_norm:
-            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            norm = global_norm(grads)
             if norm >= self.clip_grad_norm:
                 grads = [(g / norm) * self.clip_grad_norm for g in grads]
         for p, g in zip(self.params, grads):
@@ -104,12 +118,29 @@ class PolySGD:
                 "acc": list(self._acc) if self.mini_step else []}
 
     def load_state_dict(self, state: dict) -> None:
-        self.sgd.load_state_dict(state["sgd"])
+        self.sgd.load_state_dict(self._shard_state(state["sgd"]))
         self.schedule.load_state_dict(state["schedule"])
         self.mini_step = int(state["mini_step"])
         self.updates = int(state["updates"])
-        device = self.params[0].device if self.params else None
-        self._acc = [a.to(device) for a in state["acc"]]
+        self._acc = [shard_like(a, p).to(p.device) for a, p in zip(state["acc"], self.params)]
+
+    def _shard_state(self, sgd_state: dict) -> dict:
+        """SGD's state with each full tensor cut to its parameter's
+        placement (a no-op for plain parameters)."""
+        per_param = {i: {k: shard_like(v, self.params[i]) if isinstance(v, torch.Tensor)
+                         else v for k, v in entry.items()}
+                     for i, entry in sgd_state["state"].items()}
+        return {**sgd_state, "state": per_param}
+
+
+def global_norm(grads: List[torch.Tensor]) -> float:
+    """sqrt of the sum of squares of ``grads``; over FSDP's shards, the
+    sums of squares of each rank's shards, summed over the ranks."""
+    local = [g.to_local() if is_dtensor(g) else g for g in grads]
+    sq = sum((g.float() ** 2).sum() for g in local)
+    if any(is_dtensor(g) for g in grads):
+        dist.all_reduce(sq, group=grads[0].device_mesh.get_group())
+    return float(torch.sqrt(sq))
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, max_step: int,

@@ -111,7 +111,22 @@ package. Phases, each of which fails the run when it fails:
    (``flax_params_to_torch_state_dict``), ``torch.save``d, through the
    convert CLI with and without ``--scan``: ``infer_cam`` on each npz
    gives the original weights' CAMs to the bit;
-13. timing: per-image latency with and without PAMR, the PAMR step's device
+13. parallel, on the one card: (a) DDP and FSDP2 (``train.py``,
+   ``parallel/``) at world size 1 over NCCL (a ``file://`` store), one
+   step each from phase 7's weights and batch against phase 7's
+   one-device kernel step, within its step gates, 12 K2f and 12 K2b
+   launches each, and the three step times, median of 5 after a warm-up;
+   (b) two spawned ranks on the card over gloo (NCCL refuses two ranks on
+   one GPU), 2 + 2 images, a DDP and an FSDP2 step against the one-device
+   step that accumulates the same 2 + 2 images (the same function on the
+   same shapes; the step on 4 images in one call rounds the stem's bf16
+   gradients otherwise, printed beside it); (c) ``infer_cam --dp 2``'s worker processes, both on cuda:0
+   through the device list, on phase 4's images with phase 4's weights,
+   without and with ``--pamr 10``, against one process: the CAM gates, the
+   same bits printed, K1f, K3 and K4 launches summed over the workers
+   equal to one process's; (d) ``--dp`` beyond the visible GPUs fails with
+   JAX's message;
+14. timing: per-image latency with and without PAMR, the PAMR step's device
    time, train step time and images/s, the training loop's step time fed
    by the host path and by ``--device_aug``, device time breakdowns, each
    kernel's device time (CUDA events around launches enqueued while the
@@ -194,6 +209,9 @@ from acr_wsss_tpu_torch.utils.checkpoint import (CheckpointManager,  # noqa: E40
                                                  load_params_npz, save_params_npz)
 from acr_wsss_tpu_torch.utils.schedule import make_optimizer, poly_factor  # noqa: E402
 from acr_wsss_tpu_torch.utils.supervisor import run_train_supervised  # noqa: E402
+from acr_wsss_tpu_torch.parallel import distributed  # noqa: E402
+from acr_wsss_tpu_torch.parallel.mesh import make_data_mesh_for_batch  # noqa: E402
+from acr_wsss_tpu_torch.parallel.sharding import full_tensors, shard_like, unwrap  # noqa: E402
 
 WEIGHTS = os.path.join(ROOT, "bench_artifacts", "stability_r3", "stability_r3_last.npz")
 CROP, START_LAYER, CLASS_SLOTS, HEADS, HEAD_DIM, DEPTH = 384, 10, 4, 12, 64, 12
@@ -374,6 +392,14 @@ except ImportError:
     pass
 print(json.dumps({"ms": ms, "device": str(inputs["x"].device)}))
 """
+# Phase 13, data parallelism on the one card: step timing rounds (one
+# step of each arm per round, after the compared step as a warm-up), the
+# ranks of part (b) and the --dp workers of part (c). NCCL refuses two
+# ranks on one GPU, so (b) runs over gloo, which carries every collective
+# that DDP and FSDP2 issue there (all-reduce, all-gather into a tensor,
+# reduce-scatter of a tensor; checked on an H100 before the phase was
+# written).
+DP_TIMING_ROUNDS, DP_RANKS = 5, 2
 KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL, pamr_ops.KERNEL)
 
 
@@ -938,7 +964,7 @@ def phase_step_compare(device, cfg):
     """One train step, kernel path against plain path, from the same seeded
     weights and the first training batch. Returns (fused kernel step's
     model, optimizer, batch, per-layer launches, (weights, batch,
-    the plain step))."""
+    the plain step), the fused kernel step)."""
     weights = init_random_(train_mod.build_model(cfg.model), seed=cfg.seed).state_dict()
     labels = voc_data.load_cls_labels(cfg.cls_labels_path)
     it = voc_data.TrainIterator(
@@ -974,7 +1000,7 @@ def phase_step_compare(device, cfg):
         raise AssertionError(f"expected {depth} K1f and {depth} K1b launches, no other")
     compare_steps("per-layer branch", per_layer, plain)
     del per_layer
-    return fused[0], fused[1], batch, launches, (weights, batch, plain)
+    return fused[0], fused[1], batch, launches, (weights, batch, plain), fused
 
 
 def read_metrics(cfg):
@@ -2089,6 +2115,253 @@ def phase_surface(device, tmp, paths, labels, card) -> None:
     del ref_model, infer_k
 
 
+def dp_model(cfg, weights, mesh):
+    """(model, optimizer, train step) of ``cfg`` from ``weights``, on
+    ``mesh`` (DDP, or FSDP2 with ``cfg.fsdp``; None: one device)."""
+    model, opt = train_mod.create_train_state(cfg, TRAIN_IMAGES // TRAIN_BATCH, init=False,
+                                              mesh=mesh)
+    base = unwrap(model)
+    current = base.state_dict()
+    base.load_state_dict({k: shard_like(v.to(current[k].device), current[k])
+                          for k, v in weights.items()})
+    grid = (cfg.crop_size // 16, cfg.crop_size // 16)
+    return model, opt, train_mod.make_train_step(model, opt, cfg, grid, mesh)
+
+
+def dp_first_step(cfg, weights, batch, mesh):
+    """One step of ``dp_model`` on ``batch``: (model, optimizer, step, loss
+    parts, launches)."""
+    model, opt, step = dp_model(cfg, weights, mesh)
+    reset_counts()
+    parts = {k: float(v) for k, v in step(batch).items()}
+    torch.cuda.synchronize()
+    return model, opt, step, parts, read_counts()
+
+
+def one_device_accumulated(cfg, weights, batch, ref):
+    """The one-device kernel step on ``batch`` as DP_RANKS accumulated
+    micro-steps of the ranks' shares, in ``step_on``'s form: the loss
+    parts are the micro-steps' mean, as the ranks report them."""
+    model, opt, step = dp_model(dataclasses.replace(cfg, accum_steps=DP_RANKS), weights, None)
+    per = cfg.batch_size // DP_RANKS
+    micro = [{k: float(v) for k, v in step({k: v[r * per:(r + 1) * per]
+                                             for k, v in batch.items()}).items()}
+             for r in range(DP_RANKS)]
+    parts = {k: float(np.mean([m[k] for m in micro])) for k in micro[0]}
+    return model, opt, parts, ref[3], dp_params(model)
+
+
+def dp_params(model) -> dict:
+    """The parameters of ``model``; FSDP's gathered (a collective)."""
+    return full_tensors({k: v.detach() for k, v in unwrap(model).named_parameters()})
+
+
+def dp_rank(rank, world, store, tmp, cfg):
+    """Part (b): one of ``world`` ranks on the one card, over gloo; each
+    takes its share of the batch, a DDP step, then an FSDP2 step, and
+    writes the loss parts, launches and parameters after of each: DDP's
+    whole (rank 0), FSDP's as this rank's shards with their dimension.
+    ``DTensor.full_tensor`` (a functional all-gather and its wait) ends
+    the process with SIGSEGV over gloo on CUDA tensors, while FSDP2's own
+    all-gather and reduce-scatter run there, so the parent joins the
+    shards."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize("cuda:0", init_method=f"file://{store}", rank=rank,
+                           world_size=world, backend="gloo")
+    weights = torch.load(os.path.join(tmp, "dp_weights.pt"), weights_only=True)
+    batch = dict(np.load(os.path.join(tmp, "dp_batch.npz")))
+    per = cfg.batch_size // world
+    share = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+    out = {}
+    for name in ("ddp", "fsdp"):
+        ccfg = dataclasses.replace(cfg, fsdp=name == "fsdp", device="cuda:0")
+        mesh = make_data_mesh_for_batch(ccfg.batch_size, "cuda")
+        model, _, _, parts, launches = dp_first_step(ccfg, weights, share, mesh)
+        if ccfg.fsdp:
+            after = {k: (v.detach().to_local().cpu(), v.placements[0].dim)
+                     for k, v in model.named_parameters()}
+        else:
+            after = {k: v.cpu() for k, v in dp_params(model).items()}
+        out[name] = {"parts": parts, "after": after, "launches": launches}
+        del model
+    torch.save(out, os.path.join(tmp, f"dp_rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def dp_joined(outs, name) -> dict:
+    """Part (b)'s parameters after, FSDP's shards of the ranks joined."""
+    if name != "fsdp":
+        return outs[0][name]["after"]
+    return {k: torch.cat([o[name]["after"][k][0] for o in outs], dim=dim)
+            for k, (_, dim) in outs[0][name]["after"].items()}
+
+
+def dp_check(name, parts, after, launches, ref, expected,
+             ref_name="the one-device kernel step") -> None:
+    """A data-parallel step against a one-device kernel step ``ref`` (as
+    ``step_on`` returns it): the step gates, the largest differences,
+    whether the bits are the same, the launches."""
+    log(f"   {name}:")
+    got = (None, None, parts, ref[3], after)
+    compare_steps(name, got, ref, ref_name)
+    loss = max(abs(parts[k] - ref[2][k]) for k in ref[2])
+    param = max(float((after[k] - ref[4][k]).abs().max()) for k in ref[4])
+    log(f"    largest difference: loss parts {loss:.4g}, parameters after {param:.4g} "
+        f"(abs), the same bits: {loss == param == 0}; launches (per rank in (b)) {launches}")
+    if launches != expected:
+        raise AssertionError(f"{name}: launches {launches}, expected {expected}")
+
+
+def dp_infer_config(tmp, names, labels, pamr, out) -> InferConfig:
+    """``infer_cam``'s config for phase 4's images with phase 4's weights,
+    one image per pass (as phase 4 runs them: the launches then add up
+    per image, whatever the worker)."""
+    root = os.path.join(tmp, "dp_infer")
+    if not os.path.exists(root):
+        os.makedirs(root)
+        np.save(os.path.join(root, "cls_labels.npy"), dict(zip(names, labels)))
+        with open(os.path.join(root, "list.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+        if not os.path.exists(WEIGHTS):
+            model = init_random_(ACR(backbone_name="vitb_hybrid"), seed=0)
+            save_params_npz(os.path.join(root, "seeded.npz"), state_dict_to_flax(model))
+    weights = WEIGHTS if os.path.exists(WEIGHTS) else os.path.join(root, "seeded.npz")
+    return InferConfig(weights=weights, crop_size=CROP, start_layer=START_LAYER,
+                       class_slots=CLASS_SLOTS, image_dir=tmp,
+                       infer_list=os.path.join(root, "list.txt"),
+                       cls_labels_path=os.path.join(root, "cls_labels.npy"),
+                       out_cam=os.path.join(root, out), batch_images=1,
+                       pamr_iters=pamr, device="cuda")
+
+
+def read_cam_dir(cfg, names):
+    return [np.load(os.path.join(cfg.out_cam, f"{n}.npy"), allow_pickle=True).item()
+            for n in names]
+
+
+def dp_infer(tmp, names, labels) -> dict:
+    """Part (c): ``--dp 2``'s workers, both on cuda:0, against one process,
+    without and with ``--pamr``. Returns the workers' summed launches."""
+    summed = {}
+    for pamr in (0, PAMR_ITERS):
+        one = dp_infer_config(tmp, names, labels, pamr, f"one_{pamr}")
+        reset_counts()
+        infer_cam.run(one)
+        torch.cuda.synchronize()
+        ref_launches = {k: v for k, v in read_counts().items() if v}
+        two = dataclasses.replace(one, out_cam=one.out_cam.replace("one_", "two_"), dp=DP_RANKS)
+        reports = infer_cam.run_workers(two, devices=["cuda:0"] * DP_RANKS)
+        kernel_ids = {"attention_qkv_cols": "K1f", "attention_qkv_cols_noexport": "K1n",
+                      "pamr_affinity": "K3", "pamr_update": "K4"}
+        launches = {kernel_ids[k]: sum(r["launches"][k] for r in reports) for k in kernel_ids}
+        launches = {k: v for k, v in launches.items() if v}
+        refs, cams = read_cam_dir(one, names), read_cam_dir(two, names)
+        same = all(sorted(a) == sorted(b) and all(np.array_equal(a[c], b[c]) for c in a)
+                   for a, b in zip(refs, cams))
+        log(f"  --dp {DP_RANKS}{f' --pamr {pamr}' if pamr else ''}: workers' launches "
+            f"{[r['launches'] for r in reports]}, summed {launches}; one process {ref_launches}; "
+            f"the same bits as one process: {same}")
+        if any(sorted(a) != sorted(b) for a, b in zip(refs, cams)):
+            raise AssertionError("--dp wrote other classes than one process")
+        check_cams(names, labels, cams, IMAGE_SIZES)
+        compare_cams(f"--dp {DP_RANKS} against one process", cams, refs)
+        if launches != ref_launches:
+            raise AssertionError("the workers' launches do not add up to one process's")
+        summed[pamr] = launches
+    return summed
+
+
+def phase_parallel(device, cfg, tmp, names, labels, fused, card) -> dict:
+    """(a) DDP and FSDP2 on a world-size-1 NCCL group against phase 7's
+    one-device kernel step, and their step times; (b) two ranks on the one
+    card over gloo, 2 + 2 images against the one-device step accumulating
+    the same 2 + 2; (c)
+    ``--dp 2``'s workers against one process; (d) ``--dp`` beyond the
+    visible GPUs refused. (b) runs while (c) does; (a) times alone."""
+    weights, batch, ref = fused
+    batch = {k: np.asarray(batch[k]) for k in ("image", "label")}
+    torch.save(weights, os.path.join(tmp, "dp_weights.pt"))
+    np.savez(os.path.join(tmp, "dp_batch.npz"), **batch)
+    depth = ref[0].spec.depth
+    expected = {**zero_counts(), "K2f": depth, "K2b": depth}
+
+    t0 = time.perf_counter()
+    ranks = torch.multiprocessing.spawn(dp_rank, args=(DP_RANKS, os.path.join(tmp, "dp_store"),
+                                                       tmp, cfg), nprocs=DP_RANKS, join=False)
+    try:
+        log(f"  (c) infer_cam --dp {DP_RANKS}, both workers on cuda:0 through the device "
+            "list, phase 4's images, one image per pass:")
+        infer_launches = dp_infer(tmp, names, labels)
+    finally:
+        while not ranks.join(timeout=300):
+            pass
+    outs = [torch.load(os.path.join(tmp, f"dp_rank{r}.pt"), weights_only=True)
+            for r in range(DP_RANKS)]
+    acc = one_device_accumulated(cfg, weights, batch, ref)
+    rel = update_rel(acc, ref)
+    split = ", ".join(f"{k} {rel[k]:.3g}" for k in sorted(rel, key=rel.get, reverse=True)[:2])
+    loss_rel = max(abs(acc[2][k] - ref[2][k]) / abs(ref[2][k]) for k in ref[2])
+    per = cfg.batch_size // DP_RANKS
+    log(f"  (b) {DP_RANKS} ranks on cuda:0 over gloo, {per} images each "
+        f"({time.perf_counter() - t0:.1f} s with (c)), against the one-device step on the same "
+        f"{DP_RANKS} x {per} images, accumulated: the same function on the same shapes. The "
+        f"one-device step on {cfg.batch_size} images rounds it otherwise in bf16; against it "
+        f"this one's updates read worst {split}, its loss parts {loss_rel:.3g} relative "
+        "(not gated):")
+    for name in ("ddp", "fsdp"):
+        dp_check(f"{DP_RANKS}-rank {name.upper()} step", outs[0][name]["parts"],
+                 {k: v.to(device) for k, v in dp_joined(outs, name).items()},
+                 [o[name]["launches"] for o in outs], acc, [expected] * DP_RANKS,
+                 "the accumulated one-device step")
+        if any(o[name]["parts"] != outs[0][name]["parts"] for o in outs):
+            raise AssertionError(f"{name}: the ranks' averaged loss parts differ")
+    del acc
+
+    log("  (a) world size 1 over NCCL (a file:// store): DDP and FSDP2 steps against the "
+        "one-device kernel step")
+    distributed.initialize("cuda:0", init_method=f"file://{os.path.join(tmp, 'nccl_store')}",
+                           rank=0, world_size=1)
+    try:
+        mesh = make_data_mesh_for_batch(cfg.batch_size, "cuda")
+        arms = {"one device": dp_model(cfg, weights, None)[2]}
+        for name in ("ddp", "fsdp"):
+            ccfg = dataclasses.replace(cfg, fsdp=name == "fsdp")
+            model, _, step, parts, launches = dp_first_step(ccfg, weights, batch, mesh)
+            dp_check(f"world-size-1 {name.upper()} step", parts, dp_params(model), launches,
+                     ref, expected)
+            arms[name.upper()] = step
+        arms["one device"](batch)
+        times = {k: [] for k in arms}
+        for _ in range(DP_TIMING_ROUNDS):
+            for name, step in arms.items():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step(batch)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t1) * 1e3)
+    finally:
+        distributed.shutdown()
+    step_ms = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"  step time, median of {DP_TIMING_ROUNDS} after a warm-up, arms in turn: "
+        + "; ".join(f"{k} {v:.2f} ms (all: {', '.join(f'{t:.2f}' for t in times[k])})"
+                    for k, v in step_ms.items()) + f" [{card}]")
+
+    visible = torch.cuda.device_count()
+    dp = max(DP_RANKS, visible + 1)
+    try:
+        infer_cam.run(dataclasses.replace(dp_infer_config(tmp, names, labels, 0, "refused"),
+                                          dp=dp))
+    except ValueError as e:
+        message = str(e)
+    else:
+        raise AssertionError(f"--dp {dp} with {visible} visible GPUs ran")
+    log(f"  (d) --dp {dp} with {visible} visible: {message}")
+    if f"--dp {dp} requested but only {visible} devices visible" not in message:
+        raise AssertionError("--dp beyond the visible GPUs failed with another message")
+    return {"step_ms": step_ms, "infer_launches": infer_launches}
+
+
 def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
     """Host-clock step time (synchronized) of the fused kernel step: median
     of ``reps`` after a warm-up; then a profiler window of 2 steps."""
@@ -2426,12 +2699,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/13] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/14] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/13] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/14] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         kernel = ""
@@ -2449,35 +2722,37 @@ def main() -> int:
         f"{pamr_ops.affinity_blocks_per_sm(PAMR_DILATIONS)} (at its largest halo), "
         f"pamr_update_kernel<{n_dil}> {pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
-    log("[3/13] kernels against their plain versions on the card")
+    log("[3/14] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/13] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+        log("[4/14] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
             f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
         (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
          pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/13] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/14] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/13] resumable training: preempt and resume, --device_aug, the relaunch "
+        log("[6/14] resumable training: preempt and resume, --device_aug, the relaunch "
             "supervisor, --pretrained, COCO; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_resume(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  resume phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[7/13] one train step, kernel path against plain path, same weights and batch")
+        log("[7/14] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
-        model, opt, batch, layer_launches, step_ctx = phase_step_compare(device, cfg)
+        model, opt, batch, layer_launches, step_ctx, fused = phase_step_compare(device, cfg)
+        dp_ref = (step_ctx[0], batch, fused)
+        del fused
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[8/13] attention entries: K5a, K5b, K5c against their plain versions and "
+        log("[8/14] attention entries: K5a, K5b, K5c against their plain versions and "
             "through autograd; the per-layer branch with a bf16 export")
         t0 = time.perf_counter()
         entry_errs, entry_launches, bf16_launches = phase_attention_entries(
@@ -2485,31 +2760,39 @@ def main() -> int:
         del step_ctx
         log(f"  attention entries phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[9/13] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+        log(f"[9/14] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
             f"crop 384, the recipe")
         t0 = time.perf_counter()
         phase_pipeline(cfg, os.path.join(tmp, "train"))
         log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[10/13] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
+        log("[10/14] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
             "on either route, pseudo_label")
         t0 = time.perf_counter()
         pseudo_dir = phase_crf(device, tmp, paths, labels, infer_launches, card)
         log(f"  CRF phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[11/13] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
+        log("[11/14] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
             f"{SEG_BATCH}; one bf16 seg step, kernel path against plain path")
         t0 = time.perf_counter()
         seg = phase_seg(device, cfg, tmp, pseudo_dir, card)
         log(f"  segmentation phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[12/13] serving and the reference import: the serving export, the convert "
+        log("[12/14] serving and the reference import: the serving export, the convert "
             "CLI; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_surface(device, tmp, paths, labels, card)
         log(f"  serving phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[13/13] timing on {card}")
+        log("[13/14] parallel: DDP, FSDP and --dp on one card; vitb_hybrid, crop 384, "
+            "batch 4, the recipe")
+        t0 = time.perf_counter()
+        names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+        phase_parallel(device, cfg, tmp, names, labels, dp_ref, card)
+        del dp_ref
+        log(f"  parallel phase: {time.perf_counter() - t0:.1f} s")
+
+        log(f"[14/14] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "

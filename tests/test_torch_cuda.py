@@ -616,3 +616,61 @@ def test_serving_artifact_on_the_card_matches_the_live_plain_path(device, tmp_pa
     for k in live:
         assert out[k].device.type == "cuda"
         torch.testing.assert_close(out[k], live[k], rtol=0, atol=1e-5)
+
+
+# --- data parallelism -------------------------------------------------------
+
+@pytest.mark.parametrize("fsdp", [False, True], ids=["ddp", "fsdp"])
+def test_data_parallel_step_at_world_size_1_matches_one_device(device, tmp_path, fsdp):
+    """One fused train step (vit_small, crop 64, batch 2, bf16, K2f and K2b
+    in each of the 12 blocks) wrapped in DDP or sharded by FSDP2 over a
+    world-size-1 NCCL group (a ``file://`` store), against the same step on
+    one device from the same weights and batch: the step gates of
+    ``chip_smoke.py`` and 12 launches of each kernel per step."""
+    import numpy as np
+
+    from acr_wsss_tpu_torch import train as train_mod
+    from acr_wsss_tpu_torch.configs import ModelConfig, TrainConfig
+    from acr_wsss_tpu_torch.models.acr import init_random_
+    from acr_wsss_tpu_torch.ops.attn_pair import (pair_consistency_backward,
+                                                  pair_consistency_forward)
+    from acr_wsss_tpu_torch.parallel import distributed
+    from acr_wsss_tpu_torch.parallel.mesh import make_data_mesh_for_batch
+    from acr_wsss_tpu_torch.parallel.sharding import full_tensors, shard_like, unwrap
+
+    cfg = TrainConfig(model=ModelConfig(backbone="vit_small"), crop_size=64, batch_size=2,
+                      fsdp=fsdp, device="cuda:0")
+    weights = init_random_(train_mod.build_model(cfg.model), seed=2).state_dict()
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.normal(size=(2, 64, 64, 3)).astype(np.float32),
+             "label": (rng.uniform(size=(2, 20)) > 0.7).astype(np.float32)}
+
+    def step(mesh):
+        model, opt = train_mod.create_train_state(cfg, 4, init=False, mesh=mesh)
+        base = unwrap(model)
+        current = base.state_dict()
+        base.load_state_dict({k: shard_like(v.to(device), current[k]) for k, v in weights.items()})
+        counts = (pair_consistency_forward.launches, pair_consistency_backward.launches)
+        parts = train_mod.make_train_step(model, opt, cfg, (4, 4), mesh)(batch)
+        torch.cuda.synchronize()
+        launches = (pair_consistency_forward.launches - counts[0],
+                    pair_consistency_backward.launches - counts[1])
+        return ({k: float(v) for k, v in parts.items()}, full_tensors(base.state_dict()),
+                launches)
+
+    ref_parts, ref_p1, ref_launches = step(None)
+    assert ref_launches == (12, 12)
+    distributed.initialize("cuda:0", init_method=f"file://{tmp_path}/store", rank=0,
+                           world_size=1)
+    try:
+        parts, p1, launches = step(make_data_mesh_for_batch(cfg.batch_size, "cuda"))
+    finally:
+        distributed.shutdown()
+    assert launches == (12, 12)
+    for k, ref in ref_parts.items():
+        assert abs(parts[k] - ref) <= 2e-2 * abs(ref), (k, parts[k], ref)
+    for k, ref in ref_p1.items():
+        ref_u = ref - weights[k].to(device)
+        rel = float((p1[k] - weights[k].to(device) - ref_u).norm()
+                    / ref_u.norm().clamp_min(1e-30))
+        assert rel <= 5e-2, (k, rel)

@@ -12,7 +12,8 @@ supervisor}``; those from CAMs to pseudo masks: ``ops/{crf,bilateral}``,
 ``pseudo_label`` and ``utils/visualization``; and those of the
 segmentation stage: ``models/dpt``, ``train_seg`` and ``utils/metrics``;
 and those of serving and the reference import: ``serving`` and
-``models/convert``, whose CLIs also run there: the reference-checkpoint
+``models/convert``, whose CLIs also run there; and those of data
+parallelism: ``parallel/{distributed,mesh,sharding}``: the reference-checkpoint
 import on a ``torch.save``d checkpoint, then the serving export of the npz
 it wrote, and the artifact's call.
 """
@@ -65,7 +66,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "data.lists", "data.device_aug", "models.zoo", "utils.checkpoint",
                  "utils.logging", "utils.preemption", "utils.watchdog", "utils.supervisor",
                  "ops.crf", "ops.bilateral", "pseudo_label", "utils.visualization",
-                 "models.dpt", "train_seg", "utils.metrics", "serving", "models.convert"):
+                 "models.dpt", "train_seg", "utils.metrics", "serving", "models.convert",
+                 "parallel", "parallel.distributed", "parallel.mesh", "parallel.sharding"):
         assert f"acr_wsss_tpu_torch.{name}" in proc.stdout, name
 
 

@@ -94,9 +94,13 @@ def test_pipeline_all_stages_then_infer_and_eval_again(tiny_voc, tmp_path, capsy
     assert "rerun" in (tmp_path / "evallog.txt").read_text()
 
 
-@pytest.mark.parametrize("flag", [["--infer_scan"], ["--infer_dp", "2"],
+@pytest.mark.parametrize("flag", [["--infer_scan"], ["--infer_dp", "2", "--train_relaunches", "1"],
                                   ["--stages", "train,export"]])
-def test_unported_flags_are_refused(flag, capsys):
+def test_unported_flags_are_refused(flag, capsys, monkeypatch):
+    """The scanned trunk, an unknown stage, and the relaunch supervisor
+    under a launcher (one rank's relaunch would strand the others)."""
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit):
         pipeline.parse_args(["--IMpath", "img", "--gt_dir", "gt", *flag])
     assert "error" in capsys.readouterr().err

@@ -13,7 +13,9 @@ state follows, so both are sharded, as in JAX).
 
 Checkpoints keep the one-device layout: :func:`full_tensors` gathers
 sharded tensors (a collective) and :func:`shard_like` cuts a full tensor
-back to a parameter's placement, with any world size on either side.
+back to a parameter's placement, with any world size on either side;
+:func:`global_norm` is the norm over every rank's shards (the
+optimizer's clipping).
 
 FSDP2 and ``DTensor`` are imported where they are used: their modules
 are slow to import, which every process of a one-device run (the
@@ -112,11 +114,12 @@ def shard_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
                              src_data_rank=None)
 
 
-def mean_over_ranks_(tensors: List[torch.Tensor], group) -> None:
-    """Average ``tensors`` in place over the ranks of ``group``, with one
-    all-reduce of their concatenation (gloo has no AVG)."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=group)
-    flat /= dist.get_world_size(group)
-    for t, chunk in zip(tensors, flat.split([t.numel() for t in tensors])):
-        t.copy_(chunk.view_as(t))
+def global_norm(tensors: List[torch.Tensor]) -> float:
+    """sqrt of the sum of squares of ``tensors``; over FSDP's shards, each
+    rank's sum of squares of its shards, summed over the ranks (a
+    collective)."""
+    local = [t.to_local() if is_dtensor(t) else t for t in tensors]
+    sq = sum((t.float() ** 2).sum() for t in local)
+    if any(is_dtensor(t) for t in tensors):
+        dist.all_reduce(sq, group=tensors[0].device_mesh.get_group())
+    return float(torch.sqrt(sq))

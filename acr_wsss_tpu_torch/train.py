@@ -55,9 +55,7 @@ The model, seq and pipe axes of the JAX mesh are refused.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
-import functools
 import math
 import os
 from typing import Dict, List, Optional, Tuple
@@ -66,7 +64,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.nn.parallel import DistributedDataParallel
 
 from acr_wsss_tpu_torch import losses
 from acr_wsss_tpu_torch.configs import ModelConfig, TrainConfig
@@ -78,8 +75,8 @@ from acr_wsss_tpu_torch.models.convert import state_dict_to_flax
 from acr_wsss_tpu_torch.parallel import distributed
 from acr_wsss_tpu_torch.parallel.mesh import (check_axes, in_mesh, make_data_mesh_for_batch,
                                               make_mesh)
-from acr_wsss_tpu_torch.parallel.sharding import (apply_fsdp, full_tensors, mean_over_ranks_,
-                                                  shard_like, unwrap, wrap_ddp)
+from acr_wsss_tpu_torch.parallel.sharding import (apply_fsdp, full_tensors, shard_like, unwrap,
+                                                  wrap_ddp)
 from acr_wsss_tpu_torch.utils.checkpoint import CheckpointManager, save_params_npz
 from acr_wsss_tpu_torch.utils.logging import MetricWriter
 from acr_wsss_tpu_torch.utils.meters import AverageMeter, Timer
@@ -136,11 +133,6 @@ def create_train_state(cfg: TrainConfig, max_step: int, init: bool = True,
         clip_grad_norm=cfg.clip_grad_norm, accum_steps=cfg.accum_steps)
     if mesh is not None and not cfg.fsdp:
         model = wrap_ddp(model, device, mesh)
-        # Accumulating micro-steps skip DDP's all-reduce (make_train_step):
-        # the optimizer's running mean is averaged over the ranks instead,
-        # once per update.
-        optimizer.average_accumulated = functools.partial(mean_over_ranks_,
-                                                          group=mesh.get_group())
     return model, optimizer
 
 
@@ -156,15 +148,14 @@ def make_train_step(model: torch.nn.Module, optimizer: PolySGD, cfg: TrainConfig
     (detached tensors on the device); one forward, backward and optimizer
     call. ``model`` is an ``ACR``, FSDP's or DDP's; on a data ``mesh``
     (this rank's share of the global batch) the loss parts come back
-    averaged over its ranks. Under DDP with ``accum_steps`` > 1 no
-    micro-step all-reduces (``no_sync``): the optimizer averages the
-    accumulated mean at the update."""
+    averaged over its ranks; with ``accum_steps`` > 1 every micro-step's
+    gradient is averaged over the ranks, so the optimizer's mean of them
+    is the global one."""
     alpha = cfg.alpha
     aligned = cfg.aligned_mirror
     fused = uses_fused_consistency(cfg)
     device = next(unwrap(model).parameters()).device
     group = None if mesh is None else mesh.get_group()
-    no_sync = isinstance(model, DistributedDataParallel) and optimizer.accum_steps > 1
 
     def loss_fn(x1, labels):
         x2 = torch.flip(x1, dims=(2,))          # horizontal flip (train_acr.py:135)
@@ -184,9 +175,8 @@ def make_train_step(model: torch.nn.Module, optimizer: PolySGD, cfg: TrainConfig
         batch = device_aug.materialize_batch(batch, cfg.crop_size, device)
         x1 = torch.as_tensor(batch["image"], dtype=torch.float32).to(device)
         labels = torch.as_tensor(np.asarray(batch["label"], np.float32)).to(device)
-        with model.no_sync() if no_sync else contextlib.nullcontext():
-            total, parts = loss_fn(x1, labels)
-            total.backward()
+        total, parts = loss_fn(x1, labels)
+        total.backward()
         optimizer.step()
         parts = {k: v.detach() for k, v in parts.items()}
         if group is not None:
@@ -330,6 +320,29 @@ def _fit_data_mesh(cfg: TrainConfig, device: torch.device):
     return mesh
 
 
+def _resume_step(ckpt: CheckpointManager, mesh, device: torch.device) -> Optional[int]:
+    """The step of the latest checkpoint, None when there is none. On a
+    data mesh every rank reads ``checkpoint_dir`` itself, and rank 0 alone
+    writes there: the ranks' steps are compared (one all-reduce MAX of
+    (step, -step)), and a rank that sees another step than the rest, as
+    on nodes that do not share the directory, fails the run on every rank."""
+    step = ckpt.latest_step()
+    if mesh is None:
+        return step
+    mine = -1 if step is None else step
+    seen = torch.tensor([mine, -mine], device=device)
+    dist.all_reduce(seen, op=dist.ReduceOp.MAX, group=mesh.get_group())
+    highest, lowest = int(seen[0]), -int(seen[1])
+    if highest != lowest:
+        raise RuntimeError(
+            f"the ranks see other checkpoints under {ckpt.directory}: latest step "
+            f"{'none' if lowest < 0 else lowest} on one rank, {highest} on another (rank "
+            f"{distributed.rank()}: {'none' if step is None else step}); every rank resumes "
+            "from rank 0's checkpoints, so checkpoint_dir must be one directory shared by "
+            "every node")
+    return step
+
+
 def _agree(flag: bool, mesh, device: torch.device) -> bool:
     """Whether ``flag`` is set on any rank of ``mesh`` (an all-reduce MAX)."""
     value = torch.tensor([int(flag)], device=device)
@@ -361,10 +374,10 @@ def train(cfg: TrainConfig) -> Optional[TrainState]:
     total_micro_steps = max_step * accum
 
     ckpt = CheckpointManager(os.path.join(cfg.checkpoint_dir, cfg.session_name))
+    resume = _resume_step(ckpt, mesh, device)
     # A relaunch restores every parameter: the seeded init of ~10^8 of them
     # on the host would only delay it.
-    model, optimizer = create_train_state(cfg, max_step, init=ckpt.latest_step() is None,
-                                          mesh=mesh)
+    model, optimizer = create_train_state(cfg, max_step, init=resume is None, mesh=mesh)
     state = TrainState(unwrap(model), optimizer)
     grid = (cfg.crop_size // 16, cfg.crop_size // 16)
     train_step = make_train_step(model, optimizer, cfg, grid, mesh)

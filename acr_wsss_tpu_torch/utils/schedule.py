@@ -22,23 +22,19 @@ the same semantics on ``torch.optim.SGD``:
 SGD's momentum buffers and lr, the schedule's position, the counters and
 the accumulation buffers of an accumulation in progress.
 
-Under data parallelism (``parallel/``) the parameters may be FSDP's
-``DTensor`` shards: the momentum and the accumulation follow their
-placement, clipping takes the global norm over the shards, and
-``load_state_dict`` takes full tensors (the one-device layout of a
-checkpoint) and keeps each rank's shard. A DDP trainer whose micro-steps
-skip the gradient all-reduce sets ``average_accumulated``, which averages
-the accumulated mean over the ranks before each update.
+Under FSDP the parameters are shards: clipping takes the norm over all
+of them (``parallel.sharding.global_norm``), and ``load_state_dict``
+takes the one-device layout of a checkpoint and keeps this rank's share
+(``parallel.sharding.shard_like``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional
+from typing import Iterable, List
 
 import torch
-import torch.distributed as dist
 
-from acr_wsss_tpu_torch.parallel.sharding import is_dtensor, shard_like
+from acr_wsss_tpu_torch.parallel.sharding import global_norm, shard_like
 
 
 def poly_factor(step: int, max_step: int, power: float = 0.9) -> float:
@@ -70,7 +66,6 @@ class PolySGD:
         self.mini_step = 0
         self.updates = 0
         self._acc: List[torch.Tensor] = []
-        self.average_accumulated: Optional[Callable[[List[torch.Tensor]], None]] = None
 
     @property
     def lr(self) -> float:
@@ -92,8 +87,6 @@ class PolySGD:
                 return False
             self.mini_step = 0
             grads = self._acc
-            if self.average_accumulated is not None:
-                self.average_accumulated(grads)
         if self.clip_grad_norm:
             norm = global_norm(grads)
             if norm >= self.clip_grad_norm:
@@ -131,16 +124,6 @@ class PolySGD:
                          else v for k, v in entry.items()}
                      for i, entry in sgd_state["state"].items()}
         return {**sgd_state, "state": per_param}
-
-
-def global_norm(grads: List[torch.Tensor]) -> float:
-    """sqrt of the sum of squares of ``grads``; over FSDP's shards, the
-    sums of squares of each rank's shards, summed over the ranks."""
-    local = [g.to_local() if is_dtensor(g) else g for g in grads]
-    sq = sum((g.float() ** 2).sum() for g in local)
-    if any(is_dtensor(g) for g in grads):
-        dist.all_reduce(sq, group=grads[0].device_mesh.get_group())
-    return float(torch.sqrt(sq))
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, max_step: int,

@@ -212,6 +212,7 @@ from acr_wsss_tpu_torch.utils.supervisor import run_train_supervised  # noqa: E4
 from acr_wsss_tpu_torch.parallel import distributed  # noqa: E402
 from acr_wsss_tpu_torch.parallel.mesh import make_data_mesh_for_batch  # noqa: E402
 from acr_wsss_tpu_torch.parallel.sharding import full_tensors, shard_like, unwrap  # noqa: E402
+from torch.nn.parallel import DistributedDataParallel  # noqa: E402
 
 WEIGHTS = os.path.join(ROOT, "bench_artifacts", "stability_r3", "stability_r3_last.npz")
 CROP, START_LAYER, CLASS_SLOTS, HEADS, HEAD_DIM, DEPTH = 384, 10, 4, 12, 64, 12
@@ -399,7 +400,19 @@ print(json.dumps({"ms": ms, "device": str(inputs["x"].device)}))
 # that DDP and FSDP2 issue there (all-reduce, all-gather into a tensor,
 # reduce-scatter of a tensor; checked on an H100 before the phase was
 # written).
-DP_TIMING_ROUNDS, DP_RANKS = 5, 2
+DP_TIMING_ROUNDS, DP_RANKS = 8, 2
+# Part (b)'s steps on the ranks: name -> (FSDP, float32 on the plain path).
+# The recipe's bf16 kernel step (K2f, K2b) of the hybrid puts its stem's
+# updates up to 1.42 (relative L2) from the float32 step's on the same
+# images, and a change of the batch's shape alone (4 images, or the same
+# 4 twice: the same update) moves them by 0.294; in float32 with TF32 off,
+# 2 + 2 images read at most 3.1e-05 against 4 on every tensor
+# (docs/dp_split_probe.py, H100, 700 W). So the ranks' global-batch
+# update is held in float32 on every tensor (DDP's; FSDP2's bf16 step is
+# held to DDP's through the accumulated step, to 7e-06), and their bf16
+# steps against the bf16 step on 4 images on every tensor that bf16
+# rounding leaves within the gate (dp_check_global).
+DP_CASES = {"ddp": (False, False), "fsdp": (True, False), "ddp_fp32": (False, True)}
 KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL, pamr_ops.KERNEL)
 
 
@@ -2138,6 +2151,12 @@ def dp_first_step(cfg, weights, batch, mesh):
     return model, opt, step, parts, read_counts()
 
 
+def fp32_plain(cfg):
+    """``cfg`` in float32 on the plain per-layer path (no kernel)."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32", attn_impl="plain"))
+
+
 def one_device_accumulated(cfg, weights, batch, ref):
     """The one-device kernel step on ``batch`` as DP_RANKS accumulated
     micro-steps of the ranks' shares, in ``step_on``'s form: the loss
@@ -2158,13 +2177,13 @@ def dp_params(model) -> dict:
 
 def dp_rank(rank, world, store, tmp, cfg):
     """Part (b): one of ``world`` ranks on the one card, over gloo; each
-    takes its share of the batch, a DDP step, then an FSDP2 step, and
-    writes the loss parts, launches and parameters after of each: DDP's
-    whole (rank 0), FSDP's as this rank's shards with their dimension.
-    ``DTensor.full_tensor`` (a functional all-gather and its wait) ends
-    the process with SIGSEGV over gloo on CUDA tensors, while FSDP2's own
-    all-gather and reduce-scatter run there, so the parent joins the
-    shards."""
+    takes its share of the batch and runs one step of each of DP_CASES,
+    and writes the loss parts, launches and parameters after of each:
+    DDP's whole (rank 0), FSDP's as this rank's shards with their
+    dimension. ``DTensor.full_tensor`` (a functional all-gather and its
+    wait) ends the process with SIGSEGV over gloo on CUDA tensors, while
+    FSDP2's own all-gather and reduce-scatter run there, so the parent
+    joins the shards."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     distributed.initialize("cuda:0", init_method=f"file://{store}", rank=rank,
@@ -2174,11 +2193,12 @@ def dp_rank(rank, world, store, tmp, cfg):
     per = cfg.batch_size // world
     share = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
     out = {}
-    for name in ("ddp", "fsdp"):
-        ccfg = dataclasses.replace(cfg, fsdp=name == "fsdp", device="cuda:0")
+    for name, (fsdp, fp32) in DP_CASES.items():
+        ccfg = dataclasses.replace(fp32_plain(cfg) if fp32 else cfg, fsdp=fsdp,
+                                   device="cuda:0")
         mesh = make_data_mesh_for_batch(ccfg.batch_size, "cuda")
         model, _, _, parts, launches = dp_first_step(ccfg, weights, share, mesh)
-        if ccfg.fsdp:
+        if fsdp:
             after = {k: (v.detach().to_local().cpu(), v.placements[0].dim)
                      for k, v in model.named_parameters()}
         else:
@@ -2191,18 +2211,45 @@ def dp_rank(rank, world, store, tmp, cfg):
 
 def dp_joined(outs, name) -> dict:
     """Part (b)'s parameters after, FSDP's shards of the ranks joined."""
-    if name != "fsdp":
+    if not DP_CASES[name][0]:
         return outs[0][name]["after"]
     return {k: torch.cat([o[name]["after"][k][0] for o in outs], dim=dim)
             for k, (_, dim) in outs[0][name]["after"].items()}
 
 
+def dp_check_global(name, parts, after, ref, bf16_err) -> None:
+    """Part (b)'s bf16 data-parallel step against the one-device bf16
+    kernel step on the whole batch ``ref``: the loss parts within
+    LOSS_RTOL, and the update of every tensor within UPDATE_REL where the
+    bf16 step is within UPDATE_REL / 2 of the float32 step (``bf16_err``,
+    per tensor): two bf16 steps then agree within UPDATE_REL whatever
+    their roundings. The other tensors are printed beside their bf16
+    error."""
+    log(f"   {name} against the {TRAIN_BATCH}-image one-device kernel step:")
+    got = (None, None, parts, ref[3], after)
+    compare_steps_losses(name, got, ref, "the one-device kernel step")
+    rel = update_rel(got, ref)
+    gated = [k for k in rel if 2 * bf16_err[k] < UPDATE_REL]
+    covered = sorted((k for k in rel if k not in gated), key=rel.get, reverse=True)
+    worst = max(gated, key=rel.get)
+    qkv = max(rel[k] for k in rel if ".attn.qkv." in k)
+    stem = sum(".backbone." in k for k in covered)
+    log(f"    update p1 - p0, relative L2 per tensor: {len(gated)} of {len(rel)} tensors "
+        f"gated, worst {worst} {rel[worst]:.3g} (tolerance {UPDATE_REL}); attention qkv "
+        f"weights at most {qkv:.3g}; not gated, the bf16 step {UPDATE_REL / 2:g} or more "
+        f"from the float32 step: {len(covered)} ({stem} in the stem), worst "
+        + ", ".join(f"{k} {rel[k]:.3g} (bf16 {bf16_err[k]:.3g})" for k in covered[:3]))
+    if rel[worst] > UPDATE_REL:
+        raise AssertionError(f"{name}: parameter updates disagree with the one-device "
+                             "kernel step on the whole batch")
+
+
 def dp_check(name, parts, after, launches, ref, expected,
              ref_name="the one-device kernel step") -> None:
-    """A data-parallel step against a one-device kernel step ``ref`` (as
+    """A data-parallel step against a one-device step ``ref`` (as
     ``step_on`` returns it): the step gates, the largest differences,
     whether the bits are the same, the launches."""
-    log(f"   {name}:")
+    log(f"   {name} against {ref_name}:")
     got = (None, None, parts, ref[3], after)
     compare_steps(name, got, ref, ref_name)
     loss = max(abs(parts[k] - ref[2][k]) for k in ref[2])
@@ -2275,10 +2322,12 @@ def dp_infer(tmp, names, labels) -> dict:
 def phase_parallel(device, cfg, tmp, names, labels, fused, card) -> dict:
     """(a) DDP and FSDP2 on a world-size-1 NCCL group against phase 7's
     one-device kernel step, and their step times; (b) two ranks on the one
-    card over gloo, 2 + 2 images against the one-device step accumulating
-    the same 2 + 2; (c)
-    ``--dp 2``'s workers against one process; (d) ``--dp`` beyond the
-    visible GPUs refused. (b) runs while (c) does; (a) times alone."""
+    card over gloo, 2 + 2 images: in float32 against the one-device
+    float32 step on the 4, and the bf16 kernel steps against the
+    one-device kernel step accumulating the same 2 + 2 and against the one
+    on the 4 (``dp_check_global``); (c) ``--dp 2``'s workers against one
+    process; (d) ``--dp`` beyond the visible GPUs refused. (b) runs while
+    (c) does; (a) times alone."""
     weights, batch, ref = fused
     batch = {k: np.asarray(batch[k]) for k in ("image", "label")}
     torch.save(weights, os.path.join(tmp, "dp_weights.pt"))
@@ -2293,30 +2342,41 @@ def phase_parallel(device, cfg, tmp, names, labels, fused, card) -> dict:
         log(f"  (c) infer_cam --dp {DP_RANKS}, both workers on cuda:0 through the device "
             "list, phase 4's images, one image per pass:")
         infer_launches = dp_infer(tmp, names, labels)
+        # (b)'s one-device references, while the ranks run
+        fcfg = fp32_plain(cfg)
+        model, opt, _ = dp_model(fcfg, weights, None)
+        fp32 = step_on(model, opt, fcfg, batch)
+        del model, opt
+        acc = one_device_accumulated(cfg, weights, batch, ref)
     finally:
         while not ranks.join(timeout=300):
             pass
     outs = [torch.load(os.path.join(tmp, f"dp_rank{r}.pt"), weights_only=True)
             for r in range(DP_RANKS)]
-    acc = one_device_accumulated(cfg, weights, batch, ref)
-    rel = update_rel(acc, ref)
-    split = ", ".join(f"{k} {rel[k]:.3g}" for k in sorted(rel, key=rel.get, reverse=True)[:2])
-    loss_rel = max(abs(acc[2][k] - ref[2][k]) / abs(ref[2][k]) for k in ref[2])
+    bf16_err = update_rel(ref, fp32)
     per = cfg.batch_size // DP_RANKS
+    stem = max((v for k, v in bf16_err.items() if ".backbone." in k), default=0.0)
+    rest = max(v for k, v in bf16_err.items() if ".backbone." not in k)
     log(f"  (b) {DP_RANKS} ranks on cuda:0 over gloo, {per} images each "
-        f"({time.perf_counter() - t0:.1f} s with (c)), against the one-device step on the same "
-        f"{DP_RANKS} x {per} images, accumulated: the same function on the same shapes. The "
-        f"one-device step on {cfg.batch_size} images rounds it otherwise in bf16; against it "
-        f"this one's updates read worst {split}, its loss parts {loss_rel:.3g} relative "
-        "(not gated):")
-    for name in ("ddp", "fsdp"):
-        dp_check(f"{DP_RANKS}-rank {name.upper()} step", outs[0][name]["parts"],
-                 {k: v.to(device) for k, v in dp_joined(outs, name).items()},
-                 [o[name]["launches"] for o in outs], acc, [expected] * DP_RANKS,
-                 "the accumulated one-device step")
-        if any(o[name]["parts"] != outs[0][name]["parts"] for o in outs):
-            raise AssertionError(f"{name}: the ranks' averaged loss parts differ")
-    del acc
+        f"({time.perf_counter() - t0:.1f} s with (c)); the one-device bf16 kernel step's "
+        f"updates read up to {stem:.3g} in the stem and {rest:.3g} elsewhere against the "
+        f"float32 step's on the same {cfg.batch_size} images (plain path, TF32 off):")
+    for name, (fsdp, in_fp32) in DP_CASES.items():
+        label = (f"{DP_RANKS}-rank {'FSDP' if fsdp else 'DDP'} "
+                 f"{'float32' if in_fp32 else 'bf16'} step")
+        parts = outs[0][name]["parts"]
+        after = {k: v.to(device) for k, v in dp_joined(outs, name).items()}
+        launches = [o[name]["launches"] for o in outs]
+        if any(o[name]["parts"] != parts for o in outs):
+            raise AssertionError(f"{label}: the ranks' averaged loss parts differ")
+        if in_fp32:
+            dp_check(label, parts, after, launches, fp32, [zero_counts()] * DP_RANKS,
+                     f"the {cfg.batch_size}-image one-device float32 step")
+            continue
+        dp_check(label, parts, after, launches, acc, [expected] * DP_RANKS,
+                 f"the {DP_RANKS} x {per}-image accumulated one-device kernel step")
+        dp_check_global(label, parts, after, ref, bf16_err)
+    del acc, fp32
 
     log("  (a) world size 1 over NCCL (a file:// store): DDP and FSDP2 steps against the "
         "one-device kernel step")
@@ -2331,6 +2391,20 @@ def phase_parallel(device, cfg, tmp, names, labels, fused, card) -> dict:
             dp_check(f"world-size-1 {name.upper()} step", parts, dp_params(model), launches,
                      ref, expected)
             arms[name.upper()] = step
+        # DDP as wrap_ddp builds it searches the graph for unused parameters
+        # every step (find_unused_parameters, for trunk.norm); this arm
+        # tells DDP to leave trunk.norm out instead. A parameter that no
+        # step reached would fail its next step.
+        model, opt, _ = dp_model(cfg, weights, None)
+        DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
+            model, ["trunk.norm.weight", "trunk.norm.bias"])
+        model = DistributedDataParallel(model, device_ids=[0], process_group=mesh.get_group())
+        step = train_mod.make_train_step(model, opt, cfg, (cfg.crop_size // 16,) * 2, mesh)
+        reset_counts()
+        parts = {k: float(v) for k, v in step(batch).items()}
+        dp_check("world-size-1 DDP step, trunk.norm ignored", parts, dp_params(model),
+                 read_counts(), ref, expected)
+        arms["DDP, trunk.norm ignored"] = step
         arms["one device"](batch)
         times = {k: [] for k in arms}
         for _ in range(DP_TIMING_ROUNDS):

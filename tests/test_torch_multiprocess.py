@@ -5,14 +5,17 @@ On the tiny VOC fixture of ``tests/test_torch_resume.py`` (8 images of
 at crop 32 in float32, ranks spawned over gloo and a ``file://`` store:
 
 * ``train.train`` through ``--multihost`` with the launcher's variables in
-  each rank's environment, 3 ranks at global batch 4: the data mesh takes
-  2 ranks (the largest divisor of the batch), the third idles and returns
-  None. SIGTERM to rank 1 alone: the flag is agreed at the next
-  ``log_every`` step, and both ranks stop there with one checkpoint.
-  The relaunch resumes on both and finishes the 5 steps with the same
-  loss parts; rank 0 alone writes the ``_last.npz`` and the metrics (one
-  record per logged step); the last validation loss, reduced over the
-  ranks, equals one process's validation of the npz's weights.
+  each rank's environment, 2 ranks at global batch 4. SIGTERM to rank 1
+  alone: the flag is agreed at the next ``log_every`` step, and both
+  ranks stop there with one checkpoint. The relaunch resumes on both and
+  finishes the 5 steps with the same loss parts; rank 0 alone writes the
+  ``_last.npz`` and the metrics (one record per logged step); the last
+  validation loss, reduced over the ranks, equals one process's
+  validation of the npz's weights. A launch in which rank 1 sees no
+  checkpoint where rank 0 sees one fails on both ranks.
+* A rank beyond the data mesh (the largest divisor of the global batch
+  that the ranks can hold) idles: ``train.train`` returns None there, on
+  torch's in-process fake process group.
 * ``--multihost`` without a launcher's environment fails with its message.
 * ``infer_cam --dp 2 --device cpu`` writes the files of ``--dp 0``, with
   and without ``--pamr 2``, to the bit, although each worker batches its
@@ -86,28 +89,27 @@ def _cfg(root, weight_dir, **kw):
 
 @pytest.fixture(scope="module")
 def runs(tiny_voc, tmp_path_factory):
-    """3 ranks at global batch 4 (2 train, 1 idles): a run with SIGTERM to
-    rank 1 alone after step 1, then a relaunch that resumes from its
-    checkpoint and finishes; each rank's results of both runs."""
+    """2 ranks at global batch 4: a run with SIGTERM to rank 1 alone after
+    step 1, a relaunch that resumes from its checkpoint and finishes, and
+    a launch whose rank 1 sees another checkpoint directory; each rank's
+    results of the three."""
     weight = tmp_path_factory.mktemp("mp_weight")
     cfg = _cfg(tiny_voc, weight)
-    mp.spawn(workers.train_job, args=(3, str(weight / "store"), cfg, 1, 1), nprocs=3,
+    mp.spawn(workers.train_job, args=(2, str(weight / "store"), cfg, 1, 1), nprocs=2,
              join=True)
-    yield cfg, [torch.load(weight / f"rank{r}.pt", weights_only=False) for r in range(3)]
+    yield cfg, [torch.load(weight / f"rank{r}.pt", weights_only=False) for r in range(2)]
     shutil.rmtree(weight, ignore_errors=True)
 
 
 def test_sigterm_to_one_rank_stops_both_at_one_step(runs):
-    cfg, ((r0, _), (r1, _), (idle, _)) = runs
-    assert idle is None
+    cfg, ((r0, _, _), (r1, _, _)) = runs
     # the signal lands in step 1; the flag is agreed at step 2 (log_every)
     assert (r0["step"], r0["steps"]) == (r1["step"], r1["steps"]) == (3, 3)
     assert r0["history"] == r1["history"]
 
 
 def test_relaunch_on_two_data_ranks_resumes_and_finishes(runs):
-    cfg, ((_, r0), (_, r1), (_, idle)) = runs
-    assert idle is None
+    cfg, ((_, r0, _), (_, r1, _)) = runs
     # the step-2 checkpoint restored (JAX's step count 2), then steps 3 and 4
     assert (r0["step"], r0["steps"]) == (r1["step"], r1["steps"]) == (4, 2)
     assert r0["history"] == r1["history"] and r0["val"] == r1["val"]
@@ -126,6 +128,28 @@ def test_relaunch_on_two_data_ranks_resumes_and_finishes(runs):
         load_params_npz(os.path.join(cfg.checkpoint_dir, "mp_last.npz")), model.state_dict()))
     one = train_mod.validate(cfg, model, train_mod.make_eval_step(model))
     np.testing.assert_allclose(r0["val"][-1], one, rtol=1e-6)
+
+
+def test_ranks_that_see_other_checkpoints_fail(runs):
+    """Rank 0 sees the step-2 checkpoint, rank 1 none: both fail before
+    building the model, rather than train from other states."""
+    _, ((_, _, e0), (_, _, e1)) = runs
+    for error in (e0, e1):
+        assert error is not None and "shared by every node" in error
+        assert "latest step none on one rank, 2 on another" in error
+
+
+@pytest.mark.parametrize("rank,world,batch", [(2, 3, 4), (3, 4, 6), (4, 5, 8)])
+def test_a_rank_beyond_the_data_mesh_idles(tmp_path, rank, world, batch):
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    torch.distributed.init_process_group("fake", store=FakeStore(), rank=rank,
+                                         world_size=world)
+    try:
+        assert train_mod.train(TrainConfig(batch_size=batch, device="cpu",
+                                           checkpoint_dir=str(tmp_path))) is None
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_multihost_needs_the_launcher_environment(tiny_voc, tmp_path, monkeypatch):
@@ -156,14 +180,19 @@ def test_infer_dp_writes_the_files_of_one_process(tiny_voc, weights, tmp_path, p
     one = _infer_cfg(tiny_voc, weights, tmp_path / "one", pamr_iters=pamr)
     two = dataclasses.replace(one, out_cam=str(tmp_path / "two"), dp=2)
     threads = torch.get_num_threads()
-    # the one process on a worker's threads: CPU kernels sum in an order
-    # that depends on the thread count
-    torch.set_num_threads(infer_cam.cpu_threads_per_worker(2))
+    # One thread per worker (the workers share this process's threads
+    # out): spinning thread pools of processes that outnumber the cores
+    # slowed these runs tenfold beside the other test files. The one
+    # process runs on a worker's threads: CPU kernels sum in an order
+    # that depends on the thread count.
+    torch.set_num_threads(2)
     try:
+        torch.set_num_threads(infer_cam.cpu_threads_per_worker(2))
         assert infer_cam.run(one) == {"device": 0, "host": 0}
+        torch.set_num_threads(2)
+        assert infer_cam.run(two) == {"device": 0, "host": 0}
     finally:
         torch.set_num_threads(threads)
-    assert infer_cam.run(two) == {"device": 0, "host": 0}
     names = sorted(os.listdir(tmp_path / "one"))
     assert len(names) == 8 and sorted(os.listdir(tmp_path / "two")) == names
     for name in names:

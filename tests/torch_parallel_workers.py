@@ -9,6 +9,7 @@ cannot collide.
 
 import dataclasses
 import os
+import shutil
 import signal
 
 import numpy as np
@@ -20,16 +21,25 @@ from acr_wsss_tpu_torch.parallel.mesh import make_data_mesh_for_batch
 from acr_wsss_tpu_torch.parallel.sharding import full_tensors, shard_like, unwrap
 from acr_wsss_tpu_torch.utils.checkpoint import CheckpointManager
 
-# The 2-rank step job: (name, TrainConfig overrides). "ddp" and "fsdp" are
-# held against JAX's data-mesh and FSDP steps and resumed from their
-# checkpoints; every case is also held against the port's one-process
-# step with the same options.
-STEP_CASES = (("ddp", {}), ("fsdp", {"fsdp": True}),
-              ("ddp_accum", {"accum_steps": 2}),
-              ("fsdp_clip_accum", {"fsdp": True, "accum_steps": 2, "clip_grad_norm": 1.0}))
-CHECKPOINTED = ("ddp", "fsdp")
-THREADS = 2
+# The 2-rank step job: (name, backbone, TrainConfig overrides). JAX_CASES
+# are held against JAX's data-mesh and FSDP steps, CHECKPOINTED ones are
+# resumed in one process and held against two JAX steps, ONE_PROCESS ones
+# against the port's one-process step with the same options. vitb is the
+# backbone of JAX's FSDP test (vit_small's position embedding, 577 x 384,
+# does not split over JAX's devices); the rest run on vit_small, but for
+# the hybrid's case, whose stem no other backbone has.
+STEP_CASES = (("ddp", "vitb", {}), ("fsdp", "vitb", {"fsdp": True}),
+              ("ddp_resume", "vit_small", {}), ("fsdp_resume", "vit_small", {"fsdp": True}),
+              ("ddp_accum", "vit_small", {"accum_steps": 2}),
+              ("fsdp_clip_accum", "vit_small",
+               {"fsdp": True, "accum_steps": 2, "clip_grad_norm": 1.0}),
+              ("hybrid", "vitb_hybrid", {}))
+JAX_CASES = ("ddp", "fsdp")
+CHECKPOINTED = ("ddp_resume", "fsdp_resume")
+ONE_PROCESS = ("ddp", "ddp_accum", "fsdp_clip_accum", "hybrid")
+THREADS = 1
 MAX_STEP = 100
+SEED = 3
 
 
 def _join(rank, world, store):
@@ -52,15 +62,49 @@ def _steps(model, opt, cfg, mesh, batches, rows, n):
             for i in range(n)]
 
 
-def _case_params(tmp, name):
-    """The 2-rank step's parameters after the update, one-device layout."""
-    if name in CHECKPOINTED:
-        ckpt = CheckpointManager(os.path.join(tmp, f"{name}_ckpt"))
-        try:
-            return ckpt.restore()["model"]
-        finally:
-            ckpt.close()
-    return torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=True)["params"]
+def weights_file(tmp, backbone):
+    """JAX's numpy weights of ``backbone`` in the port's layout, written
+    by the test process (vitb and vit_small)."""
+    return os.path.join(tmp, f"weights_{backbone}.pt")
+
+
+def seeded_state_dict(model, seed):
+    """``init_random_``'s distributions (fan-in normal weights, unit norm
+    scales, zero biases and tokens, position embedding N(0, 0.02^2)), drawn
+    by torch: its numpy draws take seconds for 10^8 parameters."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name.endswith("pos_embed"):
+            out[name] = 0.02 * torch.randn(p.shape, generator=gen)
+        elif leaf == "weight" and p.dim() > 1:
+            out[name] = torch.randn(p.shape, generator=gen) / float(np.prod(p.shape[1:])) ** 0.5
+        elif leaf == "weight":
+            out[name] = torch.ones(p.shape)
+        else:
+            out[name] = torch.zeros(p.shape)
+    return out
+
+
+def _case(tmp, cfg, backbone, overrides, mesh=None):
+    """(config, model, optimizer, the weights) of a case: the weights from
+    ``weights_file``, or the hybrid's ``seeded_state_dict``, the same in
+    every process."""
+    ccfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=backbone),
+                               **overrides)
+    model, opt = train_mod.create_train_state(ccfg, MAX_STEP, init=False, mesh=mesh)
+    path = weights_file(tmp, backbone)
+    weights = (torch.load(path, weights_only=True) if os.path.exists(path)
+               else seeded_state_dict(unwrap(model), SEED))
+    load_full(model, weights)
+    return ccfg, model, opt, weights
+
+
+def update_rel(after, ref, before):
+    """Per tensor, |(after - before) - (ref - before)| / |ref - before|."""
+    return {k: float(((after[k] - before[k]) - (r - before[k])).norm()
+                     / (r - before[k]).norm().clamp_min(1e-30)) for k, r in ref.items()}
 
 
 def step_job(rank, world, store, tmp, cfg):
@@ -68,64 +112,69 @@ def step_job(rank, world, store, tmp, cfg):
     work split over the ranks, which the test process would otherwise
     do while JAX compiles.
 
-    On the group, each case of STEP_CASES from the weights in
-    ``tmp/weights.pt`` on this rank's rows of the batches in
-    ``tmp/batches.npz``; rank 0 writes ``tmp/<case>.pt`` (loss parts, the
-    qkv weight's local shard size and, but for the CHECKPOINTED cases,
-    the parameters after the update; those write a one-device checkpoint
-    of step 0 under ``tmp/<case>_ckpt``, which holds them). Then, in one
-    process each: ``one_<case>.pt``, the one-process step with the case's
-    options (its loss parts and its largest difference from the 2-rank
-    parameters), and ``resumed_<case>.pt``, the parameters after one step
-    on batch 1 from a CHECKPOINTED case's checkpoint."""
+    On the group, each case of STEP_CASES on this rank's rows of the
+    batches in ``tmp/batches.npz``; rank 0 writes ``tmp/<case>.pt`` (loss
+    parts, the qkv weight's local shard size and, for JAX_CASES, the
+    parameters after the update) and, for CHECKPOINTED cases, a
+    one-device checkpoint of step 0 under ``tmp/<case>_ckpt``. Then, in
+    one process each: ``one_<case>.pt`` for the ONE_PROCESS cases, the
+    one-process step with the case's options (its loss parts, its
+    largest difference from the 2-rank parameters, which each rank keeps
+    in memory, and, per tensor, the relative distance of the 2-rank
+    update from its own), and ``resumed_<case>.pt``, the parameters after
+    one step on batch 1 from a CHECKPOINTED case's checkpoint."""
     _join(rank, world, store)
-    weights = torch.load(os.path.join(tmp, "weights.pt"), weights_only=True)
     batches = np.load(os.path.join(tmp, "batches.npz"))
-    for name, overrides in STEP_CASES:
-        ccfg = dataclasses.replace(cfg, **overrides)
-        mesh = make_data_mesh_for_batch(ccfg.batch_size, "cpu")
-        model, opt = train_mod.create_train_state(ccfg, MAX_STEP, init=False, mesh=mesh)
-        load_full(model, weights)
+    cases = {name: (backbone, overrides) for name, backbone, overrides in STEP_CASES}
+    tasks = [("one", name) for name in ONE_PROCESS] + [("resumed", name) for name in CHECKPOINTED]
+    mine = tasks[rank::world]
+    after = {}
+    for name, (backbone, overrides) in cases.items():
+        mesh = make_data_mesh_for_batch(cfg.batch_size, "cpu")
+        ccfg, model, opt, _ = _case(tmp, cfg, backbone, overrides, mesh)
         per = ccfg.batch_size // world
         history = _steps(model, opt, ccfg, mesh, batches, slice(rank * per, (rank + 1) * per),
                          ccfg.accum_steps)
         qkv = unwrap(model).trunk.blocks[0].attn.qkv.weight
         out = {"history": history, "qkv_numel": qkv.numel(),
                "qkv_local": (qkv.to_local() if hasattr(qkv, "to_local") else qkv).numel()}
-        if name in CHECKPOINTED:
-            state = train_mod.checkpoint_state(0, model, opt)
-        else:
-            out["params"] = full_tensors(unwrap(model).state_dict())
+        if name in JAX_CASES or name in ONE_PROCESS:   # a collective under FSDP
+            params = full_tensors({k: v.detach() for k, v in unwrap(model).named_parameters()})
+            if name in JAX_CASES:
+                out["params"] = params
+            if ("one", name) in mine:
+                after[name] = params
+        state = train_mod.checkpoint_state(0, model, opt) if name in CHECKPOINTED else None
         if rank == 0:
             torch.save(out, os.path.join(tmp, f"{name}.pt"))
-            if name in CHECKPOINTED:
+            if state is not None:
                 ckpt = CheckpointManager(os.path.join(tmp, f"{name}_ckpt"))
                 ckpt.save(0, state)
                 ckpt.close()
-        del model, opt
+        del model, opt, state, out
     torch.distributed.barrier()
     distributed.shutdown()
 
-    tasks = [("one", name, overrides) for name, overrides in STEP_CASES]
-    tasks += [("resumed", name, {}) for name in CHECKPOINTED]
-    for kind, name, overrides in tasks[rank::world]:
-        ccfg = dataclasses.replace(cfg, **overrides)
-        model, opt = train_mod.create_train_state(ccfg, MAX_STEP, init=False)
+    for kind, name in mine:
+        backbone, overrides = cases[name]
+        ccfg, model, opt, weights = _case(tmp, cfg, backbone, overrides if kind == "one" else {})
         if kind == "one":
-            model.load_state_dict(weights)
             history = _steps(model, opt, ccfg, None, batches, slice(None), ccfg.accum_steps)
-            ranks = _case_params(tmp, name)
-            worst = max(float((v - ranks[k]).abs().max()) for k, v in model.state_dict().items())
-            torch.save({"history": history, "worst": worst}, os.path.join(tmp, f"one_{name}.pt"))
+            one = {k: v.detach() for k, v in model.named_parameters()}
+            ranks = after.pop(name)
+            worst = max(float((v - ranks[k]).abs().max()) for k, v in one.items())
+            torch.save({"history": history, "worst": worst,
+                        "update_rel": update_rel(ranks, one, weights)},
+                       os.path.join(tmp, f"one_{name}.pt"))
         else:
             ckpt = CheckpointManager(os.path.join(tmp, f"{name}_ckpt"))
             restored = train_mod.restore_checkpoint(ckpt, model, opt)
             ckpt.close()
-            batch1 = {k: batches[k] for k in ("image1", "label1")}
-            batch1 = {"image0": batch1["image1"], "label0": batch1["label1"]}
+            batch1 = {"image0": batches["image1"], "label0": batches["label1"]}
             _steps(model, opt, ccfg, None, batch1, slice(None), 1)
             torch.save({"restored_step": restored, "updates": opt.updates,
                         "params": model.state_dict()}, os.path.join(tmp, f"resumed_{name}.pt"))
+            shutil.rmtree(ckpt.directory)
         del model, opt
 
 
@@ -134,8 +183,11 @@ def train_job(rank, world, store, cfg, sigterm_rank, sigterm_step):
     launcher's variables in the environment and the group joined over
     the test's file store first: a run in which ``sigterm_rank`` sends
     itself SIGTERM after its ``sigterm_step``'s loss, then a relaunch
-    that resumes and finishes. Each rank writes both runs' results (None
-    where it idled) to ``<checkpoint_dir>/rank<r>.pt``."""
+    that resumes and finishes, then a launch in which the ranks other
+    than 0 look for checkpoints in an empty directory of their own, as on
+    nodes that share no ``checkpoint_dir``. Each rank writes the first two
+    runs' results and the third's error message to
+    ``<checkpoint_dir>/rank<r>.pt``."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     _join(rank, world, store)
     add, validate = train_mod.AverageMeter.add, train_mod.validate
@@ -159,6 +211,12 @@ def train_job(rank, world, store, cfg, sigterm_rank, sigterm_step):
             "step": state.step, "steps": state.steps, "history": state.history,
             "val": list(val)})
         val.clear()
-    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    unshared = dataclasses.replace(cfg, multihost=True, checkpoint_dir=os.path.join(
+        cfg.checkpoint_dir, f"rank{rank}_own") if rank else cfg.checkpoint_dir)
+    try:
+        train_mod.train(unshared)
+        results.append(None)
+    except RuntimeError as e:
+        results.append(str(e))
     torch.save(results, os.path.join(cfg.checkpoint_dir, f"rank{rank}.pt"))
     distributed.shutdown()

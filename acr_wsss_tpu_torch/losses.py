@@ -17,8 +17,12 @@ The segmentation stage's losses (``:246-283``, ``:345-438``):
 ``softmax_cross_entropy_ignore`` and ``focal_loss_ignore`` (mean over the
 pixels not labelled 255), ``compute_joint_ce`` (the bg/fg split of a
 pseudo mask) and ``prototype_contrast_loss`` (class centroids, masked
-over the classes present, no Python branch on the data). The Swin loss
-is not ported.
+over the classes present, no Python branch on the data).
+
+The Swin consistency (``:284-336``): ``hflip_window_permutations`` and
+``swin_window_consistency_loss``, the L1 between one block's window
+probabilities and the mirrored view's, un-mirrored window by window
+(shifted blocks by the roll-aware permutation where ``2*shift % ws == 0``).
 """
 
 from __future__ import annotations
@@ -66,6 +70,45 @@ def _unflip_token_axis(x: torch.Tensor, grid: Tuple[int, int], axis: int) -> tor
     axis = axis % x.dim()
     shape = x.shape[:axis] + (p, q) + x.shape[axis + 1:]
     return torch.flip(x.reshape(shape), dims=(axis + 1,)).reshape(x.shape)
+
+
+def _window_offset(ws: int, shift: int) -> int:
+    """Windows by which the mirror's shifted partition is displaced; raises
+    where it straddles the original windows (``2*shift % ws != 0``)."""
+    if shift and (2 * shift) % ws != 0:
+        raise ValueError(
+            f"shifted-window flip un-indexing needs 2*shift % ws == 0 "
+            f"(got shift={shift}, ws={ws}); skip consistency on this block")
+    return (2 * shift) // ws
+
+
+def hflip_window_permutations(n_cols: int, ws: int, shift: int = 0
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+    """(window permutation over a row of ``n_cols`` windows, token
+    permutation within a window) that un-mirror the window-attention export
+    of a horizontally flipped view: window c shows the original window
+    ``(n_cols - 1 - 2*shift//ws - c) mod n_cols`` with its columns reversed.
+    The roll by -shift maps ws-aligned column blocks onto ws-aligned ones
+    only when ``2*shift`` is a multiple of ``ws``; otherwise (an odd window
+    with a shift) the mirrored windows straddle the original ones, and this
+    raises."""
+    offset = _window_offset(ws, shift)
+    window_perm = (n_cols - 1 - offset - np.arange(n_cols)) % n_cols
+    return window_perm, hflip_token_permutation(ws, ws)
+
+
+def swin_window_consistency_loss(probs1: torch.Tensor, probs2: torch.Tensor, n_rows: int,
+                                 n_cols: int, ws: int, shift: int = 0) -> torch.Tensor:
+    """L1 between one block's (B, nW, ws^2, ws^2) head-mean window probs of
+    a view (``probs1``) and those of its mirror (``probs2``) un-mirrored by
+    the permutations of :func:`hflip_window_permutations`, nW = n_rows *
+    n_cols; as flips and a roll on the device (no index upload)."""
+    offset = _window_offset(ws, shift)
+    b, n = probs2.shape[0], probs2.shape[-1]
+    p2 = probs2.reshape(b, n_rows, n_cols, n, n)
+    p2 = torch.roll(torch.flip(p2, dims=(2,)), -offset, dims=2).reshape(probs2.shape)
+    p2 = _unflip_token_axis(_unflip_token_axis(p2, (ws, ws), 2), (ws, ws), 3)
+    return l1_loss(probs1, p2)
 
 
 def acr_consistency_losses(attn1: torch.Tensor, attn2: torch.Tensor,

@@ -137,11 +137,12 @@ class ACR(nn.Module):
 @torch.no_grad()
 def init_random_(model: nn.Module, seed: int) -> nn.Module:
     """Seeded numpy init in place: fan-in normal weights, unit norm scales,
-    zero biases and tokens, position embedding N(0, 0.02^2)."""
+    zero biases and tokens, position embedding and Swin's relative-position
+    bias tables N(0, 0.02^2)."""
     rng = np.random.default_rng(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if name.endswith("pos_embed"):
+        if name.endswith(("pos_embed", "relative_position_bias_table")):
             val = 0.02 * rng.standard_normal(p.shape)
         elif leaf == "weight" and p.dim() > 1:
             fan_in = int(np.prod(p.shape[1:]))

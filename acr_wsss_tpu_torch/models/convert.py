@@ -42,6 +42,15 @@ dict; ``flax_params_to_torch_state_dict`` is its inverse. One table,
 It reads the checkpoint with ``torch.load(weights_only=True)``: a state
 dict of tensors, optionally under ``"model"``, ``module.`` prefixes
 stripped (the reference's ``BaseModel.load`` and DDP formats).
+
+The timm Swin and PiT checkpoints (``:228-350``):
+``swin_state_dict_to_flax`` and ``pit_state_dict_to_flax`` map them, by
+the tables ``_SWIN`` and ``_PIT``, to the flat dict of ``models/swin.py``
+and ``models/pit.py`` (Swin's recomputed buffers skipped, PiT's NCHW
+``pos_embed`` to NHWC, torch's ``transformers.<s>.pool`` to ``pool<s+1>``,
+``head`` and ``head_dist`` kept). With ``--backbone`` a Swin or PiT name
+of the registry the CLI writes that npz, which ``--pretrained`` and
+``zoo.graft_standalone`` read (as ``<ACR_WSSS_ZOO>/<name>_in21k.npz``).
 """
 
 from __future__ import annotations
@@ -194,11 +203,16 @@ def _ident(w: np.ndarray) -> np.ndarray:
     return w
 
 
+def _nhwc(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.transpose(0, 2, 3, 1))
+
+
 # A parameter's (reference leaf: (flax leaf, reference -> flax transform))
 # by the kind of its module; None: the name is the parameter itself.
 _LEAVES = {"linear": {"weight": ("kernel", _linear), "bias": ("bias", _ident)},
            "conv": {"weight": ("kernel", _conv), "bias": ("bias", _ident)},
            "norm": {"weight": ("scale", _ident), "bias": ("bias", _ident)},
+           "nchw": {"": ("", _nhwc)},
            None: {"": ("", _ident)}}
 _INVERSE = {_linear: lambda w: np.ascontiguousarray(w.T),
             _conv: lambda w: np.ascontiguousarray(w.transpose(3, 2, 0, 1)),
@@ -227,17 +241,51 @@ _REFERENCE = (
 )
 
 
+# timm's Swin and PiT (``_map_swin_name`` :253, ``_map_pit_name`` :317,
+# ``_map_block_inner`` :207); a path may be a function of the groups.
+_BLOCK_INNER = ((r"(norm\d)", "{}", "norm"), (r"attn\.(qkv|proj)", "attn/{}", "linear"),
+                (r"mlp\.(fc\d)", "mlp/{}", "linear"))
+_SWIN_BLOCK = r"layers\.(\d+)\.blocks\.(\d+)\."
+_PIT_BLOCK = r"transformers\.(\d+)\.blocks\.(\d+)\."
+_SWIN = (
+    (r"patch_embed\.proj", "patch_embed", "conv"),
+    (r"patch_embed\.norm", "embed_norm", "norm"),
+    (_SWIN_BLOCK + r"attn\.relative_position_bias_table",
+     "stage{}_block{}/attn/relative_position_bias_table", None),
+    *((_SWIN_BLOCK + m, "stage{}_block{}/" + p, k) for m, p, k in _BLOCK_INNER),
+    (r"layers\.(\d+)\.downsample\.norm", "merge{}/norm", "norm"),
+    (r"layers\.(\d+)\.downsample\.reduction", "merge{}/reduction", "linear"),
+    (r"norm", "norm", "norm"),
+    (r"head", "head", "linear"),
+)
+_PIT = (
+    (r"pos_embed", "pos_embed", "nchw"),
+    (r"cls_token", "cls_token", None),
+    (r"patch_embed\.conv", "patch_embed", "conv"),
+    *((_PIT_BLOCK + m, "stage{}_block{}/" + p, k) for m, p, k in _BLOCK_INNER),
+    # torch runs stage s's pool after its blocks, flax's pool<s+1> before
+    # stage s + 1
+    (r"transformers\.(\d+)\.pool\.conv", lambda s: f"pool{int(s) + 1}/conv", "conv"),
+    (r"transformers\.(\d+)\.pool\.fc", lambda s: f"pool{int(s) + 1}/fc", "linear"),
+    (r"norm", "norm", "norm"),
+    (r"head", "head", "linear"),
+    (r"head_dist", "head_dist", "linear"),
+)
+
+
 def _join(module: str, leaf: str, sep: str) -> str:
     return module + sep + leaf if leaf else module
 
 
-def _map_name(name: str):
-    """(flax path, transform) of a reference name, or None to skip it."""
-    for module, path, kind in _REFERENCE:
+def _map_name(name: str, table=_REFERENCE):
+    """(flax path, transform) of a name of ``table``'s checkpoints, or None
+    to skip it."""
+    for module, path, kind in table:
         for ref_leaf, (leaf, transform) in _LEAVES[kind].items():
             m = re.fullmatch(_join(module, re.escape(ref_leaf), r"\."), name)
             if m:
-                return _join(path.format(*m.groups()), leaf, "/"), transform
+                target = path(*m.groups()) if callable(path) else path.format(*m.groups())
+                return _join(target, leaf, "/"), transform
     return None
 
 
@@ -260,17 +308,37 @@ def _numpy(value) -> np.ndarray:
     return value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
 
 
-def torch_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
-    """A reference ACR state dict (numpy arrays or tensors) as the flat
-    ``{"params/...": float32 array}`` dict of ``utils/checkpoint.py``;
-    names off the ACR forward (``IGNORED``, unknown ones) are dropped."""
+def _table_to_flax(state_dict: Mapping[str, object], table, ignored=None
+                   ) -> Dict[str, np.ndarray]:
     flat: Dict[str, np.ndarray] = {}
     for name, value in state_dict.items():
-        mapped = None if IGNORED.match(name) else _map_name(name)
+        skip = ignored is not None and ignored.search(name)
+        mapped = None if skip else _map_name(name, table)
         if mapped is not None:
             path, transform = mapped
             flat["params/" + path] = transform(_numpy(value).astype(np.float32))
     return flat
+
+
+def torch_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A reference ACR state dict (numpy arrays or tensors) as the flat
+    ``{"params/...": float32 array}`` dict of ``utils/checkpoint.py``;
+    names off the ACR forward (``IGNORED``, unknown ones) are dropped."""
+    return _table_to_flax(state_dict, _REFERENCE, IGNORED)
+
+
+_SWIN_BUFFERS = re.compile(r"(relative_position_index|attn_mask)$")
+
+
+def swin_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A timm Swin state dict as the flat dict of ``models/swin.py``; the
+    buffers the model recomputes and unknown names are dropped."""
+    return _table_to_flax(state_dict, _SWIN, _SWIN_BUFFERS)
+
+
+def pit_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A timm PiT state dict as the flat dict of ``models/pit.py``."""
+    return _table_to_flax(state_dict, _PIT)
 
 
 def flax_params_to_torch_state_dict(flat: Mapping[str, np.ndarray],
@@ -309,32 +377,64 @@ def flax_params_to_torch_state_dict(flat: Mapping[str, np.ndarray],
     return out
 
 
+def _check_standalone(name: str, flat: Mapping[str, np.ndarray]) -> None:
+    """Raise unless ``flat`` holds every parameter of the registry's model
+    ``name`` in its shape, at the class count of its head and, for PiT, the
+    input size its position embedding's grid gives."""
+    from acr_wsss_tpu_torch.models.registry import create_model
+
+    kwargs = {"num_classes": len(flat["params/head/bias"])}
+    with torch.device("meta"):
+        model = create_model(name, **kwargs)
+        pos = flat.get("params/pos_embed")
+        if pos is not None and tuple(pos.shape[1:3]) != model.grid:
+            conv = model.patch_embed
+            kwargs["img_size"] = tuple((g - 1) * conv.stride[0] + conv.kernel_size[0]
+                                       for g in pos.shape[1:3])
+            model = create_model(name, **kwargs)
+    flax_to_state_dict(flat, model.state_dict())
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    """Convert a reference checkpoint to the flat flax npz."""
+    """Convert a reference ACR checkpoint, or a timm Swin or PiT one, to the
+    flat flax npz."""
     from acr_wsss_tpu_torch.models.acr import ACR
     from acr_wsss_tpu_torch.utils.checkpoint import save_params_npz
 
-    parser = argparse.ArgumentParser(description="reference ACR .pth -> flat flax .npz")
+    parser = argparse.ArgumentParser(description="reference ACR or timm Swin/PiT .pth -> "
+                                                 "flat flax .npz")
     parser.add_argument("torch_ckpt")
     parser.add_argument("out_npz")
-    parser.add_argument("--backbone", default="vitb_hybrid")
+    parser.add_argument("--backbone", default="vitb_hybrid",
+                        help="an ACR backbone, or a swin_* / pit_* name of the registry")
     parser.add_argument("--scan", action="store_true",
                         help="write JAX's stacked layout (trunk/blocks_scan/block/...)")
     args = parser.parse_args(argv)
+    standalone = args.backbone.startswith(("swin", "pit"))
+    if standalone and args.scan:
+        parser.error("--scan is the ACR trunk's layout")
     state = torch.load(args.torch_ckpt, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and "model" in state:
         state = state["model"]           # the reference's BaseModel.load format
     state = {k[len("module."):] if k.startswith("module.") else k: v for k, v in state.items()}
-    flat = torch_state_dict_to_flax(state)
-    # Raises unless every parameter of the backbone's model is there, in its shape.
-    num_classes = len(flat.get("params/cls_head/bias", range(20)))
-    model = ACR(num_classes=num_classes, backbone_name=args.backbone, attn_impl="plain")
-    flax_to_state_dict(flat, model.state_dict())
-    if args.scan:
-        flat = unrolled_to_scanned(flat)
+    if standalone:
+        to_flax = (swin_state_dict_to_flax if args.backbone.startswith("swin")
+                   else pit_state_dict_to_flax)
+        flat = to_flax(state)
+        _check_standalone(args.backbone, flat)
+        layout = "standalone"
+    else:
+        flat = torch_state_dict_to_flax(state)
+        # Raises unless every parameter of the backbone's model is there, in its shape.
+        num_classes = len(flat.get("params/cls_head/bias", range(20)))
+        model = ACR(num_classes=num_classes, backbone_name=args.backbone, attn_impl="plain")
+        flax_to_state_dict(flat, model.state_dict())
+        if args.scan:
+            flat = unrolled_to_scanned(flat)
+        layout = "scanned" if args.scan else "unrolled"
     save_params_npz(args.out_npz, flat)
     print(f"wrote {args.out_npz}: {sum(v.size for v in flat.values()) / 1e6:.1f}M params "
-          f"({args.backbone}, {'scanned' if args.scan else 'unrolled'} layout)")
+          f"({args.backbone}, {layout} layout)")
 
 
 if __name__ == "__main__":

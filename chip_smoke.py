@@ -131,7 +131,25 @@ package. Phases, each of which fails the run when it fails:
    by the host path and by ``--device_aug``, device time breakdowns, each
    kernel's device time (CUDA events around launches enqueued while the
    device is held busy) beside its plain version, a library call where one
-   computes the same function, and its bound.
+   computes the same function, and its bound;
+15. Swin and PiT (``models/{registry,swin,pit}.py``, ``train_swin.py``):
+   (a) ``train_swin.main --pretrained`` as a user runs it (swin_base_384,
+   crop 384, batch 4, lr 0.05, alpha 125; the zoo npz seeded weights with
+   nonzero biases, 1000 classes) on phase 5's fixture, 5 steps with a
+   snapshot at step 3, then ``_last.npz``: every loss part finite, the
+   window consistency positive and taken over all 24 blocks, no kernel
+   launched (window attention is plain torch), the npz read back into a
+   fresh model bit for bit; again with ``--device_aug``; (b) one float32
+   step (TF32 off) twice from the same seeded weights and batch: the same
+   bits in the loss parts and every parameter after the update; the bf16
+   step's loss parts within phase 7's gate of the float32 step's; (c) the
+   bf16 step's time (median of 6 after a warm-up), device busy time
+   (profiler) and peak memory; (d) the pit_b and pit_b_distilled_224
+   forwards (bf16, crop 224, batch 2, export "mean") on the kernel path:
+   13 K1f launches each (N = 962/963, 257/258, 65/66), K1f against its
+   plain version on every block's own attention input, the same bits from
+   a second forward, logits and every block's probs against the plain
+   path; pit_s (head dim 48) with the kernel raises.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object with one entry per kernel; the last line is
@@ -171,6 +189,7 @@ from acr_wsss_tpu_torch import serving  # noqa: E402
 from acr_wsss_tpu_torch import train as train_mod  # noqa: E402
 from acr_wsss_tpu_torch import train_coco  # noqa: E402
 from acr_wsss_tpu_torch import train_seg  # noqa: E402
+from acr_wsss_tpu_torch import train_swin  # noqa: E402
 from acr_wsss_tpu_torch.configs import InferConfig, ModelConfig, TrainConfig  # noqa: E402
 from acr_wsss_tpu_torch.data import coco as coco_data  # noqa: E402
 from acr_wsss_tpu_torch.data import device_aug  # noqa: E402
@@ -178,7 +197,7 @@ from acr_wsss_tpu_torch.data import voc as voc_data  # noqa: E402
 from acr_wsss_tpu_torch.infer_cam import build_infer_fn, process_image  # noqa: E402
 from acr_wsss_tpu_torch.models.acr import ACR, init_random_  # noqa: E402
 from acr_wsss_tpu_torch.models import vit as vit_mod  # noqa: E402
-from acr_wsss_tpu_torch.models import convert, zoo  # noqa: E402
+from acr_wsss_tpu_torch.models import convert, registry, zoo  # noqa: E402
 from acr_wsss_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax  # noqa: E402
 from acr_wsss_tpu_torch.models.dpt import DPTSegmentationModel  # noqa: E402
 from acr_wsss_tpu_torch.ops import _build, attn_pair  # noqa: E402
@@ -413,6 +432,32 @@ DP_TIMING_ROUNDS, DP_RANKS = 8, 2
 # steps against the bf16 step on 4 images on every tensor that bf16
 # rounding leaves within the gate (dp_check_global).
 DP_CASES = {"ddp": (False, False), "fsdp": (True, False), "ddp_fp32": (False, True)}
+# Phase 15, Swin and PiT. (a) ``train_swin.main`` as a user runs it at
+# swin_base_384's published widths and depth (crop 384, the recipe's batch
+# 4, lr 0.05, alpha 125) on phase 5's 16 images, one epoch: 4 updates, 5
+# steps, a snapshot at step 3; with ``--pretrained`` (the reference trains
+# Swin from ImageNet weights) from a zoo npz of seeded weights whose
+# biases and norm scales are nonzero, as a trained checkpoint's are
+# (``trained_like``). From the seeded init itself (biases 0) the recipe
+# diverges in both packages alike: the pad-crop's zero patches reach the
+# embedding's LayerNorm with zero variance, the first update moves the
+# patch embedding's bias by 7.8e13, and the loss is NaN by step 3
+# (docs/swin_seeded_init_probe.py: JAX and the port step for step, depths
+# (2, 2, 2, 2), CPU; the full depth on an H100 the same). (b) uses
+# trained-like weights too. (c) the bf16 step, median of SWIN_TIMED
+# steps after a warm-up. (d) pit_b and pit_b_distilled_224 at crop 224,
+# batch 2: every block's attention input kept, K1f against its plain
+# version on it (phase 3's tolerances); the whole forward on the kernel
+# path against the plain path, both bf16 through 13 blocks: K1f's out is
+# within one bf16 ulp of the plain version's, and a last-bit difference in
+# a block's output is carried through the later blocks. Giving one
+# attention output in 1,000 a one-ulp change in every block of the plain
+# bf16 pit_b (seeded init, crop 224, CPU) moves its logits by 0.0202 of a
+# largest |logit| of 3.53 and the probabilities by at most 6.1e-4; the
+# gates are 5e-2 of the largest |logit| and 3e-3.
+SWIN_MODEL, SWIN_SAVE_EVERY, SWIN_TIMED = "swin_base_384", 3, 6
+PIT_CROP, PIT_BATCH, PIT_DEPTH = 224, 2, 13
+PIT_LOGITS_REL, PIT_PROBS_ATOL = 5e-2, 3e-3
 KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL, pamr_ops.KERNEL)
 
 
@@ -2436,13 +2481,265 @@ def phase_parallel(device, cfg, tmp, names, labels, fused, card) -> dict:
     return {"step_ms": step_ms, "infer_launches": infer_launches}
 
 
-def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
-    """Host-clock step time (synchronized) of the fused kernel step: median
-    of ``reps`` after a warm-up; then a profiler window of 2 steps."""
+def trained_like(flat: dict, seed: int) -> dict:
+    """``flat`` with every bias drawn N(0, 0.1^2) and every norm scale 1 +
+    N(0, 0.1^2): nonzero, as a trained checkpoint's are (the seeded init's
+    are 0 and 1)."""
+    rng = np.random.default_rng(seed)
+    out = dict(flat)
+    for k, v in flat.items():
+        if k.endswith("/bias"):
+            out[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+        elif k.endswith("/scale"):
+            out[k] = (1.0 + 0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+    return out
+
+
+def swin_zoo(root: str, seed: int) -> str:
+    """A zoo directory holding ``<SWIN_MODEL>_in21k.npz``: seeded weights in
+    the shape of an ImageNet checkpoint (1000 classes), trained-like."""
+    zoo_dir = os.path.join(root, "swin_zoo")
+    os.makedirs(zoo_dir, exist_ok=True)
+    donor = init_random_(registry.create_model(SWIN_MODEL, num_classes=1000, img_size=CROP),
+                         seed=seed)
+    save_params_npz(zoo.npz_path(SWIN_MODEL, zoo_dir),
+                    trained_like(state_dict_to_flax(donor), seed))
+    return zoo_dir
+
+
+def swin_cli(cfg, root, name, *extra):
+    """``train_swin.main`` as a user runs it, on phase 5's fixture; (the
+    run's state, its weight directory)."""
+    weight_dir = os.path.join(root, name)
+    state = train_swin.main([
+        "--model", SWIN_MODEL, "--crop_size", str(CROP), "--batch_size", str(TRAIN_BATCH),
+        "--lr", str(cfg.lr), "--alpha", str(cfg.alpha), "--max_epoches", "1",
+        "--IMpath", cfg.image_dir, "--train_list", cfg.train_list,
+        "--cls_labels", cfg.cls_labels_path, "--weight_dir", weight_dir,
+        "--session_name", "swin", "--save_every", str(SWIN_SAVE_EVERY), "--device", cfg.device,
+        *extra])
+    return state, weight_dir
+
+
+def check_swin_run(label, state, weight_dir, launches) -> None:
+    """Every step's loss parts finite, the consistency positive over every
+    block, no kernel launched, the snapshot and ``_last.npz`` written, the
+    latter read back into a fresh model bit for bit."""
+    layout = train_swin.swin_block_layout(state.model, CROP)
+    blocks = train_swin.consistency_blocks(layout)
+    log(f"  {label}: {state.steps} steps; window consistency over {len(blocks)} of "
+        f"{len(layout)} blocks (windows {sorted({ws for _, _, ws, _ in layout})}, "
+        f"{sum(1 for *_, shift in layout if shift)} shifted); launches {launches}")
+    if state.steps != TRAIN_IMAGES // TRAIN_BATCH + 1 or len(blocks) != len(layout):
+        raise AssertionError(f"{label}: expected 5 steps and every block in the consistency")
+    if launches != zero_counts():
+        raise AssertionError(f"{label}: the Swin path launched a kernel")
+    for step, parts in enumerate(state.history):
+        log(f"    step {step}: " + ", ".join(f"{k} {v:.6g}" for k, v in parts.items()))
+        if not all(math.isfinite(v) for v in parts.values()):
+            raise AssertionError(f"{label} step {step}: a loss part is not finite")
+        if not parts["window_consistency"] > 0:
+            raise AssertionError(f"{label} step {step}: window consistency is not positive")
+    paths = [os.path.join(weight_dir, f"swin_{tag}.npz") for tag in ("snapshot", "last")]
+    if not all(os.path.exists(p) for p in paths):
+        raise AssertionError(f"{label}: {paths} not both written")
+    fresh = registry.create_model(SWIN_MODEL, num_classes=20, img_size=CROP)
+    fresh.load_state_dict(flax_to_state_dict(load_params_npz(paths[1]), fresh.state_dict()))
+    ref = fresh.state_dict()
+    for k, v in state.model.state_dict().items():
+        if not torch.equal(v.cpu(), ref[k]):
+            raise AssertionError(f"{label}: {k} of the npz is not the trained tensor")
+    log(f"  {label}: swin_snapshot.npz (step {SWIN_SAVE_EVERY}) and swin_last.npz "
+        f"({os.path.getsize(paths[1]) / 1e6:.1f} MB) written; _last.npz read back into a "
+        f"fresh model: every tensor the same bits")
+
+
+def swin_step(weights, dtype, batch, cfg, device):
+    """((model, optimizer, step-0 parts, parameters before, after), the
+    step) of one ``train_swin`` step of a fresh model loaded with
+    ``weights``."""
+    model = registry.create_model(SWIN_MODEL, num_classes=20, img_size=CROP, dtype=dtype)
+    model.load_state_dict(weights)
+    model.to(device)
+    opt = make_optimizer(model.parameters(), cfg.lr, TRAIN_IMAGES // TRAIN_BATCH,
+                         cfg.weight_decay, cfg.momentum, cfg.poly_power)
+    step = train_swin.make_swin_train_step(model, opt, cfg, CROP, device)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    parts = {k: float(v) for k, v in step(batch).items()}
+    after = {k: v.detach().clone() for k, v in model.named_parameters()}
+    return (model, opt, parts, before, after), step
+
+
+def max_err_and_bad(got, ref, rtol, atol):
+    err = (got.float() - ref.float()).abs()
+    bad = (err > atol + rtol * ref.float().abs()) | ~torch.isfinite(got.float())
+    return err.max().item(), int(bad.sum())
+
+
+def check_pit(name, device, errs) -> int:
+    """(d) for one PiT: the kernel path's forward (launches counted) and
+    every block's attention input, K1f against its plain version on each,
+    the same bits from a second forward, the whole forward against the
+    plain path. Returns K1f's launches."""
+    weights = init_random_(registry.create_model(name, num_classes=20), seed=0).state_dict()
+    models = {}
+    for impl in ("kernel", "plain"):
+        models[impl] = registry.create_model(name, num_classes=20, attn_impl=impl)
+        models[impl].load_state_dict(weights)
+        models[impl].to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((PIT_BATCH, PIT_CROP, PIT_CROP, 3), generator=gen, device=device)
+    blocks = [m for n, m in models["kernel"].named_modules() if n.endswith(".attn")]
+    inputs = []
+    handles = [m.register_forward_hook(lambda mod, args, out: inputs.append((mod, args[0])))
+               for m in blocks]
+    reset_counts()
+    try:
+        with torch.no_grad():
+            out = models["kernel"](x)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    launches = read_counts()
+    with torch.no_grad():
+        again = models["kernel"](x)
+        ref = models["plain"](x)
+    n_tokens = [p.shape[-1] for p in out["probs_per_block"]]
+    log(f"  {name}: bf16, crop {PIT_CROP}, batch {PIT_BATCH}, export mean, N per block "
+        f"{n_tokens}; launches {launches}")
+    if launches != {**zero_counts(), "K1f": PIT_DEPTH}:
+        raise AssertionError(f"{name}: expected {PIT_DEPTH} K1f launches and no other")
+    for a, b in zip(out["probs_per_block"] + [out["logits"]],
+                    again["probs_per_block"] + [again["logits"]]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: two forwards on the kernels differ")
+    per_n = {}
+    for (mod, a), probs in zip(inputs, out["probs_per_block"]):
+        qkv = F.linear(a, mod.qkv.weight.to(a.dtype), mod.qkv.bias.to(a.dtype))
+        k_out, k_probs = attention_qkv_cols_forward(qkv, mod.scale, mod.num_heads, "mean")
+        p_out, p_probs = attention_qkv_cols_plain(qkv, mod.scale, mod.num_heads, "mean")
+        if not torch.equal(k_probs, probs):
+            raise AssertionError(f"{name}: K1f on a block's input is not the path's export")
+        for got, want, rtol, atol in ((k_out, p_out, OUT_RTOL, OUT_ATOL),
+                                      (k_probs, p_probs, 0.0, PROBS_ATOL)):
+            err, bad = max_err_and_bad(got, want, rtol, atol)
+            if bad:
+                raise AssertionError(f"{name}: K1f at N={qkv.shape[1]}: {bad} elements out of "
+                                     f"tolerance, max abs err {err:.3g}")
+            key = (qkv.shape[1], mod.num_heads)
+            per_n[key] = max(per_n.get(key, 0.0), err)
+    for (n, heads), err in per_n.items():
+        errs[(name, n)] = err
+        log(f"    K1f on the blocks' own inputs at N={n}, H={heads}: max abs err {err:.3g} "
+            f"(out {OUT_ATOL:.3g} + {OUT_RTOL:.3g}*|ref|, probs {PROBS_ATOL:.3g})")
+    scale = ref["logits"].abs().max().item()
+    keys = ("logits", "head_logits", "dist_logits") if "distilled" in name else ("logits",)
+    for k in keys:
+        err, bad = max_err_and_bad(out[k], ref[k], 0.0, PIT_LOGITS_REL * scale)
+        log(f"    {k}, kernel path against plain path: max abs err {err:.4g} (tolerance "
+            f"{PIT_LOGITS_REL} x max |logit| {scale:.4g})")
+        if bad:
+            raise AssertionError(f"{name}: {k} disagree with the plain path")
+    errs_p = [max_err_and_bad(a, b, 0.0, PIT_PROBS_ATOL) for a, b in
+              zip(out["probs_per_block"], ref["probs_per_block"])]
+    log(f"    probs per block, kernel path against plain path: max abs err "
+        + ", ".join(f"{e:.3g}" for e, _ in errs_p) + f" (tolerance {PIT_PROBS_ATOL})")
+    if any(bad for _, bad in errs_p):
+        raise AssertionError(f"{name}: a block's probs disagree with the plain path")
+    return launches["K1f"]
+
+
+def phase_swin_pit(device, cfg, root, card) -> dict:
+    """(a) ``train_swin.main --pretrained`` at swin_base_384, crop 384, on the
+    host path and with ``--device_aug``, from a trained-like seeded zoo npz;
+    (b) one float32 step twice (the same bits) from trained-like seeded
+    weights and one bf16 step against it; (c) the bf16 step's time, device busy
+    time and peak memory; (d) the pit_b and pit_b_distilled_224 forwards
+    on the kernels against the plain path, pit_s refusing the kernel.
+    Returns K1f's launches over (d)'s two forwards and K1f's errors on the
+    blocks' inputs of pit_b by token count."""
+    previous = os.environ.get("ACR_WSSS_ZOO")
+    os.environ["ACR_WSSS_ZOO"] = swin_zoo(root, cfg.seed + 11)
+    try:
+        for label, extra in (("host path", ()), ("--device_aug", ("--device_aug",))):
+            reset_counts()
+            t0 = time.perf_counter()
+            state, weight_dir = swin_cli(cfg, root, f"swin{len(extra)}", "--pretrained", *extra)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            log(f"  (a) train_swin.main --pretrained, {SWIN_MODEL}, {label}: "
+                f"{time.perf_counter() - t0:.1f} s")
+            check_swin_run(f"train_swin ({label})", state, weight_dir, launches)
+            del state
+    finally:
+        if previous is None:
+            os.environ.pop("ACR_WSSS_ZOO")
+        else:
+            os.environ["ACR_WSSS_ZOO"] = previous
+
+    model = registry.create_model(SWIN_MODEL, num_classes=20, img_size=CROP)
+    weights = flax_to_state_dict(
+        trained_like(state_dict_to_flax(init_random_(model, seed=cfg.seed)), cfg.seed + 12),
+        model.state_dict())
+    del model
+    batch = first_batch(cfg)
+    scfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=SWIN_MODEL))
+    fp32 = [swin_step(weights, torch.float32, batch, scfg, device)[0] for _ in range(2)]
+    for k, v in fp32[0][2].items():
+        if v != fp32[1][2][k]:
+            raise AssertionError(f"two float32 Swin steps differ in {k}: {v!r}, "
+                                 f"{fp32[1][2][k]!r}")
+    for k, v in fp32[0][4].items():
+        if not torch.equal(v, fp32[1][4][k]):
+            raise AssertionError(f"two float32 Swin steps differ in {k} after the update")
+    log(f"  (b) one float32 step (TF32 off) twice from the same seeded weights and batch: "
+        f"the same bits in {len(fp32[0][2])} loss parts and {len(fp32[0][4])} parameters "
+        f"after the update; parts " + ", ".join(f"{k} {v:.7g}" for k, v in fp32[0][2].items()))
+    bf16, step = swin_step(weights, torch.bfloat16, batch, scfg, device)
+    log("  (b) the bf16 step against the float32 step (phase 7's loss gate):")
+    compare_steps_losses("bf16 Swin step", bf16, fp32[0], "the float32 step")
+    rel = update_rel(bf16, fp32[0])
+    worst = sorted(rel, key=rel.get, reverse=True)[:3]
+    log("    update p1 - p0 against the float32 step's, relative L2 per tensor (not gated): "
+        "worst " + ", ".join(f"{k} {rel[k]:.3g}" for k in worst))
+    del fp32
+
+    model = bf16[0]
+    timing = time_step(f"(c) Swin train step (bf16, {SWIN_MODEL}, batch {TRAIN_BATCH}, crop "
+                       f"{CROP}, {2 * TRAIN_BATCH} images through the trunk)", step, batch,
+                       TRAIN_BATCH, card, SWIN_TIMED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (c) peak device memory of one step: {peak / 2**30:.2f} GiB "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M parameters) [{card}]")
+    del model, step, bf16
+
+    errs: dict = {}
+    launches = sum(check_pit(name, device, errs) for name in ("pit_b", "pit_b_distilled_224"))
+    pit_s = registry.create_model("pit_s", num_classes=20, attn_impl="kernel").to(device)
+    try:
+        with torch.no_grad():
+            pit_s(torch.zeros((1, PIT_CROP, PIT_CROP, 3), device=device))
+    except ValueError as e:
+        message = str(e)
+    else:
+        raise AssertionError("pit_s (head dim 48) ran on the kernel")
+    if "head dim" not in message:
+        raise AssertionError(f"pit_s with the kernel failed with another error: {message}")
+    log(f"  (d) pit_s with attn_impl='kernel': {message}")
+    return {"launches": launches, "errs": {n: e for (name, n), e in errs.items()
+                                           if name == "pit_b"}, **timing, "peak": peak}
+
+
+def time_step(label, step, batch, images, card, reps=6) -> dict:
+    """Host-clock time (synchronized) of ``step(batch)``: median of ``reps``
+    after a warm-up; then a profiler window of 2 steps."""
     from torch.profiler import ProfilerActivity, profile
 
-    grid = (cfg.crop_size // 16, cfg.crop_size // 16)
-    step = train_mod.make_train_step(model, opt, cfg, grid)
     step(batch)
     times = []
     for _ in range(reps):
@@ -2452,9 +2749,8 @@ def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     step_ms = float(np.median(times))
-    log(f"  train step (fused branch, batch {cfg.batch_size}, crop {cfg.crop_size}), "
-        f"median of {reps} after a warm-up: {step_ms:.2f} ms (all: "
-        f"{', '.join(f'{t:.2f}' for t in times)}), {cfg.batch_size / step_ms * 1e3:.2f} "
+    log(f"  {label}, median of {reps} after a warm-up: {step_ms:.2f} ms (all: "
+        f"{', '.join(f'{t:.2f}' for t in times)}), {images / step_ms * 1e3:.2f} "
         f"images/s [{card}]")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -2475,8 +2771,15 @@ def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
                 f"{e.key[:90]}")
     else:
         log("  device busy per step: not measured (profiler saw no device activity)")
-    return {"step_ms": step_ms, "images_per_s": cfg.batch_size / step_ms * 1e3,
-            "busy_ms": busy_ms}
+    return {"step_ms": step_ms, "images_per_s": images / step_ms * 1e3, "busy_ms": busy_ms}
+
+
+def time_train_step(model, opt, cfg, batch, card, reps=6) -> dict:
+    """``time_step`` of the fused kernel step."""
+    grid = (cfg.crop_size // 16, cfg.crop_size // 16)
+    return time_step(f"train step (fused branch, batch {cfg.batch_size}, crop "
+                     f"{cfg.crop_size})", train_mod.make_train_step(model, opt, cfg, grid),
+                     batch, cfg.batch_size, card, reps)
 
 
 def time_train_loop(model, opt, cfg, card) -> None:
@@ -2610,8 +2913,8 @@ def phase_kernel_timing(device, card) -> dict:
     """Each kernel's time at its main path's shape: K1f at B=2 (inference),
     K1n at B=2 and B=4 (validation) and B=8 (the seg step), K2f, K2b, K1b
     (with a float32 or bf16 de, or none: the seg step's) and K1f with
-    either export dtype at B=8 (training), and K5a, K5b and K5c forward and
-    backward at B=8."""
+    either export dtype at B=8 (training), K5a, K5b and K5c forward and
+    backward at B=8, and K1f at pit_b's first stage (B=2, N=962, H=4)."""
     H, D, N = HEADS, HEAD_DIM, N_TOKENS
     scale = D ** -0.5
     gen = torch.Generator(device=device).manual_seed(1)
@@ -2718,6 +3021,19 @@ def phase_kernel_timing(device, card) -> dict:
             2 * qkv.numel() * 2 + g.numel() * 2 + de.numel() * 4, bwd_flops, 10,
             card, "SDPA forward+backward (no de)")
     del qkv, q, k, v, g, g_heads, de, de16, sign, operands
+    # pit_b's first stage (crop 224): 962 tokens, 4 heads of dim 64
+    n_pit, h_pit = 962, 4
+    qkv = torch.randn((PIT_BATCH, n_pit, 3 * h_pit * D), generator=gen,
+                      device=device).to(torch.bfloat16)
+    q, k, v = (t.contiguous() for t in qkv.reshape(
+        PIT_BATCH, n_pit, 3, h_pit, D).permute(2, 0, 3, 1, 4))
+    out["K1f_pit"] = time_kernel(
+        f"{KERNEL} (K1f, PiT) at B={PIT_BATCH} N={n_pit} H={h_pit} D={D} bf16, export mean",
+        lambda: attention_qkv_cols_forward(qkv, scale, h_pit, "mean"),
+        lambda: attention_qkv_cols_plain(qkv, scale, h_pit, "mean"), sdpa(q, k, v),
+        qkv.numel() * 2 + PIT_BATCH * n_pit * h_pit * D * 2 + PIT_BATCH * n_pit * n_pit * 4,
+        4 * PIT_BATCH * h_pit * n_pit * n_pit * D, 50, card, "SDPA (output only)")
+    del qkv, q, k, v
     out.update(pamr_kernel_timing(device, card))
     return out
 
@@ -2773,12 +3089,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/14] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/15] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/14] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/15] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         kernel = ""
@@ -2796,37 +3112,37 @@ def main() -> int:
         f"{pamr_ops.affinity_blocks_per_sm(PAMR_DILATIONS)} (at its largest halo), "
         f"pamr_update_kernel<{n_dil}> {pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
-    log("[3/14] kernels against their plain versions on the card")
+    log("[3/15] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/14] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+        log("[4/15] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
             f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
         (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
          pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/14] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/15] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/14] resumable training: preempt and resume, --device_aug, the relaunch "
+        log("[6/15] resumable training: preempt and resume, --device_aug, the relaunch "
             "supervisor, --pretrained, COCO; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_resume(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  resume phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[7/14] one train step, kernel path against plain path, same weights and batch")
+        log("[7/15] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
         model, opt, batch, layer_launches, step_ctx, fused = phase_step_compare(device, cfg)
         dp_ref = (step_ctx[0], batch, fused)
         del fused
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[8/14] attention entries: K5a, K5b, K5c against their plain versions and "
+        log("[8/15] attention entries: K5a, K5b, K5c against their plain versions and "
             "through autograd; the per-layer branch with a bf16 export")
         t0 = time.perf_counter()
         entry_errs, entry_launches, bf16_launches = phase_attention_entries(
@@ -2834,31 +3150,31 @@ def main() -> int:
         del step_ctx
         log(f"  attention entries phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[9/14] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+        log(f"[9/15] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
             f"crop 384, the recipe")
         t0 = time.perf_counter()
         phase_pipeline(cfg, os.path.join(tmp, "train"))
         log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[10/14] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
+        log("[10/15] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
             "on either route, pseudo_label")
         t0 = time.perf_counter()
         pseudo_dir = phase_crf(device, tmp, paths, labels, infer_launches, card)
         log(f"  CRF phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[11/14] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
+        log("[11/15] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
             f"{SEG_BATCH}; one bf16 seg step, kernel path against plain path")
         t0 = time.perf_counter()
         seg = phase_seg(device, cfg, tmp, pseudo_dir, card)
         log(f"  segmentation phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[12/14] serving and the reference import: the serving export, the convert "
+        log("[12/15] serving and the reference import: the serving export, the convert "
             "CLI; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_surface(device, tmp, paths, labels, card)
         log(f"  serving phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[13/14] parallel: DDP, FSDP and --dp on one card; vitb_hybrid, crop 384, "
+        log("[13/15] parallel: DDP, FSDP and --dp on one card; vitb_hybrid, crop 384, "
             "batch 4, the recipe")
         t0 = time.perf_counter()
         names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
@@ -2866,7 +3182,7 @@ def main() -> int:
         del dp_ref
         log(f"  parallel phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[14/14] timing on {card}")
+        log(f"[14/15] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "
@@ -2886,6 +3202,13 @@ def main() -> int:
         time_train_step(model, opt, cfg, batch, card)
         time_train_loop(model, opt, cfg, card)
         del model, opt
+        torch.cuda.empty_cache()
+
+        log(f"[15/15] Swin and PiT: train_swin at {SWIN_MODEL}, crop {CROP}, batch "
+            f"{TRAIN_BATCH}, the recipe; pit_b forwards on K1f at crop {PIT_CROP}")
+        t0 = time.perf_counter()
+        swin_pit = phase_swin_pit(device, cfg, os.path.join(tmp, "train"), card)
+        log(f"  Swin and PiT phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     timing = phase_kernel_timing(device, card)
 
@@ -2948,6 +3271,10 @@ def main() -> int:
              "launches": entry_launches[entry + "b"],
              "max_abs_err": max(v for (e, d, _), v in entry_errs.items()
                                 if e == entry and d == "bwd"), **timing[entry + "b"]}]
+    kernels.append(
+        {"name": KERNEL + " (PiT)", "route": "cuda", "source": src + "attn_fwd_headmean.cu",
+         "replaces": tpu + "380", "launches": swin_pit["launches"],
+         "max_abs_err": max(swin_pit["errs"].values()), **timing["K1f_pit"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -14,7 +14,10 @@ on-device augmentation (``data/device_aug.py``) and the on-device dense
 CRF (``ops/crf.py``), plain torch both, against their CPU runs; and one
 bf16 seg step of the DPT model on the kernels (K1n, K1b with no de)
 against the plain path; and the serving artifact exported on the card,
-with and without embedded weights, against the live plain path.
+with and without embedded weights, against the live plain path; K1f at
+the pit_b shapes and the pit_b forward on it (13 launches, the same bits
+twice), pit_s refusing the kernel, and a Swin train step giving the same
+bits twice.
 Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
@@ -674,3 +677,84 @@ def test_data_parallel_step_at_world_size_1_matches_one_device(device, tmp_path,
         rel = float((p1[k] - weights[k].to(device) - ref_u).norm()
                     / ref_u.norm().clamp_min(1e-30))
         assert rel <= 5e-2, (k, rel)
+
+
+# --- Swin and PiT -----------------------------------------------------------
+
+@pytest.mark.parametrize("n,heads", [(962, 4), (257, 8), (65, 16)])
+def test_attn_fwd_headmean_at_the_pit_b_shapes(device, n, heads):
+    """K1f at pit_b's three stages (crop 224, B=2): N = 962, 257, 65 tokens
+    with 4, 8, 16 heads of dim 64, against its plain version."""
+    gen = torch.Generator(device=device).manual_seed(n)
+    qkv = torch.randn((2, n, 3 * heads * D), generator=gen, device=device).bfloat16()
+    before = fused_attention_qkv_cols.launches
+    out, probs = fused_attention_qkv_cols(qkv, D ** -0.5, heads, "mean")
+    ref_out, ref_probs = attention_qkv_cols_plain(qkv, D ** -0.5, heads, "mean")
+    torch.cuda.synchronize()
+    assert fused_attention_qkv_cols.launches == before + 1
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=OUT_RTOL, atol=OUT_ATOL)
+    torch.testing.assert_close(probs, ref_probs, rtol=0, atol=PROBS_ATOL)
+
+
+def test_pit_b_forward_launches_k1f_per_block_and_pit_s_refuses_the_kernel(device):
+    """pit_b (bf16, crop 224, batch 2, export "mean") on the kernel path: 13
+    K1f launches per forward, the same bits from two forwards, every export
+    finite; pit_s (head dim 48) with the kernel raises, no fallback."""
+    from acr_wsss_tpu_torch.models.acr import init_random_
+    from acr_wsss_tpu_torch.models.registry import create_model
+
+    model = init_random_(create_model("pit_b", num_classes=20), seed=0).to(device)
+    x = torch.randn((2, 224, 224, 3), device=device)
+    outs = []
+    for _ in range(2):
+        before = fused_attention_qkv_cols.launches
+        with torch.no_grad():
+            outs.append(model(x))
+        torch.cuda.synchronize()
+        assert fused_attention_qkv_cols.launches == before + 13
+    for a, b in zip(outs[0]["probs_per_block"] + [outs[0]["logits"]],
+                    outs[1]["probs_per_block"] + [outs[1]["logits"]]):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    pit_s = create_model("pit_s", num_classes=20, attn_impl="kernel").to(device)
+    with pytest.raises(ValueError, match="head dim 64"), torch.no_grad():
+        pit_s(torch.zeros((1, 224, 224, 3), device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swin_step_gives_the_same_bits_twice(device, dtype):
+    """One ``train_swin`` step (a small Swin: width 32, window 4, crop 64,
+    batch 2, TF32 off) from the same weights and batch, twice: the same
+    bits in every loss part and every parameter after the update (the bias
+    table's backward sums in a fixed order)."""
+    import numpy as np
+
+    from acr_wsss_tpu_torch.configs import TrainConfig
+    from acr_wsss_tpu_torch.models.acr import init_random_
+    from acr_wsss_tpu_torch.models.swin import SwinTransformer
+    from acr_wsss_tpu_torch.train_swin import make_swin_train_step
+    from acr_wsss_tpu_torch.utils.schedule import make_optimizer
+
+    kw = dict(embed_dim=32, depths=(2, 2), num_heads=(2, 4), window_size=4, img_size=64)
+    weights = init_random_(SwinTransformer(**kw), seed=1).state_dict()
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.normal(size=(2, 64, 64, 3)).astype(np.float32),
+             "label": (rng.uniform(size=(2, 20)) > 0.7).astype(np.float32)}
+    cfg = TrainConfig(crop_size=64, batch_size=2, device="cuda")
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for _ in range(2):
+            model = SwinTransformer(**kw, dtype=dtype)
+            model.load_state_dict(weights)
+            model.to(device)
+            opt = make_optimizer(model.parameters(), cfg.lr, 4)
+            parts = make_swin_train_step(model, opt, cfg, 64, device)(batch)
+            runs.append((parts, {k: v.detach().clone() for k, v in model.state_dict().items()}))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    (parts_a, params_a), (parts_b, params_b) = runs
+    for k in parts_a:
+        assert torch.isfinite(parts_a[k]) and torch.equal(parts_a[k], parts_b[k]), k
+    for k in params_a:
+        assert torch.equal(params_a[k], params_b[k]), k

@@ -13,9 +13,11 @@ supervisor}``; those from CAMs to pseudo masks: ``ops/{crf,bilateral}``,
 segmentation stage: ``models/dpt``, ``train_seg`` and ``utils/metrics``;
 and those of serving and the reference import: ``serving`` and
 ``models/convert``, whose CLIs also run there; and those of data
-parallelism: ``parallel/{distributed,mesh,sharding}``: the reference-checkpoint
-import on a ``torch.save``d checkpoint, then the serving export of the npz
-it wrote, and the artifact's call.
+parallelism: ``parallel/{distributed,mesh,sharding}``; and those of the
+Swin and PiT slice: ``models/{registry,swin,pit}`` and ``train_swin``. The
+CLIs run there too: the reference-checkpoint import on a ``torch.save``d
+checkpoint, then the serving export of the npz it wrote, and the
+artifact's call.
 """
 
 import os
@@ -60,14 +62,15 @@ def test_port_and_chip_smoke_import_without_jax():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count = int(proc.stdout.split()[-2])
-    assert count >= 42, proc.stdout
+    assert count >= 46, proc.stdout
     for name in ("train", "losses", "data.voc", "ops.attn_pair", "utils.schedule",
                  "utils.meters", "ops.pamr", "pipeline", "train_coco", "data.coco",
                  "data.lists", "data.device_aug", "models.zoo", "utils.checkpoint",
                  "utils.logging", "utils.preemption", "utils.watchdog", "utils.supervisor",
                  "ops.crf", "ops.bilateral", "pseudo_label", "utils.visualization",
                  "models.dpt", "train_seg", "utils.metrics", "serving", "models.convert",
-                 "parallel", "parallel.distributed", "parallel.mesh", "parallel.sharding"):
+                 "parallel", "parallel.distributed", "parallel.mesh", "parallel.sharding",
+                 "models.registry", "models.swin", "models.pit", "train_swin"):
         assert f"acr_wsss_tpu_torch.{name}" in proc.stdout, name
 
 

@@ -15,6 +15,12 @@
 // one (__expf: 2 ulp, plus 2^-23 |s - max| relative). Rows and keys past
 // N are masked: no padding of N and no limit on it.
 //
+// Head dim: the template's kDT tiles of 64 columns hold D <= 64 kDT, the
+// columns past D zero-filled (attn_tiles.cuh). The pair forward runs kDT =
+// 1 at D = 64; the head-mean forward kDT = 1 for D <= 64 and 2 up to 128.
+// For D < 64 kDT the zeros cost products: 64 kDT / D times those of q k^T
+// and of p v (1.33x at D = 48 and 96, 1.6x at 80, 2x at 32).
+//
 // Everything here has internal linkage: each source that includes it is
 // its own library, and none exports these symbols to another.
 
@@ -38,12 +44,15 @@ struct Operands {
   Strides sq, sk, sv, so;
 };
 
-// s = the scaled logits of the block's 64 rows (tile sQ) against the key
-// tile sK starting at key j0, -inf at keys >= N.
+// s = the scaled logits of the block's 64 rows (the kDT tiles at sQ)
+// against the key tiles at sK starting at key j0, -inf at keys >= N. The
+// scale multiplies the float32 sums: D^-0.5 is not a power of two for most
+// head dims, so folding it into bf16 q would round q once more.
+template <int kDT = 1>
 __device__ __forceinline__ void logits(float (&s)[8][4], const bf16* sQ, const bf16* sK, int j0,
                                        int N, float scale) {
   wg_fence();
-  dots_async(s, sQ, sK);
+  dots_async<8, kDT>(s, sQ, sK);
   wg_commit();
   wg_wait<0>();
   fence_regs(s);
@@ -55,12 +64,18 @@ __device__ __forceinline__ void logits(float (&s)[8][4], const bf16* sQ, const b
       s[nt][e] = j0 + 8 * nt + 2 * t + (e & 1) < N ? __fmul_rn(s[nt][e], scale) : -CUDART_INF_F;
 }
 
+// Tiles of the out kernel: Q, two stages of K and of V, each kDT tiles.
+template <int kDT>
+constexpr int kOutTiles = 5 * kDT;
+
+// Head dim D <= 64 kDT: the operands' columns past D are zero-filled tiles.
+template <int kDT>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_out_kernel(Operands op, float* __restrict__ stats, int N, int H, float scale) {
-  __shared__ __align__(kTileAlign) bf16 smem[5 * kTileElems];
-  bf16* sQ = smem;
-  bf16* sK = smem + kTileElems;       // two stages
-  bf16* sV = smem + 3 * kTileElems;   // two stages
+attn_fwd_out_kernel(Operands op, float* __restrict__ stats, int N, int H, int D, float scale) {
+  constexpr int kOp = kDT * kTileElems;   // one operand's tiles
+  bf16* sQ = tiles_smem<kOutTiles<kDT>, kDT>();
+  bf16* sK = sQ + kOp;       // two stages
+  bf16* sV = sK + 2 * kOp;   // two stages
   const int i0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int row0 = (threadIdx.x >> 5) * 16;
   const int lane = threadIdx.x & 31, g = lane >> 2;
@@ -68,21 +83,22 @@ attn_fwd_out_kernel(Operands op, float* __restrict__ stats, int N, int H, float 
   const bf16* kb = head_base(op.k, op.sk, b, h);
   const bf16* vb = head_base(op.v, op.sv, b, h);
 
-  load_tile_async(sQ, head_base(op.q, op.sq, b, h), op.sq.n, i0, N);
-  load_tile_async(sK, kb, op.sk.n, 0, N);
+  load_tile_async<kDT>(sQ, head_base(op.q, op.sq, b, h), op.sq.n, i0, N, D);
+  load_tile_async<kDT>(sK, kb, op.sk.n, 0, N, D);
   cp_async_commit();
 
   // Sweep 1: row max m and sum of exponentials l (per lane, summed over
   // the quad at the end) of rows g and g + 8.
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
   for (int kt = 0; kt < tiles_n; ++kt) {
-    const int cur = (kt & 1) * kTileElems;
-    if (kt + 1 < tiles_n) load_tile_async(sK + kTileElems - cur, kb, op.sk.n, (kt + 1) * kRows, N);
+    const int cur = (kt & 1) * kOp;
+    if (kt + 1 < tiles_n)
+      load_tile_async<kDT>(sK + kOp - cur, kb, op.sk.n, (kt + 1) * kRows, N, D);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     float s[8][4];
-    logits(s, sQ, sK + cur, kt * kRows, N, scale);
+    logits<kDT>(s, sQ, sK + cur, kt * kRows, N, scale);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = m[r];
@@ -102,24 +118,26 @@ attn_fwd_out_kernel(Operands op, float* __restrict__ stats, int N, int H, float 
   l[0] = 1.f / quad_sum(l[0]);
   l[1] = 1.f / quad_sum(l[1]);
 
-  // Sweep 2: out = bf16(p) @ v.
-  load_tile_async(sK, kb, op.sk.n, 0, N);
-  load_tile_async(sV, vb, op.sv.n, 0, N);
+  // Sweep 2: out = bf16(p) @ v, one 64-column accumulator per tile of v.
+  load_tile_async<kDT>(sK, kb, op.sk.n, 0, N, D);
+  load_tile_async<kDT>(sV, vb, op.sv.n, 0, N, D);
   cp_async_commit();
-  float o[8][4];
+  float o[kDT][8][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  for (int t = 0; t < kDT; ++t)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) o[t][nt][0] = o[t][nt][1] = o[t][nt][2] = o[t][nt][3] = 0.f;
   for (int kt = 0; kt < tiles_n; ++kt) {
-    const int cur = (kt & 1) * kTileElems;
+    const int cur = (kt & 1) * kOp;
     if (kt + 1 < tiles_n) {
-      load_tile_async(sK + kTileElems - cur, kb, op.sk.n, (kt + 1) * kRows, N);
-      load_tile_async(sV + kTileElems - cur, vb, op.sv.n, (kt + 1) * kRows, N);
+      load_tile_async<kDT>(sK + kOp - cur, kb, op.sk.n, (kt + 1) * kRows, N, D);
+      load_tile_async<kDT>(sV + kOp - cur, vb, op.sv.n, (kt + 1) * kRows, N, D);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     float s[8][4];
-    logits(s, sQ, sK + cur, kt * kRows, N, scale);
+    logits<kDT>(s, sQ, sK + cur, kt * kRows, N, scale);
     uint32_t pa[4][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -129,15 +147,23 @@ attn_fwd_out_kernel(Operands op, float* __restrict__ stats, int N, int H, float 
     for (int kk = 0; kk < 4; ++kk) to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_rows_async(o, pa[kk], sV + cur, kk);
+    for (int t = 0; t < kDT; ++t)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rows_async(o[t], pa[kk], sV + cur + t * kTileElems, kk);
     wg_commit();
     wg_wait<0>();
-    fence_regs(o);
+#pragma unroll
+    for (int t = 0; t < kDT; ++t) fence_regs(o[t]);
     fence_regs(pa);
     __syncthreads();
   }
-  // sQ is free: the last products that read it have completed.
-  store_rows(sQ, row0, o, 1.f, head_base(op.out, op.so, b, h), op.so.n, i0, N);
+  // sQ is free: the last products that read it have completed. Tile t of
+  // it stages columns [64 t, 64 t + 64) of out; those past D are not stored.
+  bf16* ob = head_base(op.out, op.so, b, h);
+#pragma unroll
+  for (int t = 0; t < kDT; ++t)
+    store_rows(sQ + t * kTileElems, row0, o[t], 1.f, ob + t * kD, op.so.n, i0, N, D - t * kD);
   if (stats != nullptr && (lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -149,6 +175,21 @@ attn_fwd_out_kernel(Operands op, float* __restrict__ stats, int N, int H, float 
       }
     }
   }
+}
+
+// One launch of the out kernel over (64-row tiles, heads, batch) on `s`.
+template <int kDT>
+cudaError_t launch_out(const Operands& op, float* stats, int B, int N, int H, int D, float scale,
+                       cudaStream_t s) {
+  constexpr size_t bytes = tiles_dynamic_bytes<kOutTiles<kDT>, kDT>();
+  if (bytes > 0) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_fwd_out_kernel<kDT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return e;
+  }
+  attn_fwd_out_kernel<kDT><<<dim3((N + kRows - 1) / kRows, H, B), kThreads, bytes, s>>>(
+      op, stats, N, H, D, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace

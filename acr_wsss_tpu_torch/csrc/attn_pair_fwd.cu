@@ -226,8 +226,7 @@ int attn_pair_fwd(const void* qkv, void* out, void* sign, void* stats, void* par
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
   float* part = static_cast<float*>(partials);
-  attn_fwd_out_kernel<<<dim3(tiles_n(N), H, B), kThreads, 0, s>>>(op, st, N, H, scale);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_out<1>(op, st, B, N, H, kD, scale, s);
   if (e != cudaSuccess) return (int)e;
   attn_pair_kernel<<<dim3(tiles_n(N), tiles_n(N), pairs), kThreads, 0, s>>>(
       op, st, static_cast<int8_t*>(sign), part, N, H, scale);

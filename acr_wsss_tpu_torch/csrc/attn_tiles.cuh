@@ -1,7 +1,13 @@
 // Tensor-core tiles shared by the attention kernels (attn_fwd_headmean.cu,
-// attn_bwd.cu): bf16 tiles of 64 rows of D = 64 values in shared memory,
-// filled with cp.async and multiplied with Hopper's warpgroup MMA
-// (wgmma.mma_async m64n64k16: bf16 operands, fp32 sums).
+// attn_bwd.cu, attn_pair_fwd.cu): bf16 tiles of 64 rows of 64 values in
+// shared memory, filled with cp.async and multiplied with Hopper's warpgroup
+// MMA (wgmma.mma_async m64n64k16: bf16 operands, fp32 sums).
+//
+// An operand of head dim D is kDT = ceil(D / 64) tiles side by side: tile t
+// holds its columns [64 t, 64 t + 64), and the columns past D are zeros, so
+// they add nothing to q k^T and the columns of p v past D are never stored.
+// The backward and pair kernels take D = 64 (kDT = 1); the forward takes
+// every multiple of 16 up to 128.
 //
 // A block is one warpgroup of 4 warps, and every product is 64 x 64:
 // warp w owns rows [16 w, 16 w + 16) of it, in eight m16n8 accumulators
@@ -12,7 +18,7 @@
 // A tile row is 128 bytes: eight 16-byte chunks. Chunk c of row r is
 // stored at chunk c ^ (r % 8), in a tile that starts 1024-byte aligned:
 // wgmma's 128-byte swizzle, which it reads without bank conflicts both as a
-// K-major operand (a row holds the 64 depth values of one row of the
+// K-major operand (a row holds 64 depth values of one row of the
 // product) and as an MN-major one (a row holds 64 columns at one depth).
 
 #pragma once
@@ -25,7 +31,7 @@ namespace tiles {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;         // head dim: one 128-byte tile row
+constexpr int kD = 64;         // columns of a tile: one 128-byte tile row
 constexpr int kRows = 64;      // rows of a tile: query rows or keys
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kTileElems = kRows * kD;
@@ -56,18 +62,45 @@ __device__ __forceinline__ unsigned char* align_tiles(unsigned char* p) {
   return p + ((kTileAlign - (smem_addr(p) & (kTileAlign - 1))) & (kTileAlign - 1));
 }
 
-// Rows [r0, r0 + 64) of an operand with row stride `stride` into a
-// swizzled tile, 16 bytes per thread and step, without waiting; rows >= n
-// are filled with zeros.
+// The kTiles tiles of a kernel in shared memory, 1024-byte aligned: with
+// one column tile (kDT = 1) a static array, whose address is a constant,
+// and so are the swizzled addresses and wgmma descriptors of its tiles;
+// with two (above the 48 KB a static array may take) the dynamic shared
+// memory, launched tiles_dynamic_bytes<kTiles, kDT>() large. (Dynamic
+// tiles at kDT = 1 were slower on an H100: PERF.md, section 6.)
+template <int kTiles, int kDT>
+__device__ __forceinline__ bf16* tiles_smem() {
+  if constexpr (kDT == 1) {
+    __shared__ __align__(kTileAlign) bf16 smem[kTiles * kTileElems];
+    return smem;
+  } else {
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    return reinterpret_cast<bf16*>(align_tiles(smem_raw));
+  }
+}
+
+template <int kTiles, int kDT>
+constexpr size_t tiles_dynamic_bytes() {
+  return kDT == 1 ? 0 : kTileAlign + kTiles * kTileElems * sizeof(bf16);
+}
+
+// Rows [r0, r0 + 64) of an operand with row stride `stride` into kDT
+// swizzled tiles (columns [64 t, 64 t + 64) into tile t), 16 bytes per
+// thread and step, without waiting; rows >= n and columns >= d (a multiple
+// of 8) are filled with zeros.
+template <int kDT = 1>
 __device__ __forceinline__ void load_tile_async(bf16* tile, const bf16* base, long long stride,
-                                                int r0, int n) {
-  for (int idx = threadIdx.x; idx < kRows * 8; idx += kThreads) {
-    const int r = idx >> 3, c = idx & 7, row = r0 + r;
-    const bool in = row < n;
-    const bf16* src = base + (in ? row * stride + c * 8 : 0);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(tile + swz(r, c))),
-                 "l"(src), "r"(in ? 16 : 0));
+                                                int r0, int n, int d = kD) {
+#pragma unroll
+  for (int t = 0; t < kDT; ++t) {
+    for (int idx = threadIdx.x; idx < kRows * 8; idx += kThreads) {
+      const int r = idx >> 3, c = idx & 7, row = r0 + r, col = t * kD + c * 8;
+      const bool in = row < n && col < d;
+      const bf16* src = base + (in ? row * stride + col : 0);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       smem_addr(tile + t * kTileElems + swz(r, c))),
+                   "l"(src), "r"(in ? 16 : 0));
+    }
   }
 }
 
@@ -190,14 +223,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// Issue acc = a x b^T over D, 64 x 8 kNt: the rows of tile a against the
-// 8 kNt rows of tile b from row b_row0 (a multiple of 8; both K-major).
-template <int kNt>
+// Issue acc = a x b^T over the kDT tiles of depth, 64 x 8 kNt: the rows of
+// tiles a against the 8 kNt rows of tiles b from row b_row0 (a multiple of
+// 8; both K-major).
+template <int kNt, int kDT = 1>
 __device__ __forceinline__ void dots_async(float (&acc)[kNt][4], const bf16* a, const bf16* b,
                                            int b_row0 = 0) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<kNt>(acc, tile_desc(a, 32 * kk), tile_desc(b, b_row0 * 128 + 32 * kk), kk);
+  for (int t = 0; t < kDT; ++t)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<kNt>(acc, tile_desc(a + t * kTileElems, 32 * kk),
+                    tile_desc(b + t * kTileElems, b_row0 * 128 + 32 * kk), 4 * t + kk);
 }
 
 // Issue acc += a x tile rows [16 kk, 16 kk + 16): a is depth slice kk of a
@@ -249,11 +286,12 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // A warp's 16 x 64 fp32 result times `mul`, rounded once to bf16, into
 // rows [row0, row0 + 16) of a swizzled tile, then copied 16 bytes per lane
-// to the rows r0 + row0 + r < n of an operand with row stride `stride`.
-// Only the calling warp touches those tile rows.
+// to the rows r0 + row0 + r < n of an operand with row stride `stride`,
+// columns [0, cols) (a multiple of 8). Only the calling warp touches those
+// tile rows.
 __device__ __forceinline__ void store_rows(bf16* tile, int row0, const float (&acc)[8][4],
                                            float mul, bf16* base, long long stride, int r0,
-                                           int n) {
+                                           int n, int cols = kD) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
@@ -266,7 +304,7 @@ __device__ __forceinline__ void store_rows(bf16* tile, int row0, const float (&a
 #pragma unroll
   for (int idx = lane; idx < 16 * 8; idx += 32) {
     const int r = row0 + (idx >> 3), c = idx & 7, row = r0 + r;
-    if (row < n)
+    if (row < n && c * 8 < cols)
       *reinterpret_cast<uint4*>(base + row * stride + c * 8) =
           *reinterpret_cast<const uint4*>(tile + swz(r, c));
   }

@@ -43,13 +43,24 @@ It reads the checkpoint with ``torch.load(weights_only=True)``: a state
 dict of tensors, optionally under ``"model"``, ``module.`` prefixes
 stripped (the reference's ``BaseModel.load`` and DDP formats).
 
+The timm classifiers (``:84``, ``:1563-1615``): ``vit_timm_state_dict_to_flax``
+maps a ViT or DeiT checkpoint (the trunk's names of ``_REFERENCE`` without
+the ``pretrained.model.`` prefix, ``head``, ``head_dist``,
+``pre_logits.fc``) to the flat dict of ``models/vit_classifier.py``;
+``resnetv2_bit_state_dict_to_flax`` a BiT one (its 1x1 conv head as a
+Dense) to ``models/hybrid.BiTResNetV2``'s; ``bit_npz_to_torch_names``
+renames BiT's TF ``.npz`` releases to timm's names first (``:3086``).
+``zoo.convert_state_dict`` picks the mapper of a registry name's family.
+
 The timm Swin and PiT checkpoints (``:228-350``):
 ``swin_state_dict_to_flax`` and ``pit_state_dict_to_flax`` map them, by
 the tables ``_SWIN`` and ``_PIT``, to the flat dict of ``models/swin.py``
 and ``models/pit.py`` (Swin's recomputed buffers skipped, PiT's NCHW
 ``pos_embed`` to NHWC, torch's ``transformers.<s>.pool`` to ``pool<s+1>``,
-``head`` and ``head_dist`` kept). With ``--backbone`` a Swin or PiT name
-of the registry the CLI writes that npz, which ``--pretrained`` and
+``head`` and ``head_dist`` kept). With ``--backbone`` a name of the
+registry (Swin, PiT, the ViT/DeiT classifiers, the BiT names) the CLI
+writes that npz, checked against the registry's model, which
+``--pretrained``, ``create_model(..., pretrained=True)`` and
 ``zoo.graft_standalone`` read (as ``<ACR_WSSS_ZOO>/<name>_in21k.npz``).
 """
 
@@ -207,11 +218,16 @@ def _nhwc(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(w.transpose(0, 2, 3, 1))
 
 
+def _conv1x1_to_dense(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w[:, :, 0, 0].T)
+
+
 # A parameter's (reference leaf: (flax leaf, reference -> flax transform))
 # by the kind of its module; None: the name is the parameter itself.
 _LEAVES = {"linear": {"weight": ("kernel", _linear), "bias": ("bias", _ident)},
            "conv": {"weight": ("kernel", _conv), "bias": ("bias", _ident)},
            "norm": {"weight": ("scale", _ident), "bias": ("bias", _ident)},
+           "conv1x1": {"weight": ("kernel", _conv1x1_to_dense), "bias": ("bias", _ident)},
            "nchw": {"": ("", _nhwc)},
            None: {"": ("", _ident)}}
 _INVERSE = {_linear: lambda w: np.ascontiguousarray(w.T),
@@ -270,6 +286,28 @@ _PIT = (
     (r"norm", "norm", "norm"),
     (r"head", "head", "linear"),
     (r"head_dist", "head_dist", "linear"),
+)
+
+
+# timm's ViT and DeiT classifiers (``vit_timm_state_dict_to_flax`` :84): the
+# trunk's names of the reference table without its ``pretrained.model.``
+# prefix, and the heads of ``models/vit_classifier.py``.
+_VIT_TIMM = (
+    (r"(head|head_dist)", "{}", "linear"),
+    (r"pre_logits\.fc", "pre_logits", "linear"),
+    *((m[len(r"pretrained\.model\."):], p, k) for m, p, k in _REFERENCE
+      if m.startswith(r"pretrained\.model\.")),
+)
+# timm's pre-activation ResNetV2, BiT (``_map_resnetv2_bit_name`` :1586):
+# the blocks ``s<s>_b<b>`` of ``models/hybrid.BiTResNetV2``, the 1x1 conv
+# head as a Dense.
+_BIT = (
+    (r"stem\.conv", "stem_conv", "conv"),
+    (r"norm", "norm/GroupNorm_0", "norm"),
+    (r"head\.fc", "head", "conv1x1"),
+    (_STAGE + r"(conv\d)", "s{}_b{}/{}", "conv"),
+    (_STAGE + r"(norm\d)", "s{}_b{}/{}/GroupNorm_0", "norm"),
+    (_STAGE + r"downsample\.conv", "s{}_b{}/downsample_conv", "conv"),
 )
 
 
@@ -341,6 +379,54 @@ def pit_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.nda
     return _table_to_flax(state_dict, _PIT)
 
 
+def vit_timm_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A timm ViT or DeiT classifier's state dict (bare ``cls_token``,
+    ``blocks.<i>``, the hybrid's ``patch_embed.backbone``, ``head``, and
+    ``head_dist`` and ``pre_logits.fc`` where the release has them) as the
+    flat dict of ``models/vit_classifier.py``; unknown names are dropped."""
+    return _table_to_flax(state_dict, _VIT_TIMM)
+
+
+def resnetv2_bit_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A timm BiT (pre-activation ResNetV2) state dict as the flat dict of
+    ``models/hybrid.BiTResNetV2``; unknown names are dropped."""
+    return _table_to_flax(state_dict, _BIT)
+
+
+def bit_npz_to_torch_names(weights: Mapping[str, np.ndarray], prefix: str = "resnet/"
+                           ) -> Dict[str, np.ndarray]:
+    """An official BiT ``.npz`` release as timm's names, which
+    :func:`resnetv2_bit_state_dict_to_flax` reads (``convert.py:3086``):
+    HWIO kernels to OIHW, ``block<i>/unit<j>/{a,b,c}`` to
+    ``stages.<i-1>.blocks.<j-1>.{1,2,3}``, ``a/proj`` to the downsample."""
+    out: Dict[str, np.ndarray] = {}
+    sub = {"a": "1", "b": "2", "c": "3"}
+    named = {"root_block/standardized_conv2d/kernel": "stem.conv.weight",
+             "group_norm/gamma": "norm.weight", "group_norm/beta": "norm.bias",
+             "head/conv2d/kernel": "head.fc.weight", "head/conv2d/bias": "head.fc.bias"}
+    for name, v in weights.items():
+        if not name.startswith(prefix):
+            continue
+        name = name[len(prefix):]
+        v = np.asarray(v)
+        v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.reshape(-1)
+        if name in named:
+            out[named[name]] = v
+            continue
+        m = re.match(r"block(\d+)/unit(\d+)/(a|b|c)(/proj)?/"
+                     r"(?:standardized_conv2d/kernel|group_norm/(gamma|beta))$", name)
+        if not m:
+            continue
+        base = f"stages.{int(m[1]) - 1}.blocks.{int(m[2]) - 1}"
+        if m[4]:
+            out[f"{base}.downsample.conv.weight"] = v
+        elif m[5]:
+            out[f"{base}.norm{sub[m[3]]}.{'weight' if m[5] == 'gamma' else 'bias'}"] = v
+        else:
+            out[f"{base}.conv{sub[m[3]]}.weight"] = v
+    return out
+
+
 def flax_params_to_torch_state_dict(flat: Mapping[str, np.ndarray],
                                     template: Optional[Mapping[str, object]] = None
                                     ) -> Dict[str, np.ndarray]:
@@ -387,7 +473,7 @@ def _check_standalone(name: str, flat: Mapping[str, np.ndarray]) -> None:
     with torch.device("meta"):
         model = create_model(name, **kwargs)
         pos = flat.get("params/pos_embed")
-        if pos is not None and tuple(pos.shape[1:3]) != model.grid:
+        if name.startswith("pit") and pos is not None and tuple(pos.shape[1:3]) != model.grid:
             conv = model.patch_embed
             kwargs["img_size"] = tuple((g - 1) * conv.stride[0] + conv.kernel_size[0]
                                        for g in pos.shape[1:3])
@@ -396,21 +482,23 @@ def _check_standalone(name: str, flat: Mapping[str, np.ndarray]) -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    """Convert a reference ACR checkpoint, or a timm Swin or PiT one, to the
-    flat flax npz."""
+    """Convert a reference ACR checkpoint, or a timm one of a registry name,
+    to the flat flax npz."""
     from acr_wsss_tpu_torch.models.acr import ACR
+    from acr_wsss_tpu_torch.models.registry import is_model
     from acr_wsss_tpu_torch.utils.checkpoint import save_params_npz
 
-    parser = argparse.ArgumentParser(description="reference ACR or timm Swin/PiT .pth -> "
-                                                 "flat flax .npz")
+    parser = argparse.ArgumentParser(description="reference ACR or timm .pth -> flat flax .npz")
     parser.add_argument("torch_ckpt")
     parser.add_argument("out_npz")
     parser.add_argument("--backbone", default="vitb_hybrid",
-                        help="an ACR backbone, or a swin_* / pit_* name of the registry")
+                        help="an ACR backbone (vitb_hybrid, vit_small, ...), or a name of "
+                             "the registry: swin_*, pit_*, vit_*_224/384... (the ViT and DeiT "
+                             "classifiers), resnetv2_*_bitm")
     parser.add_argument("--scan", action="store_true",
                         help="write JAX's stacked layout (trunk/blocks_scan/block/...)")
     args = parser.parse_args(argv)
-    standalone = args.backbone.startswith(("swin", "pit"))
+    standalone = is_model(args.backbone)
     if standalone and args.scan:
         parser.error("--scan is the ACR trunk's layout")
     state = torch.load(args.torch_ckpt, map_location="cpu", weights_only=True)
@@ -418,9 +506,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         state = state["model"]           # the reference's BaseModel.load format
     state = {k[len("module."):] if k.startswith("module.") else k: v for k, v in state.items()}
     if standalone:
-        to_flax = (swin_state_dict_to_flax if args.backbone.startswith("swin")
-                   else pit_state_dict_to_flax)
-        flat = to_flax(state)
+        from acr_wsss_tpu_torch.models.zoo import convert_state_dict
+        flat = convert_state_dict(args.backbone, state)
         _check_standalone(args.backbone, flat)
         layout = "standalone"
     else:

@@ -8,7 +8,7 @@ layer casts to the caller's compute dtype as the flax modules do.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -32,17 +32,20 @@ def pad_same(x: torch.Tensor, kernel: int, stride: int,
 
 
 class WSConv(nn.Module):
-    """Weight-standardized conv, TF-'SAME' padded (``layers.py:39-80``):
-    the kernel is normalized per output channel with the population std,
-    ``(w - mean) / (std + eps)``, eps 1e-5."""
+    """Weight-standardized conv, TF-'SAME' padded, or by ``padding`` pixels
+    on every side (``layers.py:39-80``): the kernel is normalized per output
+    channel with the population std, ``(w - mean) / (std + eps)``, eps
+    1e-5. Initialized as ``nn.Conv2d``."""
 
     def __init__(self, in_chs: int, out_chs: int, kernel_size: int,
-                 stride: int = 1, eps: float = 1e-5):
+                 stride: int = 1, eps: float = 1e-5, padding: Optional[int] = None):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(out_chs, in_chs, kernel_size, kernel_size))
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
         self.stride = stride
         self.eps = eps
+        self.padding = padding
 
     def standardized_weight(self) -> torch.Tensor:
         w = self.weight
@@ -52,6 +55,8 @@ class WSConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.standardized_weight()
+        if self.padding is not None:
+            return F.conv2d(x, w.to(x.dtype), stride=self.stride, padding=self.padding)
         x = pad_same(x, w.shape[-1], self.stride)
         return F.conv2d(x, w.to(x.dtype), stride=self.stride)
 

@@ -10,10 +10,12 @@ returns ``probs_per_block`` (per block, (B, N_stage, N_stage) head means
 for export "mean"), ``logits``, ``grid``, and with ``distilled`` also
 ``head_logits`` and ``dist_logits``.
 
-``attn_impl`` is the blocks': "kernel" runs the forward with the
-head-mean export of ``ops/attn_cuda.py`` (K1f) on the card, which takes
-head dim 64 only (the ``pit_b`` family) and raises on any other; "plain"
-is PyTorch. The JAX blocks run XLA (``Block``'s default).
+``attn_impl`` is the blocks': "kernel" (every name's default) runs the
+forward with the head-mean export of ``ops/attn_cuda.py`` (K1f) on the
+card, at the names' head dims 64 (``pit_b``), 48 (``pit_s``, ``pit_xs``)
+and 32 (``pit_ti``); a head dim the kernel does not take raises at
+construction. "plain" is PyTorch. The JAX blocks run XLA (``Block``'s
+default).
 
 The position embedding is (1, gh, gw, C), as flax stores it, for the grid
 of ``img_size``; JAX takes that grid from the input at init.
@@ -30,7 +32,6 @@ import torch.nn.functional as F
 from acr_wsss_tpu_torch.models.layers import linear
 from acr_wsss_tpu_torch.models.registry import register_model
 from acr_wsss_tpu_torch.models.vit import Block
-from acr_wsss_tpu_torch.ops.attn_cuda import HEAD_DIM
 
 
 class ConvPool(nn.Module):
@@ -112,21 +113,14 @@ class PoolingVisionTransformer(nn.Module):
         return out
 
 
-def _attn_impl(kwargs: dict, base_dims: Sequence[int]) -> None:
-    """The kernel where it takes the head dim (64), plain elsewhere."""
-    kwargs.setdefault("attn_impl", "kernel" if set(base_dims) == {HEAD_DIM} else "plain")
-
-
 @register_model
 def pit_b(**kwargs):
-    _attn_impl(kwargs, (64, 64, 64))
     return PoolingVisionTransformer(patch_size=14, stride=7, base_dims=(64, 64, 64),
                                     depths=(3, 6, 4), heads=(4, 8, 16), **kwargs)
 
 
 @register_model
 def pit_s(**kwargs):
-    _attn_impl(kwargs, (48, 48, 48))
     return PoolingVisionTransformer(patch_size=16, stride=8, base_dims=(48, 48, 48),
                                     depths=(2, 6, 4), heads=(3, 6, 12), **kwargs)
 
@@ -152,7 +146,6 @@ def _register_pit(name: str, distilled: bool = False, **cfg) -> None:
             kwargs.setdefault("distilled", True)
         for k, v in cfg.items():
             kwargs.setdefault(k, v)
-        _attn_impl(kwargs, kwargs["base_dims"])
         return PoolingVisionTransformer(**kwargs)
 
     builder.__name__ = name

@@ -28,6 +28,14 @@ views stacked on the batch axis (rows [b:2b] mirror rows [0:b]),
 of ``ops/attn_pair.py`` on interleaved pairs and returns each layer's
 per-pair L1 sums as ``consistency_sums``.
 
+The classifiers' fields (``:261-310``, ``models/vit_classifier.py``):
+``qkv_bias`` (False for ``vit_small_patch16_224`` and the MIIL names),
+``hybrid_patch_size`` (the patchify over a stem's map, any stage plan of
+``models/hybrid.ResNetV2Stem`` including the bare stem) and the
+``pre_norm_tokens`` output. Under ``attn_impl="kernel"`` a head dim the
+forward kernel does not take raises at construction (``attn_cuda.
+check_head_dim``); there is no fallback to plain.
+
 ``scan_blocks``, remat and the bkg token of the JAX trunk are not part of
 this module.
 """
@@ -43,7 +51,7 @@ import torch.nn.functional as F
 
 from acr_wsss_tpu_torch.models.layers import Mlp, linear, resize_bilinear
 from acr_wsss_tpu_torch.ops.attention import attention_with_probs
-from acr_wsss_tpu_torch.ops.attn_cuda import fused_attention_qkv_cols
+from acr_wsss_tpu_torch.ops.attn_cuda import check_head_dim, fused_attention_qkv_cols
 from acr_wsss_tpu_torch.ops.attn_pair import fused_attention_pair_consistency
 
 ATTN_IMPLS = ("kernel", "plain")
@@ -61,16 +69,21 @@ def stack_probs(probs_list) -> Optional[torch.Tensor]:
 
 
 class Attention(nn.Module):
+    """``attn_impl="kernel"`` raises at construction on a head dim the
+    forward kernel does not take (``attn_cuda.FWD_HEAD_DIMS``)."""
+
     def __init__(self, dim: int, num_heads: int, attn_impl: str = "kernel",
-                 probs_dtype: torch.dtype = torch.float32):
+                 probs_dtype: torch.dtype = torch.float32, qkv_bias: bool = True):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+        if attn_impl == "kernel":
+            check_head_dim(dim // num_heads)
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.attn_impl = attn_impl
         self.probs_dtype = probs_dtype
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, probs_offset: Optional[torch.Tensor] = None,
@@ -100,10 +113,11 @@ class Block(nn.Module):
     """Pre-norm block; the LayerNorms run in float32 (``vit.py:138-150``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 attn_impl: str = "kernel", probs_dtype: torch.dtype = torch.float32):
+                 attn_impl: str = "kernel", probs_dtype: torch.dtype = torch.float32,
+                 qkv_bias: bool = True):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, attn_impl, probs_dtype)
+        self.attn = Attention(dim, num_heads, attn_impl, probs_dtype, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
@@ -140,7 +154,10 @@ def resize_pos_embed(pos_embed: torch.Tensor, start_index: int,
 
 
 class VisionTransformer(nn.Module):
-    """ViT trunk; with ``backbone`` (the ResNetV2 stem) it is the hybrid."""
+    """ViT trunk; with ``backbone`` (a ResNetV2 stem) it is the hybrid, whose
+    patch embedding is a ``hybrid_patch_size`` conv over the stem's map
+    (``vit.py:310``); ``patch_size`` is then the total stride, the grid's
+    divisor."""
 
     def __init__(self, embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, patch_size: int = 16,
@@ -148,7 +165,8 @@ class VisionTransformer(nn.Module):
                  taps: Tuple[int, ...] = (2, 5, 8, 11),
                  backbone: Optional[nn.Module] = None,
                  dtype: torch.dtype = torch.bfloat16, attn_impl: str = "kernel",
-                 probs_dtype: torch.dtype = torch.float32):
+                 probs_dtype: torch.dtype = torch.float32, qkv_bias: bool = True,
+                 hybrid_patch_size: int = 1):
         super().__init__()
         self.depth = depth
         self.num_heads = num_heads
@@ -158,7 +176,7 @@ class VisionTransformer(nn.Module):
         self.dtype = dtype
         self.backbone = backbone
         if backbone is not None:
-            self.patch_embed = PatchEmbed(backbone.num_features, embed_dim, 1)
+            self.patch_embed = PatchEmbed(backbone.num_features, embed_dim, hybrid_patch_size)
         else:
             self.patch_embed = PatchEmbed(3, embed_dim, patch_size)
         self.pos_embed = nn.Parameter(
@@ -167,7 +185,7 @@ class VisionTransformer(nn.Module):
         if num_prefix_tokens == 2:
             self.dist_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.blocks = nn.ModuleList(
-            [Block(embed_dim, num_heads, mlp_ratio, attn_impl, probs_dtype)
+            [Block(embed_dim, num_heads, mlp_ratio, attn_impl, probs_dtype, qkv_bias)
              for _ in range(depth)])
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
@@ -176,9 +194,10 @@ class VisionTransformer(nn.Module):
         """x: (B, H, W, 3) NHWC image. ``probs_offsets``: (L', B, heads, N, N)
         taps for the last L' blocks. Returns taps, probs (B, L, N, N) or
         (B, L, heads, N, N) and per layer (``probs_layers``), or the per-layer
-        ``consistency_sums`` for export "pair_l1", the final-norm tokens,
-        ``n_tokens`` and the hybrid stem's NCHW stage maps
-        (``stem_features``: "stage0".."stage2", None without a stem)."""
+        ``consistency_sums`` for export "pair_l1", the final-norm tokens
+        (float32) and the tokens before it (``pre_norm_tokens``), ``n_tokens``
+        and the hybrid stem's NCHW stage maps (``stem_features``: "stage0"..,
+        None without a stem)."""
         B, H, W, _ = x.shape
         gh, gw = H // self.patch_size, W // self.patch_size
         x = x.permute(0, 3, 1, 2).to(self.dtype)
@@ -210,7 +229,8 @@ class VisionTransformer(nn.Module):
                 probs_list.append(probs_i)
             if i in self.taps:
                 taps[i] = x
-        out = {"taps": taps, "tokens": self.norm(x.float()), "grid": (gh, gw),
+        out = {"taps": taps, "tokens": self.norm(x.float()), "pre_norm_tokens": x,
+               "grid": (gh, gw),
                "n_tokens": x.shape[1], "stem_features": stem_features}
         if export == "pair_l1":
             out["consistency_sums"] = tuple(probs_list)

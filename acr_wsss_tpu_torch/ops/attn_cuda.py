@@ -48,7 +48,12 @@ from acr_wsss_tpu_torch.ops.attention import attention_with_probs
 
 KERNEL = "attn_fwd_headmean"
 BWD_KERNEL = "attn_bwd"
-HEAD_DIM = 64
+# Head dims of the forward kernel (K1f, K1n and the K5 forwards): every
+# multiple of 16 up to 128, held as zero-filled tiles of 64 columns
+# (``csrc/attn_tiles.cuh``). The backward kernels (K1b, the K5 backwards)
+# and the pair kernels (K2f, K2b: ``ops/attn_pair.py``) take 64 only.
+FWD_HEAD_DIMS = tuple(range(16, 129, 16))
+BWD_HEAD_DIM = 64
 # dtype codes of the C interfaces: 0 is "none" (a null pointer).
 DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
 
@@ -106,17 +111,26 @@ def check_layout(layout: str, inputs: Sequence[torch.Tensor], num_heads: Optiona
                          f"strides {[t.stride() for t in inputs]}")
 
 
-def check_operands(operands: Sequence[torch.Tensor]) -> None:
+def check_head_dim(head_dim: int, head_dims=FWD_HEAD_DIMS) -> None:
+    """Raise ValueError naming ``head_dim`` if the kernels do not take it."""
+    if head_dim not in head_dims:
+        allowed = (f"{head_dims[0]}, {head_dims[1]}, ..., {head_dims[-1]}"
+                   if len(head_dims) > 2 else ", ".join(map(str, head_dims)))
+        raise ValueError(f"the kernels take head dim {allowed}, got {head_dim}; "
+                         "use attn_impl='plain' for it")
+
+
+def check_operands(operands: Sequence[torch.Tensor], head_dims=FWD_HEAD_DIMS) -> None:
     """Raise on (B, N, H, D) views the kernels do not take: not CUDA, not
-    bfloat16, head dim not 64, a row of D values not 16-byte aligned."""
+    bfloat16, head dim not in ``head_dims``, a row of D values not 16-byte
+    aligned."""
     device = operands[0].device
     if device.type != "cuda" or any(t.device != device for t in operands):
         raise ValueError(f"no kernel for device {device}")
     if any(t.dtype != torch.bfloat16 for t in operands):
         raise TypeError(f"the kernels take bfloat16 q, k and v, got "
                         f"{[t.dtype for t in operands]}")
-    if operands[0].shape[-1] != HEAD_DIM:
-        raise ValueError(f"the kernels take head dim {HEAD_DIM}, got {operands[0].shape[-1]}")
+    check_head_dim(operands[0].shape[-1], head_dims)
     if any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in operands):
         raise ValueError("every row of D values of q, k and v must start 16-byte aligned "
                          "(base pointer and batch, token and head strides)")
@@ -259,7 +273,7 @@ def bwd_launch(qkv: torch.Tensor, launch) -> torch.Tensor:
     entry's backward)."""
     B, N, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
-    bwd_call(qkv.device, B, N, qkv.shape[-1] // (3 * HEAD_DIM),
+    bwd_call(qkv.device, B, N, qkv.shape[-1] // (3 * BWD_HEAD_DIM),
              lambda lib, stats, stream: launch(lib, dqkv, stats, stream))
     return dqkv
 
@@ -285,7 +299,7 @@ def backward(layout: str, inputs: Sequence[torch.Tensor], g: torch.Tensor,
     if all(t.device.type == "cpu" for t in inputs):
         return backward_plain(layout, inputs, g, de, scale, num_heads)
     q, k, v = _split(layout, inputs, num_heads)
-    check_operands((q, k, v))
+    check_operands((q, k, v), (BWD_HEAD_DIM,))
     B, N, H, D = q.shape
     out_shape = _from_bnhd(layout, q).shape
     if tuple(g.shape) != tuple(out_shape) or g.device != q.device \
@@ -340,25 +354,33 @@ class _Attention(torch.autograd.Function):
 
 def _apply(name: str, inputs: Sequence[torch.Tensor], scale: float, num_heads: Optional[int],
            export: str, probs_dtype: torch.dtype):
+    """The forward alone where no gradient is asked for; else the forward
+    and its backward, which on the card refuses, before the forward runs, a
+    head dim the backward kernels do not take (``BWD_HEAD_DIM``)."""
+    layout, entry = ENTRIES[name][:2]
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
-        layout, entry = ENTRIES[name][:2]
         return forward(layout, inputs, scale, num_heads, export, probs_dtype, entry)
+    head_dim = _split(layout, inputs, num_heads)[0].shape[-1]
+    if inputs[0].device.type != "cpu" and head_dim != BWD_HEAD_DIM:
+        raise ValueError(f"the backward kernels take head dim {BWD_HEAD_DIM}, got {head_dim}: "
+                         "at this head dim the kernel path is inference-only; run it under "
+                         "torch.no_grad(), or train with attn_impl='plain'")
     return _Attention.apply(name, scale, num_heads, export, probs_dtype, *inputs)
 
 
 # --- K1: the joint projection as column views ------------------------------
 
-def check_qkv(qkv: torch.Tensor, num_heads: int) -> None:
+def check_qkv(qkv: torch.Tensor, num_heads: int, head_dims=FWD_HEAD_DIMS) -> None:
     """Raise on what the column-view kernels (K1, K2) do not take: a (B, N,
-    3*H*D) bf16 CUDA tensor, contiguous, 16-byte aligned, head dim 64."""
+    3*H*D) bf16 CUDA tensor, contiguous, 16-byte aligned, head dim in
+    ``head_dims`` (K1's forward: ``FWD_HEAD_DIMS``; the backward and K2:
+    64)."""
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv must be (B, N, 3*H*D) with H={num_heads}, "
                          f"got {tuple(qkv.shape)}")
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
-    if qkv.shape[-1] // (3 * num_heads) != HEAD_DIM:
-        raise ValueError(f"the kernel takes head dim {HEAD_DIM}, "
-                         f"got {qkv.shape[-1] // (3 * num_heads)}")
+    check_head_dim(qkv.shape[-1] // (3 * num_heads), head_dims)
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"the kernel takes bfloat16 qkv, got {qkv.dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
@@ -407,7 +429,7 @@ def attention_qkv_cols_backward(qkv: torch.Tensor, g: torch.Tensor,
                                 num_heads: int) -> torch.Tensor:
     """K1b: dqkv from g (B, N, H*D) and de (B, N, N) fp32, bf16 or None."""
     if qkv.device.type != "cpu":
-        check_qkv(qkv, num_heads)
+        check_qkv(qkv, num_heads, (BWD_HEAD_DIM,))
     return backward("cols", (qkv,), g, de, scale, num_heads,
                     attention_qkv_cols_backward, "launches")[0]
 

@@ -149,7 +149,23 @@ package. Phases, each of which fails the run when it fails:
    13 K1f launches each (N = 962/963, 257/258, 65/66), K1f against its
    plain version on every block's own attention input, the same bits from
    a second forward, logits and every block's probs against the plain
-   path; pit_s (head dim 48) with the kernel raises.
+   path; a PiT at head dim 24, outside the kernel's range, raises;
+16. the classifier zoo: (a) vit_base_patch16_384,
+   vit_deit_base_distilled_patch16_384, vit_base_r50_s16_384,
+   vit_small_patch16_224 (head dim 96) and vit_huge_patch14_224_in21k
+   (head dim 80) at their published widths and depths, bf16, eval,
+   trained-like seeded weights, batch 8: K1n once per block (counted),
+   the same bits from two forwards, logits against the plain path, the
+   forward's host-clock time on either path; (b) K1f and K1n at head dims
+   32, 48, 80 and 96 against their plain versions on phase 3's cases and
+   tolerances, two launches to the same bits; (c) pit_s_224, pit_xs_224
+   and pit_ti_224 (head dims 48, 48, 32) on K1f as in phase 15 (d); (d)
+   resnetv2_50 and resnetv2_50x1_bitm at 224 (cuDNN, no kernel): finite
+   bf16 logits, the float32 forward against the CPU's, and
+   ``features_only``'s maps against its ``feature_info``; (e)
+   ``create_model(..., checkpoint_path=<timm .pth>)`` giving the logits of
+   ``flax_to_state_dict`` on the same weights, to the bit; then K1n's and
+   K1f's times at the new head dims.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object with one entry per kernel; the last line is
@@ -456,8 +472,27 @@ DP_CASES = {"ddp": (False, False), "fsdp": (True, False), "ddp_fp32": (False, Tr
 # largest |logit| of 3.53 and the probabilities by at most 6.1e-4; the
 # gates are 5e-2 of the largest |logit| and 3e-3.
 SWIN_MODEL, SWIN_SAVE_EVERY, SWIN_TIMED = "swin_base_384", 3, 6
-PIT_CROP, PIT_BATCH, PIT_DEPTH = 224, 2, 13
+PIT_CROP, PIT_BATCH = 224, 2
 PIT_LOGITS_REL, PIT_PROBS_ATOL = 5e-2, 3e-3
+# Classifier phase: (a) the ViT and DeiT classifiers at their published
+# widths and depths (name, crop, depth: None for the registry's), bf16,
+# eval, trained-like seeded weights, batch 8, on K1n: every block's input
+# kept and K1n held to its plain version on it with phase 3's tolerances;
+# the whole forward against the plain path with PiT's gate (5e-2 of the
+# largest |logit|) for the same reason, bf16 rounding carried through
+# every block. (b) K1f and K1n
+# at the head dims of the PiT names (48, 32) and of the classifiers (80,
+# 96) on phase 3's cases and tolerances: the head dim changes how many
+# products each sum holds, not their rounding. (d) the float32 ResNetV2
+# forward on the card (TF32 off) against the CPU's: cuDNN's and the CPU's
+# sums in other orders, 1e-3 of the largest |logit|.
+CLS_BATCH, CNN_REL = 8, 1e-3
+CLS_CASES = (("vit_base_patch16_384", 384, None),
+             ("vit_deit_base_distilled_patch16_384", 384, None),
+             ("vit_base_r50_s16_384", 384, None),
+             ("vit_small_patch16_224", 224, None),
+             ("vit_huge_patch14_224_in21k", 224, None))
+CLS_HEAD_DIMS = (32, 48, 80, 96)
 KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL, pamr_ops.KERNEL)
 
 
@@ -2481,18 +2516,33 @@ def phase_parallel(device, cfg, tmp, names, labels, fused, card) -> dict:
     return {"step_ms": step_ms, "infer_launches": infer_launches}
 
 
-def trained_like(flat: dict, seed: int) -> dict:
-    """``flat`` with every bias drawn N(0, 0.1^2) and every norm scale 1 +
-    N(0, 0.1^2): nonzero, as a trained checkpoint's are (the seeded init's
-    are 0 and 1)."""
-    rng = np.random.default_rng(seed)
-    out = dict(flat)
-    for k, v in flat.items():
-        if k.endswith("/bias"):
-            out[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
-        elif k.endswith("/scale"):
-            out[k] = (1.0 + 0.1 * rng.standard_normal(v.shape)).astype(np.float32)
-    return out
+def trained_like(model, seed: int):
+    """Seeded weights in place, as a trained checkpoint's look: fan-in
+    normal weights, position embeddings and Swin's relative-position bias
+    tables N(0, 0.02^2) and tokens 0 (``init_random_``'s rules), but every
+    bias N(0, 0.1^2) and every norm scale 1 + N(0, 0.1^2), where the seeded
+    init's are 0 and 1. Drawn on the model's device from a seeded
+    generator, so that the largest classifier
+    (vit_huge_patch14_224_in21k, 632M parameters) is not drawn on the
+    host."""
+    gen = None
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if gen is None:
+                gen = torch.Generator(device=p.device).manual_seed(seed)
+            noise = torch.randn(p.shape, generator=gen, device=p.device)
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("pos_embed", "relative_position_bias_table"):
+                p.copy_(0.02 * noise)
+            elif leaf == "weight" and p.dim() > 1:
+                p.copy_(noise / math.sqrt(p[0].numel()))
+            elif leaf == "weight":
+                p.copy_(1.0 + 0.1 * noise)
+            elif leaf == "bias":
+                p.copy_(0.1 * noise)
+            else:
+                p.zero_()
+    return model
 
 
 def swin_zoo(root: str, seed: int) -> str:
@@ -2500,10 +2550,9 @@ def swin_zoo(root: str, seed: int) -> str:
     the shape of an ImageNet checkpoint (1000 classes), trained-like."""
     zoo_dir = os.path.join(root, "swin_zoo")
     os.makedirs(zoo_dir, exist_ok=True)
-    donor = init_random_(registry.create_model(SWIN_MODEL, num_classes=1000, img_size=CROP),
-                         seed=seed)
-    save_params_npz(zoo.npz_path(SWIN_MODEL, zoo_dir),
-                    trained_like(state_dict_to_flax(donor), seed))
+    donor = trained_like(registry.create_model(SWIN_MODEL, num_classes=1000, img_size=CROP),
+                         seed)
+    save_params_npz(zoo.npz_path(SWIN_MODEL, zoo_dir), state_dict_to_flax(donor))
     return zoo_dir
 
 
@@ -2576,78 +2625,118 @@ def max_err_and_bad(got, ref, rtol, atol):
     return err.max().item(), int(bad.sum())
 
 
-def check_pit(name, device, errs) -> int:
-    """(d) for one PiT: the kernel path's forward (launches counted) and
-    every block's attention input, K1f against its plain version on each,
-    the same bits from a second forward, the whole forward against the
-    plain path. Returns K1f's launches."""
-    weights = init_random_(registry.create_model(name, num_classes=20), seed=0).state_dict()
-    models = {}
-    for impl in ("kernel", "plain"):
-        models[impl] = registry.create_model(name, num_classes=20, attn_impl=impl)
-        models[impl].load_state_dict(weights)
-        models[impl].to(device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    x = torch.randn((PIT_BATCH, PIT_CROP, PIT_CROP, 3), generator=gen, device=device)
-    blocks = [m for n, m in models["kernel"].named_modules() if n.endswith(".attn")]
-    inputs = []
-    handles = [m.register_forward_hook(lambda mod, args, out: inputs.append((mod, args[0])))
-               for m in blocks]
+def tensors_of(out: dict) -> list:
+    """The tensors of a model's output dict, lists and dicts flattened."""
+    found = []
+    for v in out.values():
+        if isinstance(v, torch.Tensor):
+            found.append(v)
+        elif isinstance(v, (list, tuple)):
+            found += [t for t in v if isinstance(t, torch.Tensor)]
+        elif isinstance(v, dict):
+            found += tensors_of(v)
+    return found
+
+
+def check_model_on_kernel(label, model, x, kernel, card=None) -> dict:
+    """One bf16 model on K1f or K1n (``kernel``) against the plain path on
+    the same weights: the forward with its launches counted (one per
+    attention block and no other); every block's attention input kept,
+    and the kernel against its plain version on it (phase 3's tolerances),
+    its out through the block's projection equal to the bit to the block's
+    output, and K1f's probs to the block's export; a second forward, the
+    same bits in every output; then the attention switched to plain:
+    ``logits`` (and a distilled model's two heads) within PIT_LOGITS_REL of
+    the largest |logit|, every block's probs within PIT_PROBS_ATOL. With
+    ``card``, the forward's host-clock time on either path. Returns the
+    launches, the kernel's largest error on each (N, heads, head dim) and
+    the block's shape."""
+    export = "mean" if kernel == "K1f" else "none"
+    attns = [m for m in model.modules() if isinstance(m, vit_mod.Attention)]
+    kept = []
+    handles = [m.register_forward_hook(lambda mod, args, out: kept.append((mod, args[0], out)))
+               for m in attns]
     reset_counts()
     try:
         with torch.no_grad():
-            out = models["kernel"](x)
+            out = model(x)
         torch.cuda.synchronize()
     finally:
         for h in handles:
             h.remove()
     launches = read_counts()
     with torch.no_grad():
-        again = models["kernel"](x)
-        ref = models["plain"](x)
-    n_tokens = [p.shape[-1] for p in out["probs_per_block"]]
-    log(f"  {name}: bf16, crop {PIT_CROP}, batch {PIT_BATCH}, export mean, N per block "
-        f"{n_tokens}; launches {launches}")
-    if launches != {**zero_counts(), "K1f": PIT_DEPTH}:
-        raise AssertionError(f"{name}: expected {PIT_DEPTH} K1f launches and no other")
-    for a, b in zip(out["probs_per_block"] + [out["logits"]],
-                    again["probs_per_block"] + [again["logits"]]):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{name}: two forwards on the kernels differ")
-    per_n = {}
-    for (mod, a), probs in zip(inputs, out["probs_per_block"]):
-        qkv = F.linear(a, mod.qkv.weight.to(a.dtype), mod.qkv.bias.to(a.dtype))
-        k_out, k_probs = attention_qkv_cols_forward(qkv, mod.scale, mod.num_heads, "mean")
-        p_out, p_probs = attention_qkv_cols_plain(qkv, mod.scale, mod.num_heads, "mean")
-        if not torch.equal(k_probs, probs):
-            raise AssertionError(f"{name}: K1f on a block's input is not the path's export")
-        for got, want, rtol, atol in ((k_out, p_out, OUT_RTOL, OUT_ATOL),
-                                      (k_probs, p_probs, 0.0, PROBS_ATOL)):
+        again = model(x)
+    res = {"launches": launches[kernel], "errs": {}}
+    if card is not None:
+        res["ms"] = host_forward_ms(model, x)
+    set_attn_impl(model, "plain")
+    try:
+        with torch.no_grad():
+            ref = model(x)
+        if card is not None:
+            res["plain_ms"] = host_forward_ms(model, x)
+    finally:
+        set_attn_impl(model, "kernel")
+    head_dims = sorted({m.qkv.out_features // (3 * m.num_heads) for m in attns})
+    log(f"  {label}: bf16, batch {x.shape[0]}, crop {x.shape[1]}, {len(attns)} attention "
+        f"blocks, head dim {head_dims}, export {export}; launches {launches}")
+    if launches != {**zero_counts(), kernel: len(attns)} or len(kept) != len(attns):
+        raise AssertionError(f"{label}: expected {len(attns)} {kernel} launches and no other")
+    if not all(torch.equal(a, b) for a, b in zip(tensors_of(out), tensors_of(again))):
+        raise AssertionError(f"{label}: two forwards on the kernels differ")
+    for mod, a, (h, probs) in kept:
+        qkv = vit_mod.linear(a, mod.qkv)
+        k_out, k_probs = attention_qkv_cols_forward(qkv, mod.scale, mod.num_heads, export)
+        p_out, p_probs = attention_qkv_cols_plain(qkv, mod.scale, mod.num_heads, export)
+        if not torch.equal(vit_mod.linear(k_out, mod.proj), h) or (
+                export == "mean" and not torch.equal(k_probs, probs)):
+            raise AssertionError(f"{label}: {kernel} on a block's input is not the path's")
+        pairs = [(k_out, p_out, OUT_RTOL, OUT_ATOL)]
+        if export == "mean":
+            pairs.append((k_probs, p_probs, 0.0, PROBS_ATOL))
+        key = (qkv.shape[1], mod.num_heads, qkv.shape[2] // (3 * mod.num_heads))
+        for got, want, rtol, atol in pairs:
             err, bad = max_err_and_bad(got, want, rtol, atol)
             if bad:
-                raise AssertionError(f"{name}: K1f at N={qkv.shape[1]}: {bad} elements out of "
-                                     f"tolerance, max abs err {err:.3g}")
-            key = (qkv.shape[1], mod.num_heads)
-            per_n[key] = max(per_n.get(key, 0.0), err)
-    for (n, heads), err in per_n.items():
-        errs[(name, n)] = err
-        log(f"    K1f on the blocks' own inputs at N={n}, H={heads}: max abs err {err:.3g} "
-            f"(out {OUT_ATOL:.3g} + {OUT_RTOL:.3g}*|ref|, probs {PROBS_ATOL:.3g})")
+                raise AssertionError(f"{label}: {kernel} at (N, H, D) = {key}: {bad} elements "
+                                     f"out of tolerance, max abs err {err:.3g}")
+            res["errs"][key] = max(res["errs"].get(key, 0.0), err)
+    for (n, heads, d), err in res["errs"].items():
+        log(f"    {kernel} on the blocks' own inputs at N={n}, H={heads}, D={d}: max abs err "
+            f"{err:.3g} (out {OUT_ATOL:.3g} + {OUT_RTOL:.3g}*|ref|"
+            + (f", probs {PROBS_ATOL:.3g})" if export == "mean" else ")"))
     scale = ref["logits"].abs().max().item()
-    keys = ("logits", "head_logits", "dist_logits") if "distilled" in name else ("logits",)
-    for k in keys:
+    for k in [k for k in ("logits", "head_logits", "dist_logits") if k in out]:
         err, bad = max_err_and_bad(out[k], ref[k], 0.0, PIT_LOGITS_REL * scale)
-        log(f"    {k}, kernel path against plain path: max abs err {err:.4g} (tolerance "
-            f"{PIT_LOGITS_REL} x max |logit| {scale:.4g})")
+        log(f"    {k} {tuple(out[k].shape)}, kernel path against plain path: max abs err "
+            f"{err:.4g} (tolerance {PIT_LOGITS_REL} x max |logit| {scale:.4g})")
         if bad:
-            raise AssertionError(f"{name}: {k} disagree with the plain path")
-    errs_p = [max_err_and_bad(a, b, 0.0, PIT_PROBS_ATOL) for a, b in
-              zip(out["probs_per_block"], ref["probs_per_block"])]
-    log(f"    probs per block, kernel path against plain path: max abs err "
-        + ", ".join(f"{e:.3g}" for e, _ in errs_p) + f" (tolerance {PIT_PROBS_ATOL})")
-    if any(bad for _, bad in errs_p):
-        raise AssertionError(f"{name}: a block's probs disagree with the plain path")
-    return launches["K1f"]
+            raise AssertionError(f"{label}: {k} disagree with the plain path")
+    if "probs_per_block" in out:
+        errs_p = [max_err_and_bad(a, b, 0.0, PIT_PROBS_ATOL) for a, b in
+                  zip(out["probs_per_block"], ref["probs_per_block"])]
+        log(f"    probs per block, kernel path against plain path: max abs err "
+            + ", ".join(f"{e:.3g}" for e, _ in errs_p) + f" (tolerance {PIT_PROBS_ATOL})")
+        if any(bad for _, bad in errs_p):
+            raise AssertionError(f"{label}: a block's probs disagree with the plain path")
+    if card is not None:
+        log(f"    forward (host clock, synchronized, median of 5): kernel path "
+            f"{res['ms']:.2f} ms, plain path {res['plain_ms']:.2f} ms; "
+            f"{x.shape[0] / res['ms'] * 1e3:.1f} images/s [{card}]")
+    n = max(n for n, _, _ in res["errs"])
+    res.update(n=n, heads=attns[0].num_heads, head_dim=head_dims[0])
+    return res
+
+
+def check_pit(name, device) -> dict:
+    """(d) for one PiT on K1f (``check_model_on_kernel``), trained-like
+    seeded weights, PIT_BATCH images at PIT_CROP."""
+    with torch.device(device):
+        model = trained_like(registry.create_model(name, num_classes=20), seed=0).eval()
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((PIT_BATCH, PIT_CROP, PIT_CROP, 3), generator=gen, device=device)
+    return check_model_on_kernel(name, model, x, "K1f")
 
 
 def phase_swin_pit(device, cfg, root, card) -> dict:
@@ -2678,11 +2767,8 @@ def phase_swin_pit(device, cfg, root, card) -> dict:
         else:
             os.environ["ACR_WSSS_ZOO"] = previous
 
-    model = registry.create_model(SWIN_MODEL, num_classes=20, img_size=CROP)
-    weights = flax_to_state_dict(
-        trained_like(state_dict_to_flax(init_random_(model, seed=cfg.seed)), cfg.seed + 12),
-        model.state_dict())
-    del model
+    weights = trained_like(registry.create_model(SWIN_MODEL, num_classes=20, img_size=CROP),
+                           cfg.seed + 12).state_dict()
     batch = first_batch(cfg)
     scfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, backbone=SWIN_MODEL))
     fp32 = [swin_step(weights, torch.float32, batch, scfg, device)[0] for _ in range(2)]
@@ -2718,21 +2804,240 @@ def phase_swin_pit(device, cfg, root, card) -> dict:
         f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M parameters) [{card}]")
     del model, step, bf16
 
-    errs: dict = {}
-    launches = sum(check_pit(name, device, errs) for name in ("pit_b", "pit_b_distilled_224"))
-    pit_s = registry.create_model("pit_s", num_classes=20, attn_impl="kernel").to(device)
+    pits = {name: check_pit(name, device) for name in ("pit_b", "pit_b_distilled_224")}
     try:
-        with torch.no_grad():
-            pit_s(torch.zeros((1, PIT_CROP, PIT_CROP, 3), device=device))
+        registry.create_model("pit_s_224", num_classes=20, base_dims=(24, 24, 24),
+                              attn_impl="kernel")
     except ValueError as e:
         message = str(e)
     else:
-        raise AssertionError("pit_s (head dim 48) ran on the kernel")
+        raise AssertionError("a PiT at head dim 24 took the kernel")
     if "head dim" not in message:
-        raise AssertionError(f"pit_s with the kernel failed with another error: {message}")
-    log(f"  (d) pit_s with attn_impl='kernel': {message}")
-    return {"launches": launches, "errs": {n: e for (name, n), e in errs.items()
-                                           if name == "pit_b"}, **timing, "peak": peak}
+        raise AssertionError(f"head dim 24 with the kernel failed with another error: {message}")
+    log(f"  (d) a PiT at head dim 24 (pit_s_224's layout) with attn_impl='kernel': {message}")
+    return {"launches": sum(r["launches"] for r in pits.values()),
+            "errs": pits["pit_b"]["errs"], **timing, "peak": peak}
+
+
+def set_attn_impl(model, impl: str) -> None:
+    for m in model.modules():
+        if isinstance(m, vit_mod.Attention):
+            m.attn_impl = impl
+
+
+def host_forward_ms(model, x, reps=5) -> float:
+    """Median of ``reps`` synchronized forwards on the host clock, after one."""
+    with torch.no_grad():
+        model(x)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def check_classifier(name, crop, depth, device, card) -> dict:
+    """(a) for one ViT name: CLS_BATCH images at ``crop`` through the bf16
+    model on K1n (``check_model_on_kernel``, timed), trained-like seeded
+    weights."""
+    kw = {} if depth is None else {"depth": depth}
+    with torch.device(device):
+        model = registry.create_model(name, **kw)
+    trained_like(model, seed=len(name)).eval()
+    gen = torch.Generator(device=device).manual_seed(crop)
+    x = torch.randn((CLS_BATCH, crop, crop, 3), generator=gen, device=device)
+    return check_model_on_kernel(name, model, x, "K1n", card)
+
+
+def check_k1_head_dims(device) -> None:
+    """(b) K1f (float32 and bf16 export) and K1n against their plain
+    versions at each head dim of CLS_HEAD_DIMS, on phase 3's cases (12
+    heads) and tolerances; two launches on the training shape, the same
+    bits."""
+    gen = torch.Generator(device=device).manual_seed(16)
+    for d in CLS_HEAD_DIMS:
+        scale = d ** -0.5
+        for B, N in ((2, N_TOKENS), (4, N_TOKENS), (SEG_BATCH, N_TOKENS), (3, 37), (3, 17),
+                     (2, 1025)):
+            qkv = torch.randn((B, N, 3 * HEADS * d), generator=gen, device=device).to(
+                torch.bfloat16)
+            worst = {}
+            for export, dtype in (("mean", torch.float32), ("none", torch.float32),
+                                  ("mean", torch.bfloat16)):
+                out, probs = fused_attention_qkv_cols(qkv, scale, HEADS, export, dtype)
+                ref_out, ref_probs = attention_qkv_cols_plain(qkv, scale, HEADS, export, dtype)
+                torch.cuda.synchronize()
+                err, bad = max_err_and_bad(out, ref_out, OUT_RTOL, OUT_ATOL)
+                if export == "mean":
+                    rtol = BF16_PROBS_RTOL if dtype == torch.bfloat16 else 0.0
+                    perr, pbad = max_err_and_bad(probs, ref_probs, rtol, PROBS_ATOL)
+                    err, bad = max(err, perr), bad + pbad
+                elif probs is not None:
+                    raise AssertionError("export='none' returned probs")
+                if bad:
+                    raise AssertionError(f"K1 at head dim {d}, B={B} N={N}, export {export} "
+                                         f"{dtype}: {bad} elements out of tolerance, max abs "
+                                         f"err {err:.3g}")
+                worst[f"{export}/{str(dtype)[6:]}"] = err
+            log(f"  K1 at head dim {d}, B={B} N={N}: max abs err " + ", ".join(
+                f"{k} {v:.3g}" for k, v in worst.items()))
+        qkv = torch.randn((2 * TRAIN_BATCH, N_TOKENS, 3 * HEADS * d), generator=gen,
+                          device=device).to(torch.bfloat16)
+        for export, dtype in (("mean", torch.float32), ("mean", torch.bfloat16),
+                              ("none", torch.float32)):
+            first = attention_qkv_cols_forward(qkv, scale, HEADS, export, dtype)
+            second = attention_qkv_cols_forward(qkv, scale, HEADS, export, dtype)
+            torch.cuda.synchronize()
+            if not all((a is None and b is None) or torch.equal(a, b)
+                       for a, b in zip(first, second)):
+                raise AssertionError(f"K1 at head dim {d}, export {export}: two launches on "
+                                     "the same inputs differ")
+        log(f"  K1 at head dim {d}, B={2 * TRAIN_BATCH} N={N_TOKENS}: two launches equal to "
+            "the bit for each export")
+
+
+def check_resnetv2(device, root, card) -> None:
+    """(d) resnetv2_50 and resnetv2_50x1_bitm at 224 (bf16, batch
+    CLS_BATCH): finite logits; the float32 forward on the card against the
+    same on the CPU (2 images); ``create_model("resnetv2_50",
+    features_only=True)``: four NCHW maps whose strides and channels are
+    its ``feature_info``."""
+    gen = torch.Generator(device=device).manual_seed(50)
+    x = torch.randn((CLS_BATCH, PIT_CROP, PIT_CROP, 3), generator=gen, device=device)
+    for name in ("resnetv2_50", "resnetv2_50x1_bitm"):
+        with torch.device(device):
+            model = trained_like(registry.create_model(name), seed=7).eval()
+        with torch.no_grad():
+            logits = model(x)["logits"]
+        ms = host_forward_ms(model, x)
+        if not torch.isfinite(logits).all() or tuple(logits.shape) != (CLS_BATCH, 1000):
+            raise AssertionError(f"{name}: logits {tuple(logits.shape)} not finite")
+        model32 = registry.create_model(name, dtype=torch.float32)
+        model32.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            cpu = model32(x[:2].cpu())["logits"]
+            card32 = model32.to(device)(x[:2])["logits"].cpu()
+        err = (card32 - cpu).abs().max().item()
+        scale = cpu.abs().max().item()
+        log(f"  {name}: bf16 logits {tuple(logits.shape)} finite; forward {ms:.2f} ms (host "
+            f"clock, median of 5) [{card}]; float32 on the card against the CPU: max abs err "
+            f"{err:.3g} of max |logit| {scale:.3g} (tolerance {CNN_REL} x)")
+        if err > CNN_REL * scale:
+            raise AssertionError(f"{name}: the card's float32 forward disagrees with the CPU's")
+        del model, model32
+    with torch.device(device):
+        fx = registry.create_model("resnetv2_50", features_only=True)
+    trained_like(fx, seed=8).eval()
+    with torch.no_grad():
+        feats = fx(x)
+    info = fx.feature_info(PIT_CROP)
+    shapes = [tuple(f.shape) for f in feats]
+    want = [(CLS_BATCH, i["num_chs"], PIT_CROP // i["reduction"], PIT_CROP // i["reduction"])
+            for i in info]
+    log(f"  create_model('resnetv2_50', features_only=True): maps {shapes}, feature_info "
+        f"{info}")
+    if shapes != want or [i["reduction"] for i in info] != [4, 8, 16, 32] or not all(
+            torch.isfinite(f).all() for f in feats):
+        raise AssertionError("resnetv2_50 features_only: maps disagree with feature_info")
+
+
+def timm_vit_state_dict(flat: dict) -> dict:
+    """The flat flax dict of a ``ViTClassifier`` in timm's layout (bare
+    trunk names, ``head``, ``head_dist``, ``pre_logits.fc``): the inverse
+    of ``convert.vit_timm_state_dict_to_flax``."""
+    heads = {"head": "head", "head_dist": "head_dist", "pre_logits": "pre_logits.fc"}
+    out = {}
+    for path, value in flat.items():
+        path = path[len("params/"):]
+        module, _, leaf = path.rpartition("/")
+        if module in heads:
+            value = value.T if leaf == "kernel" else value
+            out[f"{heads[module]}.{'weight' if leaf == 'kernel' else leaf}"] = value
+            continue
+        name, inverse = convert._reference_name(path)
+        out[name[len("pretrained.model."):]] = inverse(value)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def check_checkpoint_path(device, root) -> None:
+    """(e) ``create_model(name, checkpoint_path=<timm .pth>)`` against the
+    same weights put in by ``flax_to_state_dict``: the same logits to the
+    bit (vit_base_r50_s16_384, crop 384, 2 images)."""
+    name = "vit_base_r50_s16_384"
+    model = trained_like(registry.create_model(name), seed=9)
+    flat = state_dict_to_flax(model)
+    path = os.path.join(root, "timm_vit.pth")
+    torch.save({"model": timm_vit_state_dict(flat)}, path)
+    loaded = registry.create_model(name, checkpoint_path=path).to(device).eval()
+    ref = registry.create_model(name)
+    ref.load_state_dict(flax_to_state_dict(flat, ref.state_dict()))
+    ref.to(device).eval()
+    x = torch.randn((2, CROP, CROP, 3), generator=torch.Generator(device=device).manual_seed(3),
+                    device=device)
+    with torch.no_grad():
+        got, want = loaded(x)["logits"], ref(x)["logits"]
+    log(f"  create_model('{name}', checkpoint_path=<timm .pth, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB>): logits {tuple(got.shape)} "
+        f"{'equal to the bit' if torch.equal(got, want) else 'DIFFER'} to flax_to_state_dict's")
+    if not torch.equal(got, want):
+        raise AssertionError("checkpoint_path loaded other weights than flax_to_state_dict")
+
+
+def time_k1_head_dims(device, card) -> dict:
+    """K1n at the ViT classifiers' shapes (B=CLS_BATCH): vit_small_patch16_224
+    (N=197, H=8, D=96) and vit_huge_patch14_224_in21k (N=257, H=16, D=80);
+    K1f at pit_s_224's and pit_ti_224's first stage (B=PIT_BATCH, N=730,
+    H=3, D=48 and H=2, D=32) and, on no model's path, at the two
+    classifier shapes."""
+    gen = torch.Generator(device=device).manual_seed(17)
+    out = {}
+    for key, B, N, H, D, export in (("K1n_D96", CLS_BATCH, 197, 8, 96, "none"),
+                                    ("K1n_D80", CLS_BATCH, 257, 16, 80, "none"),
+                                    ("K1f_D48", PIT_BATCH, 730, 3, 48, "mean"),
+                                    ("K1f_D32", PIT_BATCH, 730, 2, 32, "mean"),
+                                    ("K1f_D96", CLS_BATCH, 197, 8, 96, "mean"),
+                                    ("K1f_D80", CLS_BATCH, 257, 16, 80, "mean")):
+        qkv = torch.randn((B, N, 3 * H * D), generator=gen, device=device).to(torch.bfloat16)
+        q, k, v = (t.contiguous() for t in qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4))
+        nbytes = qkv.numel() * 2 + B * N * H * D * 2 + (B * N * N * 4 if export == "mean" else 0)
+        scale = D ** -0.5
+        out[key] = time_kernel(
+            f"{KERNEL} ({key[:3]}) at B={B} N={N} H={H} D={D}, export {export}",
+            lambda: attention_qkv_cols_forward(qkv, scale, H, export),
+            lambda: attention_qkv_cols_plain(qkv, scale, H, export),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), nbytes,
+            4 * B * H * N * N * D, 20, card,
+            "SDPA (the same function)" if export == "none" else "SDPA (output only)")
+    return out
+
+
+def phase_classifiers(device, root, card) -> dict:
+    """(a) the ViT and DeiT classifiers of CLS_CASES on K1n against the plain
+    path; (b) K1f and K1n at the head dims CLS_HEAD_DIMS against their plain
+    versions; (c) pit_s_224, pit_xs_224 and pit_ti_224 (head dims 48, 48,
+    32) on K1f; (d) resnetv2_50, resnetv2_50x1_bitm and ``features_only``;
+    (e) ``checkpoint_path`` on a timm .pth; then the kernels' times at the
+    new head dims. Returns the runs of (a) and (c) by name (launches, the
+    kernel's errors on the blocks' own inputs, times) and the kernels'
+    times."""
+    res = {"cls": {}, "pit": {}}
+    for name, crop, depth in CLS_CASES:
+        res["cls"][name] = check_classifier(name, crop, depth, device, card)
+        torch.cuda.empty_cache()
+    log("  (b) K1f and K1n at head dims " + ", ".join(map(str, CLS_HEAD_DIMS)))
+    check_k1_head_dims(device)
+    log("  (c) the PiT names at head dims 48 and 32 on K1f, against the plain path")
+    for name in ("pit_s_224", "pit_xs_224", "pit_ti_224"):
+        res["pit"][name] = check_pit(name, device)
+    log("  (d) the ResNetV2 and BiT classifiers and features_only (cuDNN, no kernel)")
+    check_resnetv2(device, root, card)
+    log("  (e) checkpoint_path")
+    check_checkpoint_path(device, root)
+    res["timing"] = time_k1_head_dims(device, card)
+    return res
 
 
 def time_step(label, step, batch, images, card, reps=6) -> dict:
@@ -3089,12 +3394,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/15] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/16] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/15] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/16] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         kernel = ""
@@ -3112,37 +3417,37 @@ def main() -> int:
         f"{pamr_ops.affinity_blocks_per_sm(PAMR_DILATIONS)} (at its largest halo), "
         f"pamr_update_kernel<{n_dil}> {pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
-    log("[3/15] kernels against their plain versions on the card")
+    log("[3/16] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/15] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+        log("[4/16] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
             f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
         (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
          pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/15] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/16] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/15] resumable training: preempt and resume, --device_aug, the relaunch "
+        log("[6/16] resumable training: preempt and resume, --device_aug, the relaunch "
             "supervisor, --pretrained, COCO; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_resume(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  resume phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[7/15] one train step, kernel path against plain path, same weights and batch")
+        log("[7/16] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
         model, opt, batch, layer_launches, step_ctx, fused = phase_step_compare(device, cfg)
         dp_ref = (step_ctx[0], batch, fused)
         del fused
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[8/15] attention entries: K5a, K5b, K5c against their plain versions and "
+        log("[8/16] attention entries: K5a, K5b, K5c against their plain versions and "
             "through autograd; the per-layer branch with a bf16 export")
         t0 = time.perf_counter()
         entry_errs, entry_launches, bf16_launches = phase_attention_entries(
@@ -3150,31 +3455,31 @@ def main() -> int:
         del step_ctx
         log(f"  attention entries phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[9/15] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+        log(f"[9/16] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
             f"crop 384, the recipe")
         t0 = time.perf_counter()
         phase_pipeline(cfg, os.path.join(tmp, "train"))
         log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[10/15] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
+        log("[10/16] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
             "on either route, pseudo_label")
         t0 = time.perf_counter()
         pseudo_dir = phase_crf(device, tmp, paths, labels, infer_launches, card)
         log(f"  CRF phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[11/15] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
+        log("[11/16] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
             f"{SEG_BATCH}; one bf16 seg step, kernel path against plain path")
         t0 = time.perf_counter()
         seg = phase_seg(device, cfg, tmp, pseudo_dir, card)
         log(f"  segmentation phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[12/15] serving and the reference import: the serving export, the convert "
+        log("[12/16] serving and the reference import: the serving export, the convert "
             "CLI; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_surface(device, tmp, paths, labels, card)
         log(f"  serving phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[13/15] parallel: DDP, FSDP and --dp on one card; vitb_hybrid, crop 384, "
+        log("[13/16] parallel: DDP, FSDP and --dp on one card; vitb_hybrid, crop 384, "
             "batch 4, the recipe")
         t0 = time.perf_counter()
         names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
@@ -3182,7 +3487,7 @@ def main() -> int:
         del dp_ref
         log(f"  parallel phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[14/15] timing on {card}")
+        log(f"[14/16] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "
@@ -3204,11 +3509,19 @@ def main() -> int:
         del model, opt
         torch.cuda.empty_cache()
 
-        log(f"[15/15] Swin and PiT: train_swin at {SWIN_MODEL}, crop {CROP}, batch "
+        log(f"[15/16] Swin and PiT: train_swin at {SWIN_MODEL}, crop {CROP}, batch "
             f"{TRAIN_BATCH}, the recipe; pit_b forwards on K1f at crop {PIT_CROP}")
         t0 = time.perf_counter()
         swin_pit = phase_swin_pit(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  Swin and PiT phase: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        log(f"[16/16] the classifier zoo: ViT and DeiT classifiers on K1n at batch "
+            f"{CLS_BATCH}, K1f and K1n at head dims {CLS_HEAD_DIMS}, the PiT names on K1f, "
+            "ResNetV2 and BiT, features_only, checkpoint_path")
+        t0 = time.perf_counter()
+        zoo_phase = phase_classifiers(device, tmp, card)
+        log(f"  classifier phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     timing = phase_kernel_timing(device, card)
 
@@ -3275,6 +3588,22 @@ def main() -> int:
         {"name": KERNEL + " (PiT)", "route": "cuda", "source": src + "attn_fwd_headmean.cu",
          "replaces": tpu + "380", "launches": swin_pit["launches"],
          "max_abs_err": max(swin_pit["errs"].values()), **timing["K1f_pit"]})
+    # The classifier zoo: K1n at head dims 96 and 80 (the ViT classifiers),
+    # K1f at 48 and 32 (the PiT names); the errors of their own blocks.
+    cls, pit, zt = zoo_phase["cls"], zoo_phase["pit"], zoo_phase["timing"]
+    for key, runs, what in (
+            ("K1n_D96", [cls["vit_small_patch16_224"]], "vit_small_patch16_224"),
+            ("K1n_D80", [cls["vit_huge_patch14_224_in21k"]], "vit_huge_patch14_224_in21k"),
+            ("K1f_D48", [pit["pit_s_224"], pit["pit_xs_224"]], "pit_s_224, pit_xs_224"),
+            ("K1f_D32", [pit["pit_ti_224"]], "pit_ti_224")):
+        kind, d = key[:3], int(key[-2:])
+        kernels.append(
+            {"name": f"{KERNEL} ({'export none' if kind == 'K1n' else 'K1f'}, head dim {d}: "
+                     f"{what})", "route": "cuda", "source": src + "attn_fwd_headmean.cu",
+             "replaces": tpu + ("873" if kind == "K1n" else "380"),
+             "launches": sum(r["launches"] for r in runs),
+             "max_abs_err": max(e for r in runs for (_, _, dd), e in r["errs"].items()
+                                if dd == d), **zt[key]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -16,8 +16,13 @@ bf16 seg step of the DPT model on the kernels (K1n, K1b with no de)
 against the plain path; and the serving artifact exported on the card,
 with and without embedded weights, against the live plain path; K1f at
 the pit_b shapes and the pit_b forward on it (13 launches, the same bits
-twice), pit_s refusing the kernel, and a Swin train step giving the same
-bits twice.
+twice), a head dim outside the kernel's range refusing it, and a Swin
+train step giving the same bits twice; K1f and K1n at head dims 16 to 128
+(every multiple of 16 but 64: zero-filled tiles), ragged N, the same bits
+twice, K5a's forward at head dim 96, and the ViT classifiers on K1n
+against the plain path (launches counted; the PiT names at head dims 48
+and 32 on K1f); a forward that asks for a gradient at a head dim the
+backward kernels do not take raising before it launches.
 Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
@@ -64,8 +69,10 @@ def test_attn_fwd_headmean_raises_on_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="contiguous"):
         fused_attention_qkv_cols(torch.zeros((1, 5, 6 * H * D), device=device,
                                              dtype=torch.bfloat16)[..., ::2], D ** -0.5, H)
-    with pytest.raises(ValueError, match="head dim"):
-        fused_attention_qkv_cols(qkv, D ** -0.5, 2 * H)
+    for d in (24, 144):        # not a multiple of 16; above 128
+        with pytest.raises(ValueError, match=f"head dim .*got {d}"):
+            fused_attention_qkv_cols(torch.zeros((1, 5, 3 * H * d), device=device,
+                                                 dtype=torch.bfloat16), d ** -0.5, H)
 
 
 # --- K1b, K2f, K2b --------------------------------------------------------
@@ -699,7 +706,8 @@ def test_attn_fwd_headmean_at_the_pit_b_shapes(device, n, heads):
 def test_pit_b_forward_launches_k1f_per_block_and_pit_s_refuses_the_kernel(device):
     """pit_b (bf16, crop 224, batch 2, export "mean") on the kernel path: 13
     K1f launches per forward, the same bits from two forwards, every export
-    finite; pit_s (head dim 48) with the kernel raises, no fallback."""
+    finite; a PiT at head dim 24, outside the kernel's range, raises at
+    construction, no fallback (pit_s, head dim 48, takes the kernel)."""
     from acr_wsss_tpu_torch.models.acr import init_random_
     from acr_wsss_tpu_torch.models.registry import create_model
 
@@ -715,9 +723,8 @@ def test_pit_b_forward_launches_k1f_per_block_and_pit_s_refuses_the_kernel(devic
     for a, b in zip(outs[0]["probs_per_block"] + [outs[0]["logits"]],
                     outs[1]["probs_per_block"] + [outs[1]["logits"]]):
         assert torch.isfinite(a).all() and torch.equal(a, b)
-    pit_s = create_model("pit_s", num_classes=20, attn_impl="kernel").to(device)
-    with pytest.raises(ValueError, match="head dim 64"), torch.no_grad():
-        pit_s(torch.zeros((1, 224, 224, 3), device=device))
+    with pytest.raises(ValueError, match="head dim .*got 24"):
+        create_model("pit_s_224", num_classes=20, base_dims=(24, 24, 24))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -758,3 +765,120 @@ def test_swin_step_gives_the_same_bits_twice(device, dtype):
         assert torch.isfinite(parts_a[k]) and torch.equal(parts_a[k], parts_b[k]), k
     for k in params_a:
         assert torch.equal(params_a[k], params_b[k]), k
+
+
+# --- head dims other than 64 (K1f, K1n), the ViT classifiers ----------------
+
+@pytest.mark.parametrize("export", ["mean", "mean_bf16", "none"])
+@pytest.mark.parametrize("batch,n", [(2, 197), (3, 37), (2, 65), (1, 1)])
+@pytest.mark.parametrize("d", [16, 32, 48, 80, 96, 112, 128])
+def test_attn_fwd_headmean_at_other_head_dims(device, d, batch, n, export):
+    """K1f (float32 and bf16 export) and K1n at every other head dim the
+    forward takes, against the plain version: the tolerances of D = 64."""
+    gen = torch.Generator(device=device).manual_seed(d * n)
+    heads = 4
+    qkv = torch.randn((batch, n, 3 * heads * d), generator=gen, device=device).bfloat16()
+    mode, dtype = export[:4], torch.bfloat16 if export.endswith("bf16") else torch.float32
+    before = fused_attention_qkv_cols.launches
+    out, probs = fused_attention_qkv_cols(qkv, d ** -0.5, heads, mode, dtype)
+    ref_out, ref_probs = attention_qkv_cols_plain(qkv, d ** -0.5, heads, mode, dtype)
+    again = fused_attention_qkv_cols(qkv, d ** -0.5, heads, mode, dtype)
+    torch.cuda.synchronize()
+    assert fused_attention_qkv_cols.launches == before + 2
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=OUT_RTOL, atol=OUT_ATOL)
+    assert torch.equal(out, again[0])
+    if mode == "none":
+        assert probs is None
+        return
+    assert probs.dtype == dtype and torch.equal(probs, again[1])
+    torch.testing.assert_close(probs.float(), ref_probs.float(),
+                               rtol=BF16_PROBS_RTOL if dtype == torch.bfloat16 else 0,
+                               atol=PROBS_ATOL)
+
+
+def test_k5a_forward_at_head_dim_96(device):
+    """The (B, H, N, D) layout's forward at head dim 96; its backward takes
+    64 only, so a forward that asks for a gradient raises before it runs."""
+    from acr_wsss_tpu_torch.ops.attn_cuda import forward_plain, fused_attention_with_probs
+
+    gen = torch.Generator(device=device).manual_seed(96)
+    q, k, v = (torch.randn((2, 4, 37, 96), generator=gen, device=device).bfloat16()
+               for _ in range(3))
+    out, probs = fused_attention_with_probs(q, k, v, 96 ** -0.5)
+    ref_out, ref_probs = forward_plain("bhnd", (q, k, v), 96 ** -0.5, None)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=OUT_RTOL, atol=OUT_ATOL)
+    torch.testing.assert_close(probs, ref_probs, rtol=0, atol=PROBS_ATOL)
+    q.requires_grad_(True)
+    before = fused_attention_with_probs.launches
+    with pytest.raises(ValueError, match="head dim 64, got 96"):
+        fused_attention_with_probs(q, k, v, 96 ** -0.5)
+    assert fused_attention_with_probs.launches == before
+
+
+@pytest.mark.parametrize("name,heads,head_dim", [
+    ("vit_small_patch16_224", 8, 96), ("vit_huge_patch14_224_in21k", 16, 80),
+    ("vit_deit_base_distilled_patch16_224", 12, 64)])
+def test_vit_classifier_on_k1n_matches_the_plain_path(device, name, heads, head_dim):
+    """Two blocks of a classifier at its published width (bf16, crop 224,
+    batch 2): one K1n launch per block, the same bits twice, logits within
+    5e-2 of the largest |logit| of the plain path's (``chip_smoke.py``)."""
+    from acr_wsss_tpu_torch.models.acr import init_random_
+    from acr_wsss_tpu_torch.models.registry import create_model
+
+    weights = init_random_(create_model(name, depth=2), seed=0).state_dict()
+    models = {}
+    for impl in ("kernel", "plain"):
+        models[impl] = create_model(name, depth=2, attn_impl=impl)
+        models[impl].load_state_dict(weights)
+        models[impl].to(device)
+    x = torch.randn((2, 224, 224, 3), generator=torch.Generator(device=device).manual_seed(0),
+                    device=device)
+    before = fused_attention_qkv_cols.launches_noexport
+    with torch.no_grad():
+        out, again, ref = models["kernel"](x), models["kernel"](x), models["plain"](x)
+    torch.cuda.synchronize()
+    assert fused_attention_qkv_cols.launches_noexport == before + 4
+    assert models["kernel"].trunk.blocks[0].attn.scale == head_dim ** -0.5
+    assert torch.equal(out["logits"], again["logits"])
+    scale = ref["logits"].abs().max().item()
+    torch.testing.assert_close(out["logits"], ref["logits"], rtol=0, atol=5e-2 * scale)
+
+
+@pytest.mark.parametrize("name", ["pit_s_224", "pit_xs_224", "pit_ti_224"])
+def test_pit_at_head_dims_48_and_32_on_k1f(device, name):
+    """13 K1f launches per forward at head dim 48 or 32; the logits within
+    5e-2 of the largest |logit| of the plain path's."""
+    from acr_wsss_tpu_torch.models.acr import init_random_
+    from acr_wsss_tpu_torch.models.registry import create_model
+
+    weights = init_random_(create_model(name, num_classes=20), seed=0).state_dict()
+    models = {}
+    for impl in ("kernel", "plain"):
+        models[impl] = create_model(name, num_classes=20, attn_impl=impl)
+        models[impl].load_state_dict(weights)
+        models[impl].to(device)
+    x = torch.randn((2, 224, 224, 3), device=device)
+    before = fused_attention_qkv_cols.launches
+    with torch.no_grad():
+        out, ref = models["kernel"](x), models["plain"](x)
+    torch.cuda.synchronize()
+    assert fused_attention_qkv_cols.launches == before + 12
+    scale = ref["logits"].abs().max().item()
+    torch.testing.assert_close(out["logits"], ref["logits"], rtol=0, atol=5e-2 * scale)
+
+
+def test_vit_classifier_at_head_dim_96_refuses_a_gradient_at_the_forward(device):
+    """vit_small_patch16_224 (head dim 96) on the kernels: a forward under
+    no_grad runs; one that asks for a gradient raises at its first block,
+    naming the head dim and the backward's, before any launch."""
+    from acr_wsss_tpu_torch.models.registry import create_model
+
+    with torch.device(device):
+        model = create_model("vit_small_patch16_224", depth=1)
+    x = torch.randn((1, 224, 224, 3), device=device)
+    with torch.no_grad():
+        assert torch.isfinite(model(x)["logits"]).all()
+    before = fused_attention_qkv_cols.launches
+    with pytest.raises(ValueError, match="head dim 64, got 96.*attn_impl='plain'"):
+        model(x)
+    assert fused_attention_qkv_cols.launches == before

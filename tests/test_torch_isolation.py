@@ -14,7 +14,8 @@ segmentation stage: ``models/dpt``, ``train_seg`` and ``utils/metrics``;
 and those of serving and the reference import: ``serving`` and
 ``models/convert``, whose CLIs also run there; and those of data
 parallelism: ``parallel/{distributed,mesh,sharding}``; and those of the
-Swin and PiT slice: ``models/{registry,swin,pit}`` and ``train_swin``. The
+Swin and PiT slice: ``models/{registry,swin,pit}`` and ``train_swin``; and
+those of the classifier zoo: ``models/{vit_classifier,cfg,features}``. The
 CLIs run there too: the reference-checkpoint import on a ``torch.save``d
 checkpoint, then the serving export of the npz it wrote, and the
 artifact's call.
@@ -70,7 +71,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "ops.crf", "ops.bilateral", "pseudo_label", "utils.visualization",
                  "models.dpt", "train_seg", "utils.metrics", "serving", "models.convert",
                  "parallel", "parallel.distributed", "parallel.mesh", "parallel.sharding",
-                 "models.registry", "models.swin", "models.pit", "train_swin"):
+                 "models.registry", "models.swin", "models.pit", "train_swin",
+                 "models.vit_classifier", "models.cfg", "models.features"):
         assert f"acr_wsss_tpu_torch.{name}" in proc.stdout, name
 
 

@@ -12,7 +12,7 @@ on the CPU.
 * ``models/zoo.py``: ``graft_standalone`` against JAX's on a head of
   another class count and on a position embedding resized up and down
   (JAX's bilinear resize antialiases when it shrinks);
-* the registry: which PiT names take the kernel; the full-width ``pit_b``
+* the registry: every PiT name takes the kernel; the full-width ``pit_b``
   and ``pit_b_distilled_224``'s parameter names and shapes against
   ``jax.eval_shape`` of the flax init.
 
@@ -105,13 +105,19 @@ def test_pit_forward_matches_jax(pit_case, distilled, attn_impl):
 
 
 def test_pit_registry_takes_the_kernel_where_the_head_dim_is_64():
+    """Every PiT name takes the kernel: the forward kernel takes head dims
+    64 (pit_b), 48 (pit_s, pit_xs) and 32 (pit_ti); one outside its range
+    raises at construction and never falls back to plain."""
     with torch.device("meta"):
-        for name, impl in (("pit_b", "kernel"), ("pit_b_distilled_224", "kernel"),
-                           ("pit_s", "plain"), ("pit_xs_224", "plain"),
-                           ("pit_ti_distilled_224", "plain")):
-            assert registry.create_model(name).stage0_block0.attn.attn_impl == impl, name
-        assert registry.create_model("pit_s", attn_impl="kernel").stage1_block0.attn.attn_impl \
-            == "kernel"
+        for name in ("pit_b", "pit_b_distilled_224", "pit_s", "pit_xs_224",
+                     "pit_ti_distilled_224", "pit_ti_224"):
+            model = registry.create_model(name)
+            assert {m.attn_impl for n, m in model.named_modules()
+                    if n.endswith(".attn")} == {"kernel"}, name
+        assert registry.create_model("pit_s", attn_impl="plain").stage1_block0.attn.attn_impl \
+            == "plain"
+        with pytest.raises(ValueError, match="head dim .*got 40"):
+            registry.create_model("pit_xs_224", base_dims=(40, 40, 40))
 
 
 # --- the timm mapper, the convert CLI, the graft -----------------------------

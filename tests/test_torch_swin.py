@@ -297,7 +297,8 @@ def test_swin_mapper_matches_jax():
     pm.load_state_dict(flax_to_state_dict(got, pm.state_dict()))
 
 
-@pytest.mark.parametrize("name", registry.list_models())
+@pytest.mark.parametrize("name", registry.list_models(module="swin")
+                         + registry.list_models(module="pit"))
 def test_registry_names_build_with_the_jax_defaults(name):
     want = jax_entrypoint(name)()
     with torch.device("meta"):

@@ -9,12 +9,14 @@
 //                    fp32 or bf16 (the cotangent of a bf16 export, upcast
 //                    here as the TPU kernels upcast it), or none (zero);
 //                    q, k, v, g and dq, dk, dv are strided (B, N, H, D)
-//                    operands, as in attn_fwd_headmean.cu;
+//                    operands, as in attn_fwd_headmean.cu, at every head
+//                    dim D that the forward takes (a multiple of 16 up to
+//                    128);
 //   _bwd_kernel_pair (K2b, through _bwd_pair): de is formed here from the
 //                    int8 sign tile of the pair forward (attn_pair_fwd.cu)
 //                    and the per-pair cotangents g_cls (row 0) and g_aff
 //                    (rows >= 1), + for the view (even b), - for its
-//                    mirror (odd b).
+//                    mirror (odd b); D = 64 only.
 //
 // Function, for each batch element b and head h, with p the exact fp32
 // softmax(q_h k_h^T * scale) recomputed here and g the cotangent of out:
@@ -52,7 +54,20 @@
 //   from the saved statistics, and sums p^T g and ds^T q in registers. It
 //   takes each query tile in two halves of 32 rows, so that one half's
 //   products run while the other's p and ds are formed, and is held to
-//   168 registers, so that three blocks fit on an SM.
+//   168 registers, so that three blocks fit on an SM at kDT = 1; at kDT =
+//   2 its 136 KB of shared memory let one block on an SM, and it may take
+//   255 registers.
+// Head dim: kDT = ceil(D / 64) swizzled tiles of 64 columns per operand
+// (attn_tiles.cuh), the columns past D zero-filled by cp.async with a zero
+// source size; only the D columns of dq, dk and dv are written. Zero
+// columns of q and k add nothing to the logits, zero columns of g and v
+// nothing to dp, so p, dp and ds are those of the D columns alone. The
+// row pass holds dq as kDT accumulators of 64 columns. The key pass keeps
+// its one dk and one dv accumulator of 64 columns: at kDT = 2 its grid
+// has two blocks per 64 keys, one for each column tile of dk and dv, and
+// each recomputes S^T and dp^T over all D columns (7 products of
+// 2*B*H*N^2*64 in place of 5 on the key pass's share), so that its
+// registers stay those of kDT = 1.
 // de streams with the key (row pass) or query (key pass) tiles: each row
 // of a 64 x 64 tile of de in 16-byte cp.async chunks into shared memory,
 // as it lies (fp32, bf16 or int8, not 16-byte aligned), read from there
@@ -181,16 +196,18 @@ __device__ __forceinline__ float2 pair_cotangents(const DeSource& s, int b) {
 }
 
 // Row pass. stats (B, H, N, 3): row max, 1 / row sum of exp, c.
-template <int kDe>
+template <int kDe, int kDT>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_rows_kernel(Operands op, DeSource de, float* __restrict__ stats, int N, int H,
+attn_bwd_rows_kernel(Operands op, DeSource de, float* __restrict__ stats, int N, int H, int D,
                      float scale) {
+  constexpr int kOp = kDT * kTileElems;   // one operand's tiles
+  if constexpr (kDe == kDeSign) D = kD;   // the pair entry's head dim
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(align_tiles(smem_raw));
-  bf16* sG = sQ + kTileElems;
-  bf16* sK = sG + kTileElems;       // two stages
-  bf16* sV = sK + 2 * kTileElems;   // two stages
-  unsigned char* sRaw = reinterpret_cast<unsigned char*>(sV + 2 * kTileElems);   // two stages
+  bf16* sG = sQ + kOp;
+  bf16* sK = sG + kOp;         // two stages
+  bf16* sV = sK + 2 * kOp;     // two stages
+  unsigned char* sRaw = reinterpret_cast<unsigned char*>(sV + 2 * kOp);   // two stages
   const int warp = threadIdx.x >> 5, row0 = warp * 16;
   const int i0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -199,24 +216,28 @@ attn_bwd_rows_kernel(Operands op, DeSource de, float* __restrict__ stats, int N,
   const bf16* vb = head_base(op.v, op.sv, b, h);
   const float2 g_sel = pair_cotangents<kDe>(de, b);
 
-  load_tile_async(sQ, head_base(op.q, op.sq, b, h), op.sq.n, i0, N);
-  load_tile_async(sG, head_base(op.g, op.sg, b, h), op.sg.n, i0, N);
+  load_tile_async<kDT>(sQ, head_base(op.q, op.sq, b, h), op.sq.n, i0, N, D);
+  load_tile_async<kDT>(sG, head_base(op.g, op.sg, b, h), op.sg.n, i0, N, D);
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, c[2] = {0.f, 0.f};
-  float dq[8][4];
+  float dq[kDT][8][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
+  for (int ct = 0; ct < kDT; ++ct)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[ct][nt][e] = 0.f;
 
   // The first sweep keeps the statistics, the second sums dq.
   for (int sweep = 0; sweep < 2; ++sweep) {
-    load_tile_async(sK, kb, op.sk.n, 0, N);
-    load_tile_async(sV, vb, op.sv.n, 0, N);
+    load_tile_async<kDT>(sK, kb, op.sk.n, 0, N, D);
+    load_tile_async<kDT>(sV, vb, op.sv.n, 0, N, D);
     if constexpr (kDe != kDeNone) load_de_async<kDe>(sRaw, raw_offs<kDe>(sRaw), de, b, i0, 0, N);
     cp_async_commit();
     for (int kt = 0; kt < tiles_n; ++kt) {
-      const int cur = (kt & 1) * kTileElems, j0 = kt * kRows;
+      const int cur = (kt & 1) * kOp, j0 = kt * kRows;
       if (kt + 1 < tiles_n) {
-        load_tile_async(sK + kTileElems - cur, kb, op.sk.n, j0 + kRows, N);
-        load_tile_async(sV + kTileElems - cur, vb, op.sv.n, j0 + kRows, N);
+        load_tile_async<kDT>(sK + kOp - cur, kb, op.sk.n, j0 + kRows, N, D);
+        load_tile_async<kDT>(sV + kOp - cur, vb, op.sv.n, j0 + kRows, N, D);
         if constexpr (kDe != kDeNone) {
           unsigned char* nxt = sRaw + (~kt & 1) * raw_stage<kDe>();
           load_de_async<kDe>(nxt, raw_offs<kDe>(nxt), de, b, i0, j0 + kRows, N);
@@ -227,8 +248,8 @@ attn_bwd_rows_kernel(Operands op, DeSource de, float* __restrict__ stats, int N,
       __syncthreads();
       float s[8][4], dp[8][4];
       wg_fence();
-      dots_async(s, sQ, sK + cur);
-      dots_async(dp, sG, sV + cur);
+      dots_async<8, kDT>(s, sQ, sK + cur);
+      dots_async<8, kDT>(dp, sG, sV + cur);
       wg_commit();
       wg_wait<0>();
       fence_regs(s);
@@ -293,13 +314,16 @@ attn_bwd_rows_kernel(Operands op, DeSource de, float* __restrict__ stats, int N,
         for (int kk = 0; kk < 4; ++kk) to_a_split(hi[kk], lo[kk], s[2 * kk], s[2 * kk + 1]);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          mma_rows_async(dq, hi[kk], sK + cur, kk);
-          mma_rows_async(dq, lo[kk], sK + cur, kk);
-        }
+        for (int ct = 0; ct < kDT; ++ct)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            mma_rows_async(dq[ct], hi[kk], sK + cur + ct * kTileElems, kk);
+            mma_rows_async(dq[ct], lo[kk], sK + cur + ct * kTileElems, kk);
+          }
         wg_commit();
         wg_wait<0>();
-        fence_regs(dq);
+#pragma unroll
+        for (int ct = 0; ct < kDT; ++ct) fence_regs(dq[ct]);
         fence_regs(hi);
         fence_regs(lo);
       }
@@ -314,8 +338,14 @@ attn_bwd_rows_kernel(Operands op, DeSource de, float* __restrict__ stats, int N,
       }
     }
   }
-  // sQ is free: the last products that read it have completed.
-  store_rows(sQ, row0, dq, scale, head_base(op.dq, op.sdq, b, h), op.sdq.n, i0, N);
+  // sQ is free: the last products that read it have completed. Tile ct
+  // of it stages columns [64 ct, 64 ct + 64) of dq; those past D are not
+  // stored.
+  bf16* dqb = head_base(op.dq, op.sdq, b, h);
+#pragma unroll
+  for (int ct = 0; ct < kDT; ++ct)
+    store_rows(sQ + ct * kTileElems, row0, dq[ct], scale, dqb + ct * kD, op.sdq.n, i0, N,
+               D - ct * kD);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -330,20 +360,24 @@ attn_bwd_rows_kernel(Operands op, DeSource de, float* __restrict__ stats, int N,
   }
 }
 
-// Key pass: dk and dv of 64 keys of one head, summed over all query rows.
-template <int kDe>
-__global__ void __launch_bounds__(kThreads, 3)
+// Key pass: columns [64 ct, 64 ct + 64) of dk and dv of 64 keys of one
+// head, summed over all query rows; block x = key tile * kDT + ct.
+template <int kDe, int kDT>
+__global__ void __launch_bounds__(kThreads, kDT == 1 ? 3 : 1)
 attn_bwd_keys_kernel(Operands op, DeSource de, const float* __restrict__ stats, int N, int H,
-                     float scale) {
+                     int D, float scale) {
+  constexpr int kOp = kDT * kTileElems;   // one operand's tiles
+  if constexpr (kDe == kDeSign) D = kD;   // the pair entry's head dim
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(align_tiles(smem_raw));
-  bf16* sV = sK + kTileElems;
-  bf16* sQ = sV + kTileElems;       // two stages
-  bf16* sG = sQ + 2 * kTileElems;   // two stages
-  unsigned char* sRaw = reinterpret_cast<unsigned char*>(sG + 2 * kTileElems);   // two stages
+  bf16* sV = sK + kOp;
+  bf16* sQ = sV + kOp;         // two stages
+  bf16* sG = sQ + 2 * kOp;     // two stages
+  unsigned char* sRaw = reinterpret_cast<unsigned char*>(sG + 2 * kOp);   // two stages
   float* sStat = reinterpret_cast<float*>(sRaw + raw_stages<kDe>());  // two stages
   const int warp = threadIdx.x >> 5, key0 = warp * 16;
-  const int j0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int ct = blockIdx.x % kDT, j0 = blockIdx.x / kDT * kRows;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int tiles_n = (N + kRows - 1) / kRows;
   const bf16* qb = head_base(op.q, op.sq, b, h);
@@ -351,10 +385,10 @@ attn_bwd_keys_kernel(Operands op, DeSource de, const float* __restrict__ stats, 
   const float* stats_bh = stats + ((size_t)b * H + h) * N * 3;
   const float2 g_sel = pair_cotangents<kDe>(de, b);
 
-  load_tile_async(sK, head_base(op.k, op.sk, b, h), op.sk.n, j0, N);
-  load_tile_async(sV, head_base(op.v, op.sv, b, h), op.sv.n, j0, N);
-  load_tile_async(sQ, qb, op.sq.n, 0, N);
-  load_tile_async(sG, gb, op.sg.n, 0, N);
+  load_tile_async<kDT>(sK, head_base(op.k, op.sk, b, h), op.sk.n, j0, N, D);
+  load_tile_async<kDT>(sV, head_base(op.v, op.sv, b, h), op.sv.n, j0, N, D);
+  load_tile_async<kDT>(sQ, qb, op.sq.n, 0, N, D);
+  load_tile_async<kDT>(sG, gb, op.sg.n, 0, N, D);
   load_floats_async<kRows * 3>(sStat, stats_bh, min(kRows, N) * 3);
   if constexpr (kDe != kDeNone) load_de_async<kDe>(sRaw, raw_offs<kDe>(sRaw), de, b, 0, j0, N);
   cp_async_commit();
@@ -365,12 +399,12 @@ attn_bwd_keys_kernel(Operands op, DeSource de, const float* __restrict__ stats, 
     for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
 
   for (int it = 0; it < tiles_n; ++it) {
-    const int cur = (it & 1) * kTileElems, i0 = it * kRows;
+    const int cur = (it & 1) * kOp, i0 = it * kRows;
     const float* st_tile = sStat + (it & 1) * kRows * 3;
     if (it + 1 < tiles_n) {
       const int nxt = ~it & 1;
-      load_tile_async(sQ + kTileElems - cur, qb, op.sq.n, i0 + kRows, N);
-      load_tile_async(sG + kTileElems - cur, gb, op.sg.n, i0 + kRows, N);
+      load_tile_async<kDT>(sQ + kOp - cur, qb, op.sq.n, i0 + kRows, N, D);
+      load_tile_async<kDT>(sG + kOp - cur, gb, op.sg.n, i0 + kRows, N, D);
       load_floats_async<kRows * 3>(sStat + nxt * kRows * 3, stats_bh + (size_t)(i0 + kRows) * 3,
                                    min(kRows, N - i0 - kRows) * 3);
       if constexpr (kDe != kDeNone) {
@@ -390,8 +424,8 @@ attn_bwd_keys_kernel(Operands op, DeSource de, const float* __restrict__ stats, 
     wg_fence();
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      dots_async(s[half], sK, sQ + cur, 32 * half);
-      dots_async(dp[half], sV, sG + cur, 32 * half);
+      dots_async<4, kDT>(s[half], sK, sQ + cur, 32 * half);
+      dots_async<4, kDT>(dp[half], sV, sG + cur, 32 * half);
       wg_commit();
     }
     uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
@@ -428,13 +462,15 @@ attn_bwd_keys_kernel(Operands op, DeSource de, const float* __restrict__ stats, 
         to_a_split(ds_hi[kk], ds_lo[kk], dp[half][2 * k2], dp[half][2 * k2 + 1]);
       }
       wg_fence();
+      const bf16* g_ct = sG + cur + ct * kTileElems;
+      const bf16* q_ct = sQ + cur + ct * kTileElems;
 #pragma unroll
       for (int k2 = 0; k2 < 2; ++k2) {
         const int kk = 2 * half + k2;
-        mma_rows_async(dv, p_hi[kk], sG + cur, kk);
-        mma_rows_async(dv, p_lo[kk], sG + cur, kk);
-        mma_rows_async(dk, ds_hi[kk], sQ + cur, kk);
-        mma_rows_async(dk, ds_lo[kk], sQ + cur, kk);
+        mma_rows_async(dv, p_hi[kk], g_ct, kk);
+        mma_rows_async(dv, p_lo[kk], g_ct, kk);
+        mma_rows_async(dk, ds_hi[kk], q_ct, kk);
+        mma_rows_async(dk, ds_lo[kk], q_ct, kk);
       }
       wg_commit();
     }
@@ -448,51 +484,72 @@ attn_bwd_keys_kernel(Operands op, DeSource de, const float* __restrict__ stats, 
     __syncthreads();
   }
   // sK and sV are free: the last products that read them have completed.
-  store_rows(sK, key0, dk, scale, head_base(op.dk, op.sdk, b, h), op.sdk.n, j0, N);
-  store_rows(sV, key0, dv, 1.f, head_base(op.dv, op.sdv, b, h), op.sdv.n, j0, N);
+  // Columns past D are not stored.
+  const int cols = D - ct * kD;
+  store_rows(sK, key0, dk, scale, head_base(op.dk, op.sdk, b, h) + ct * kD, op.sdk.n, j0, N,
+             cols);
+  store_rows(sV, key0, dv, 1.f, head_base(op.dv, op.sdv, b, h) + ct * kD, op.sdv.n, j0, N,
+             cols);
 }
 
-template <int kDe>
+// Dynamic shared memory of either pass: 6 kDT tiles (2 operands of one
+// stage, 2 of two), the raw de stages, and for the key pass the two
+// stages of row statistics.
+template <int kDe, int kDT>
 constexpr size_t rows_smem() {
-  return kTileAlign + 6 * kTileElems * sizeof(bf16) + raw_stages<kDe>();
+  return kTileAlign + 6 * kDT * kTileElems * sizeof(bf16) + raw_stages<kDe>();
 }
 
-template <int kDe>
+template <int kDe, int kDT>
 constexpr size_t keys_smem() {
-  return kTileAlign + 6 * kTileElems * sizeof(bf16) + raw_stages<kDe>() +
-         2 * kRows * 3 * sizeof(float);
+  return rows_smem<kDe, kDT>() + 2 * kRows * 3 * sizeof(float);
 }
 
-template <int kDe>
+template <int kDe, int kDT>
 int launch_kind(const Operands& op, const DeSource& de, float* stats, int B, int N, int H,
-                float scale, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_rows_kernel<kDe>,
+                int D, float scale, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(attn_bwd_rows_kernel<kDe, kDT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)rows_smem<kDe>());
+                                       (int)rows_smem<kDe, kDT>());
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(attn_bwd_keys_kernel<kDe>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)keys_smem<kDe>());
+    e = cudaFuncSetAttribute(attn_bwd_keys_kernel<kDe, kDT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)keys_smem<kDe, kDT>());
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((N + kRows - 1) / kRows, H, B);
-  attn_bwd_rows_kernel<kDe><<<grid, kThreads, rows_smem<kDe>(), s>>>(op, de, stats, N, H, scale);
+  const int tiles_n = (N + kRows - 1) / kRows;
+  attn_bwd_rows_kernel<kDe, kDT><<<dim3(tiles_n, H, B), kThreads, rows_smem<kDe, kDT>(), s>>>(
+      op, de, stats, N, H, D, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_keys_kernel<kDe><<<grid, kThreads, keys_smem<kDe>(), s>>>(op, de, stats, N, H, scale);
+  attn_bwd_keys_kernel<kDe, kDT>
+      <<<dim3(tiles_n * kDT, H, B), kThreads, keys_smem<kDe, kDT>(), s>>>(op, de, stats, N, H,
+                                                                          D, scale);
   return (int)cudaGetLastError();
 }
 
+template <int kDT>
+int launch_tiles(const Operands& op, int kind, const DeSource& de, float* st, int B, int N,
+                 int H, int D, float scale, cudaStream_t s) {
+  switch (kind) {
+    case kDeNone: return launch_kind<kDeNone, kDT>(op, de, st, B, N, H, D, scale, s);
+    case kDeF32: return launch_kind<kDeF32, kDT>(op, de, st, B, N, H, D, scale, s);
+    case kDeBF16: return launch_kind<kDeBF16, kDT>(op, de, st, B, N, H, D, scale, s);
+    default:   // the sign tile: the pair entry, D = 64
+      if constexpr (kDT == 1) return launch_kind<kDeSign, 1>(op, de, st, B, N, H, D, scale, s);
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Head dim D <= 64 runs one column tile, 80-128 two.
 int launch(const Operands& op, int kind, const DeSource& de, void* stats, int B, int N, int H,
            int D, float scale, void* stream) {
-  if (D != kD || B <= 0 || N <= 0 || H <= 0 || B > 65535 || H > 65535)
+  if (D % 16 || D < 16 || D > 2 * kD || B <= 0 || N <= 0 || H <= 0 || B > 65535 ||
+      H > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
-  switch (kind) {
-    case kDeNone: return launch_kind<kDeNone>(op, de, st, B, N, H, scale, s);
-    case kDeF32: return launch_kind<kDeF32>(op, de, st, B, N, H, scale, s);
-    case kDeBF16: return launch_kind<kDeBF16>(op, de, st, B, N, H, scale, s);
-    default: return launch_kind<kDeSign>(op, de, st, B, N, H, scale, s);
-  }
+  if (D <= kD) return launch_tiles<1>(op, kind, de, st, B, N, H, D, scale, s);
+  return launch_tiles<2>(op, kind, de, st, B, N, H, D, scale, s);
 }
 
 Strides strides_at(const long long* s) { return Strides{s[0], s[1], s[2]}; }
@@ -501,9 +558,10 @@ Strides strides_at(const long long* s) { return Strides{s[0], s[1], s[2]}; }
 
 extern "C" {
 
-// K1b, K5a-c. q, k, v, g: bf16 (B, N, H, D) operands; dq, dk, dv: bf16
-// (B, N, H, D) outputs; `strides` holds 21 element strides, (batch, token,
-// head) of q, k, v, g, dq, dk and dv in that order; D has unit stride and
+// K1b, K5a-c. q, k, v, g: bf16 (B, N, H, D) operands, D a multiple of 16
+// up to 128; dq, dk, dv: bf16 (B, N, H, D) outputs; `strides` holds 21
+// element strides, (batch, token, head) of q, k, v, g, dq, dk and dv in
+// that order; D has unit stride and
 // every row of D values starts 16-byte aligned. de: contiguous (B, N, N)
 // of `de_dtype` (1 fp32, 2 bf16), or null with de_dtype 0 for zero.
 // stats: (B, H, N, 3) fp32 scratch. Returns cudaGetLastError().
@@ -524,11 +582,12 @@ int attn_bwd_dense(const void* q, const void* k, const void* v, const void* g, v
 
 // K2b. qkv (B, N, 3*H*D) bf16, g (B, N, H*D) bf16, dqkv (B, N, 3*H*D) bf16
 // out, all contiguous and 16-byte aligned; de formed from sign (B / 2, N,
-// N) int8 and g_cls, g_aff (B / 2,) fp32; B even, pairs interleaved.
+// N) int8 and g_cls, g_aff (B / 2,) fp32; B even, pairs interleaved; D =
+// 64, as the pair forward takes it.
 int attn_bwd_pair(const void* qkv, const void* g, const void* sign, const void* g_cls,
                   const void* g_aff, void* dqkv, void* stats, int B, int N, int H, int D,
                   float scale, void* stream) {
-  if (B % 2 || sign == nullptr || g_cls == nullptr || g_aff == nullptr)
+  if (B % 2 || D != kD || sign == nullptr || g_cls == nullptr || g_aff == nullptr)
     return (int)cudaErrorInvalidValue;
   const long long HD = (long long)H * D;
   const Strides cols{N * 3 * HD, 3 * HD, D}, rows{N * HD, HD, D};

@@ -6,8 +6,8 @@
 // An operand of head dim D is kDT = ceil(D / 64) tiles side by side: tile t
 // holds its columns [64 t, 64 t + 64), and the columns past D are zeros, so
 // they add nothing to q k^T and the columns of p v past D are never stored.
-// The backward and pair kernels take D = 64 (kDT = 1); the forward takes
-// every multiple of 16 up to 128.
+// The pair kernels take D = 64 (kDT = 1); the forward and the backward
+// take every multiple of 16 up to 128.
 //
 // A block is one warpgroup of 4 warps, and every product is 64 x 64:
 // warp w owns rows [16 w, 16 w + 16) of it, in eight m16n8 accumulators

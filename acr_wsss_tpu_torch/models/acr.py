@@ -3,7 +3,9 @@
 Counterpart of ``acr_wsss_tpu/models/acr.py``: the ``BACKBONES`` table and
 aliases (``:42-90``), the head on the CLS token and on the mean of the
 patch tokens of the last tap taken before the final norm (``:147-152``),
-and ``forward_cls`` / ``forward_cam`` / ``forward_mirror`` (``:159-216``).
+and ``forward_cls`` / ``forward_cam`` / ``forward_mirror`` (``:159-216``);
+the registry's five ``acr_*`` names (``:218-240``), an ``ACR`` on each
+ACR backbone but the small ones.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from acr_wsss_tpu_torch.models.hybrid import ResNetV2Stem
+from acr_wsss_tpu_torch.models.registry import register_model
 from acr_wsss_tpu_torch.models.vit import VisionTransformer
 
 
@@ -132,6 +135,18 @@ class ACR(nn.Module):
                 {k: view(v, slice(b, None)) for k, v in items})
 
     forward = forward_cls
+
+
+def _register_acr(name: str, backbone: str) -> None:
+    def builder(**kwargs):
+        return ACR(backbone_name=backbone, **kwargs)
+
+    builder.__name__ = name
+    register_model(builder)
+
+
+for _backbone in ("vitb_hybrid", "vitb", "vitl", "deit", "deit_distilled"):
+    _register_acr(f"acr_{_backbone}", _backbone)
 
 
 @torch.no_grad()

@@ -20,7 +20,12 @@ path maps one to one:
   the stem's GroupNorms sit one level down in flax
   (``norm1/GroupNorm_0/scale``) and become ``norm1.weight``/``norm1.bias``;
 * the layers of a flax ``nn.Sequential`` (``seg_head/layers_0/``) are the
-  torch ``nn.Sequential``'s indices (``seg_head.0.``).
+  torch ``nn.Sequential``'s indices (``seg_head.0.``);
+* a 1-D conv ``kernel`` (width, in, out) becomes ``weight`` (out, in,
+  width) (the ECA module);
+* BatchNorm (``models/layers.BatchNorm``): ``params/.../scale`` and
+  ``bias`` become ``weight`` and ``bias``, the running statistics
+  ``batch_stats/.../mean`` and ``var`` the buffers ``mean`` and ``var``.
 
 ``scanned_to_unrolled`` / ``unrolled_to_scanned`` are the numpy side of
 the JAX functions of the same names (``models/convert.py:1004-1045``): a
@@ -52,13 +57,27 @@ Dense) to ``models/hybrid.BiTResNetV2``'s; ``bit_npz_to_torch_names``
 renames BiT's TF ``.npz`` releases to timm's names first (``:3086``).
 ``zoo.convert_state_dict`` picks the mapper of a registry name's family.
 
+The CNN families (``:353-418``, ``:600-716``, ``:3214-3306``):
+``resnet_state_dict_to_flax`` (torchvision's ResNet layout, to
+``models/cnn.ResNet``), ``densenet_state_dict_to_flax`` (its legacy
+``norm.1`` names renamed, the deep stem told by ``features.conv2``),
+``vgg_state_dict_to_flax`` (convs by rank among the ``features.<i>``
+layers, the ``_bn`` names' BatchNorms after them; the 7x7-flatten
+classifier has no counterpart and is left out) and
+``timm_resnet_state_dict_to_flax`` (``models/resnet_timm.TimmResNet``: the
+deep stem ``conv1.{0,3,6}``, the ResNet-RS ``maxpool.{0,1}``, a conv or
+average-pool downsample told by its 4-D weight, SE and ECA). BatchNorm's
+running mean and variance land in ``batch_stats/``, its scale and bias in
+``params/``; ``num_batches_tracked`` is dropped.
+
 The timm Swin and PiT checkpoints (``:228-350``):
 ``swin_state_dict_to_flax`` and ``pit_state_dict_to_flax`` map them, by
 the tables ``_SWIN`` and ``_PIT``, to the flat dict of ``models/swin.py``
 and ``models/pit.py`` (Swin's recomputed buffers skipped, PiT's NCHW
 ``pos_embed`` to NHWC, torch's ``transformers.<s>.pool`` to ``pool<s+1>``,
 ``head`` and ``head_dist`` kept). With ``--backbone`` a name of the
-registry (Swin, PiT, the ViT/DeiT classifiers, the BiT names) the CLI
+registry (Swin, PiT, the ViT/DeiT classifiers, the BiT names, the CNN
+families) the CLI
 writes that npz, checked against the registry's model, which
 ``--pretrained``, ``create_model(..., pretrained=True)`` and
 ``zoo.graft_standalone`` read (as ``<ACR_WSSS_ZOO>/<name>_in21k.npz``).
@@ -74,7 +93,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from acr_wsss_tpu_torch.models.layers import GroupNormAct, WSConv
+from acr_wsss_tpu_torch.models.layers import BatchNorm, GroupNormAct, WSConv
 
 _TRUNK_BLOCK = re.compile(r"^trunk/blocks_(\d+)/")
 _SEQUENTIAL = re.compile(r"/layers_(\d+)/")
@@ -113,8 +132,9 @@ def unrolled_to_scanned(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]
 
 
 def _torch_key(path: str) -> str:
-    if path.startswith("params/"):
-        path = path[len("params/"):]
+    for collection in ("params/", "batch_stats/"):
+        if path.startswith(collection):
+            path = path[len(collection):]
     path = _TRUNK_BLOCK.sub(r"trunk/blocks/\1/", path)
     path = path.replace("/GroupNorm_0/", "/")
     path = _SEQUENTIAL.sub(r"/\1/", path)
@@ -134,6 +154,8 @@ def _torch_value(path: str, value: np.ndarray) -> np.ndarray:
             return value[::-1, ::-1].transpose(2, 3, 0, 1)
         if value.ndim == 4:                       # conv HWIO
             return value.transpose(3, 2, 0, 1)
+        if value.ndim == 3:                       # 1-D conv (W, I, O)
+            return value.transpose(2, 1, 0)
         raise ValueError(f"{path}: kernel of rank {value.ndim}")
     return value
 
@@ -171,7 +193,8 @@ def state_dict_to_flax(module: nn.Module, state_dict: Optional[Mapping[str, torc
     gathered), "params/"-prefixed as the JAX trainer saves them: the
     inverse of :func:`flax_to_state_dict`. Module types decide the leaf
     names (the stem's GroupNorm one level down, ``kernel`` for Dense and
-    conv weights, a transposed conv's flipped back)."""
+    conv weights, a transposed conv's flipped back, BatchNorm's statistics
+    under ``batch_stats/``)."""
     kinds = {name: type(m) for name, m in module.named_modules()}
     flat: Dict[str, np.ndarray] = {}
     state_dict = module.state_dict() if state_dict is None else state_dict
@@ -179,20 +202,25 @@ def state_dict_to_flax(module: nn.Module, state_dict: Optional[Mapping[str, torc
         owner, leaf = key.rsplit(".", 1) if "." in key else ("", key)
         value = tensor.detach().cpu().float().numpy()
         kind = kinds.get(owner)
+        collection = "params/"
         if leaf == "weight" and kind in (nn.Linear,):
             leaf, value = "kernel", value.T
         elif leaf == "weight" and kind is nn.ConvTranspose2d:
             leaf, value = "kernel", value.transpose(2, 3, 0, 1)[::-1, ::-1]
         elif leaf == "weight" and kind is not None and issubclass(kind, (nn.Conv2d, WSConv)):
             leaf, value = "kernel", value.transpose(2, 3, 1, 0)
-        elif leaf == "weight" and kind in (nn.LayerNorm, nn.GroupNorm):
+        elif leaf == "weight" and kind is nn.Conv1d:
+            leaf, value = "kernel", value.transpose(2, 1, 0)
+        elif leaf == "weight" and kind in (nn.LayerNorm, nn.GroupNorm, BatchNorm):
             leaf = "scale"
+        elif kind is BatchNorm and leaf in ("mean", "var"):
+            collection = "batch_stats/"
         elif kind is GroupNormAct:
             owner, leaf = owner + ".GroupNorm_0", "scale" if leaf == "weight" else leaf
         path = (owner + "." + leaf if owner else leaf).replace(".", "/")
         path = re.sub(r"^trunk/blocks/(\d+)/", r"trunk/blocks_\1/", path)
         path = re.sub(r"/(\d+)/", r"/layers_\1/", path)
-        flat["params/" + path] = np.ascontiguousarray(value)
+        flat[collection + path] = np.ascontiguousarray(value)
     return flat
 
 
@@ -222,12 +250,19 @@ def _conv1x1_to_dense(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(w[:, :, 0, 0].T)
 
 
+def _conv1d(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.transpose(2, 1, 0))
+
+
 # A parameter's (reference leaf: (flax leaf, reference -> flax transform))
 # by the kind of its module; None: the name is the parameter itself.
 _LEAVES = {"linear": {"weight": ("kernel", _linear), "bias": ("bias", _ident)},
            "conv": {"weight": ("kernel", _conv), "bias": ("bias", _ident)},
            "norm": {"weight": ("scale", _ident), "bias": ("bias", _ident)},
            "conv1x1": {"weight": ("kernel", _conv1x1_to_dense), "bias": ("bias", _ident)},
+           "conv1d": {"weight": ("kernel", _conv1d)},
+           "bn": {"weight": ("scale", _ident), "bias": ("bias", _ident),
+                  "running_mean": ("mean", _ident), "running_var": ("var", _ident)},
            "nchw": {"": ("", _nhwc)},
            None: {"": ("", _ident)}}
 _INVERSE = {_linear: lambda w: np.ascontiguousarray(w.T),
@@ -346,6 +381,10 @@ def _numpy(value) -> np.ndarray:
     return value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
 
 
+# BatchNorm's running statistics: flax's ``batch_stats`` collection.
+_STATS = ("mean", "var")
+
+
 def _table_to_flax(state_dict: Mapping[str, object], table, ignored=None
                    ) -> Dict[str, np.ndarray]:
     flat: Dict[str, np.ndarray] = {}
@@ -354,7 +393,8 @@ def _table_to_flax(state_dict: Mapping[str, object], table, ignored=None
         mapped = None if skip else _map_name(name, table)
         if mapped is not None:
             path, transform = mapped
-            flat["params/" + path] = transform(_numpy(value).astype(np.float32))
+            collection = "batch_stats/" if path.rsplit("/", 1)[-1] in _STATS else "params/"
+            flat[collection + path] = transform(_numpy(value).astype(np.float32))
     return flat
 
 
@@ -391,6 +431,125 @@ def resnetv2_bit_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[st
     """A timm BiT (pre-activation ResNetV2) state dict as the flat dict of
     ``models/hybrid.BiTResNetV2``; unknown names are dropped."""
     return _table_to_flax(state_dict, _BIT)
+
+
+# torchvision's ResNet v1 (``_map_resnet_name`` :385), onto ``models/cnn.ResNet``.
+_LAYER = r"layer(\d+)\.(\d+)\."
+_RESNET = (
+    (r"conv1", "stem/conv", "conv"),
+    (r"bn1", "stem/bn", "bn"),
+    (_LAYER + r"conv(\d)", "layer{}_{}/conv{}/conv", "conv"),
+    (_LAYER + r"bn(\d)", "layer{}_{}/conv{}/bn", "bn"),
+    (_LAYER + r"downsample\.0", "layer{}_{}/downsample/conv", "conv"),
+    (_LAYER + r"downsample\.1", "layer{}_{}/downsample/bn", "bn"),
+    (r"fc", "fc", "linear"),
+)
+
+
+def resnet_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A torchvision/timm ResNet v1 state dict as the flat dict of
+    ``models/cnn.ResNet``, ``fc`` included."""
+    return _table_to_flax(state_dict, _RESNET)
+
+
+def _minus1(fmt: str):
+    """A path of 1-based torch indices as flax's 0-based ones."""
+    return lambda *groups: fmt.format(*(int(g) - 1 if g.isdigit() else g for g in groups))
+
+
+# torchvision's DenseNet (``_map_densenet_name`` :624): denseblock and
+# denselayer and transition indices are 1-based there, 0-based here.
+_DENSE_BLOCKS = (
+    (r"features\.denseblock(\d+)\.denselayer(\d+)\.(norm\d)", _minus1("block{}_layer{}/{}"),
+     "bn"),
+    (r"features\.denseblock(\d+)\.denselayer(\d+)\.(conv\d)", _minus1("block{}_layer{}/{}"),
+     "conv"),
+    (r"features\.transition(\d+)\.norm", _minus1("transition{}_norm"), "bn"),
+    (r"features\.transition(\d+)\.conv", _minus1("transition{}_conv"), "conv"),
+    (r"features\.norm5", "norm5", "bn"),
+    (r"classifier", "classifier", "linear"),
+)
+_DENSENET = ((r"features\.conv0", "stem/conv", "conv"),
+             (r"features\.norm0", "stem/bn", "bn")) + _DENSE_BLOCKS
+_DENSENET_DEEP = ((r"features\.conv(\d)", "stem{}/conv", "conv"),
+                  (r"features\.norm([012])", "stem{}/bn", "bn")) + _DENSE_BLOCKS
+
+
+def densenet_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A torchvision/timm DenseNet state dict as the flat dict of
+    ``models/cnn.DenseNet``: the legacy ``denselayer<i>.norm.1`` names as
+    ``norm1`` (torchvision's own fix-up on load); the deep stem where
+    ``features.conv2`` is present."""
+    state = {re.sub(r"(denselayer\d+\.(?:norm|conv))\.(\d)", r"\1\2", k): v
+             for k, v in state_dict.items()}
+    return _table_to_flax(state, _DENSENET_DEEP if "features.conv2.weight" in state
+                          else _DENSENET)
+
+
+def vgg_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """The convolutions of a torchvision/timm VGG state dict as the flat dict
+    of ``models/cnn.VGG``: the 4-D ``features.<i>.weight`` are ``conv<r>``
+    by rank r, and a ``_bn`` name's BatchNorm after conv r is ``bn<r>``.
+    The classifier is left out (the port pools globally, so timm's 7x7
+    flatten has no counterpart): the model keeps its own head."""
+    arrays = {k: _numpy(v).astype(np.float32) for k, v in state_dict.items()}
+    conv_ids = sorted(int(m[1]) for k, v in arrays.items()
+                      if (m := re.fullmatch(r"features\.(\d+)\.weight", k)) and v.ndim == 4)
+    rank = {fid: i for i, fid in enumerate(conv_ids)}
+    flat: Dict[str, np.ndarray] = {}
+    for name, v in arrays.items():
+        m = re.fullmatch(r"features\.(\d+)\.(weight|bias|running_mean|running_var)", name)
+        if not m:
+            continue
+        idx, leaf = int(m[1]), m[2]
+        if idx in rank and (leaf == "bias" or (leaf == "weight" and v.ndim == 4)):
+            flat[f"params/conv{rank[idx]}/{'kernel' if leaf == 'weight' else 'bias'}"] = (
+                _conv(v) if leaf == "weight" else v)
+        else:
+            flax_leaf, _ = _LEAVES["bn"][leaf]
+            collection = "batch_stats" if flax_leaf in _STATS else "params"
+            before = rank[max(c for c in conv_ids if c < idx)]
+            flat[f"{collection}/bn{before}/{flax_leaf}"] = v
+    return flat
+
+
+# timm's ResNet constructor (``timm_resnet_state_dict_to_flax`` :3214), onto
+# ``models/resnet_timm.TimmResNet``; ``downsample.conv`` and
+# ``downsample.bn`` stand for the downsample's indices (below).
+_TIMM_RESNET = (
+    (r"fc", "fc", "linear"),
+    (r"conv1", "conv1", "conv"),
+    (r"conv1\.([036])", lambda i: f"conv1_{'036'.index(i)}", "conv"),
+    (r"conv1\.([14])", lambda i: f"bn1_{'14'.index(i)}", "bn"),
+    (r"bn1", "bn1", "bn"),
+    (r"maxpool\.0", "stempool_conv", "conv"),
+    (r"maxpool\.1", "stempool_bn", "bn"),
+    (_LAYER + r"conv(\d)", "layer{}_{}/conv{}", "conv"),
+    (_LAYER + r"bn(\d)", "layer{}_{}/bn{}", "bn"),
+    (_LAYER + r"se\.(fc\d)", "layer{}_{}/se/{}", "conv"),
+    (_LAYER + r"se\.conv", "layer{}_{}/se/conv", "conv1d"),
+    (_LAYER + r"downsample\.conv", "layer{}_{}/downsample/downsample_conv", "conv"),
+    (_LAYER + r"downsample\.bn", "layer{}_{}/downsample/downsample_bn", "bn"),
+)
+
+
+def timm_resnet_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """Any timm ResNet-family state dict (``resnet.py`` and
+    ``gluon_resnet.py`` layouts) as the flat dict of
+    ``models/resnet_timm.TimmResNet``. A block's downsample is a conv and a
+    BatchNorm (``downsample.0``, ``.1``) or an average pool, a conv and a
+    BatchNorm (``.1``, ``.2``): the index whose weight is 4-D is the conv,
+    the other the BatchNorm."""
+    conv_at = {m[1]: m[2] for k, v in state_dict.items()
+               if (m := re.fullmatch(r"(layer\d+\.\d+\.downsample)\.(\d)\.weight", k))
+               and _numpy(v).ndim == 4}
+    state = {}
+    for name, value in state_dict.items():
+        m = re.fullmatch(r"(layer\d+\.\d+\.downsample)\.(\d)\.(.+)", name)
+        if m:
+            name = f"{m[1]}.{'conv' if conv_at.get(m[1]) == m[2] else 'bn'}.{m[3]}"
+        state[name] = value
+    return _table_to_flax(state, _TIMM_RESNET)
 
 
 def bit_npz_to_torch_names(weights: Mapping[str, np.ndarray], prefix: str = "resnet/"
@@ -464,12 +623,15 @@ def flax_params_to_torch_state_dict(flat: Mapping[str, np.ndarray],
 
 
 def _check_standalone(name: str, flat: Mapping[str, np.ndarray]) -> None:
-    """Raise unless ``flat`` holds every parameter of the registry's model
-    ``name`` in its shape, at the class count of its head and, for PiT, the
-    input size its position embedding's grid gives."""
+    """Raise unless ``flat`` holds every parameter (and BatchNorm statistic)
+    of the registry's model ``name`` in its shape, at the class count of its
+    head and, for PiT, the input size its position embedding's grid gives.
+    A VGG's classifier is not converted (``vgg_state_dict_to_flax``)."""
     from acr_wsss_tpu_torch.models.registry import create_model
 
-    kwargs = {"num_classes": len(flat["params/head/bias"])}
+    head = next((h for h in ("head", "fc", "classifier", "fc3") if f"params/{h}/bias" in flat),
+                None)
+    kwargs = {} if head is None else {"num_classes": len(flat[f"params/{head}/bias"])}
     with torch.device("meta"):
         model = create_model(name, **kwargs)
         pos = flat.get("params/pos_embed")
@@ -478,7 +640,11 @@ def _check_standalone(name: str, flat: Mapping[str, np.ndarray]) -> None:
             kwargs["img_size"] = tuple((g - 1) * conv.stride[0] + conv.kernel_size[0]
                                        for g in pos.shape[1:3])
             model = create_model(name, **kwargs)
-    flax_to_state_dict(flat, model.state_dict())
+    reference = model.state_dict()
+    if name.startswith("vgg"):
+        reference = {k: v for k, v in reference.items()
+                     if not k.startswith(("fc1.", "fc2.", "fc3."))}
+    flax_to_state_dict(flat, reference)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -494,7 +660,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--backbone", default="vitb_hybrid",
                         help="an ACR backbone (vitb_hybrid, vit_small, ...), or a name of "
                              "the registry: swin_*, pit_*, vit_*_224/384... (the ViT and DeiT "
-                             "classifiers), resnetv2_*_bitm")
+                             "classifiers), resnetv2_*_bitm, the ResNet, VGG and DenseNet "
+                             "families (resnet50, resnet50d, seresnext26d_32x4d, vgg16_bn, "
+                             "densenet121, ...)")
     parser.add_argument("--scan", action="store_true",
                         help="write JAX's stacked layout (trunk/blocks_scan/block/...)")
     args = parser.parse_args(argv)

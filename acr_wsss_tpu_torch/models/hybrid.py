@@ -19,7 +19,12 @@ and a Dense head; ``BiTResNetV2`` is BiT's pre-activation ResNetV2
 NHWC image and returns ``logits``, ``features`` (the last stage's map,
 after BiT's final norm) and ``taps`` (the stages' maps: "stage0".. for
 ``ResNetV2``, 0.. for BiT), maps in NCHW, PyTorch's layout.
-``TimmResNetStem`` (``:298``) waits for ``models/resnet_timm.py``.
+``TimmResNetStem`` (``:298-316``) is the ResNet-D trunk of
+``models/resnet_timm.py`` (resnet26d or resnet50d, the deep stem and
+average-pool downsampling) under the four ViT hybrids on it: its stage
+``out_index`` is the map the patch embedding reads; its BatchNorms keep
+their running statistics in training too, as JAX calls that trunk with
+``train=False``.
 
 Module names follow the flax ones so the converter maps paths one to one.
 """
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 
 from acr_wsss_tpu_torch.models.layers import GroupNormAct, WSConv, max_pool_same
 from acr_wsss_tpu_torch.models.registry import register_model
+from acr_wsss_tpu_torch.models.resnet_timm import TimmResNet
 
 
 class Bottleneck(nn.Module):
@@ -255,3 +261,28 @@ for _n, (_l, _wf) in _BITM_CFGS.items():
 for _n, (_l, _wf) in {**_BITM_CFGS, "resnetv2_50x1_bitm": ((3, 4, 6, 3), 1),
                       "resnetv2_101x1_bitm": ((3, 4, 23, 3), 1)}.items():
     _register_bitm(f"{_n}_in21k", _l, _wf, num_classes=21843)
+
+
+class TimmResNetStem(nn.Module):
+    """NCHW image -> (stage ``out_index`` of resnet26d or resnet50d, {}):
+    3 the stride-32 last stage, 2 the stride-16 third. The whole trunk is
+    held (its later stages and head too, as in JAX's parameters); the
+    forward stops at the tap."""
+
+    def __init__(self, variant: str = "resnet26d", out_index: int = 3,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        layers = (2, 2, 2, 2) if variant == "resnet26d" else (3, 4, 6, 3)
+        self.backbone = TimmResNet(layers=layers, stem_width=32, stem_type="deep",
+                                   avg_down=True, dtype=dtype)
+        self.backbone.train(False)
+        self.out_index = out_index
+        self.num_features = self.backbone.stage_chs[out_index]
+
+    def train(self, mode: bool = True) -> "TimmResNetStem":
+        super().train(mode)
+        self.backbone.train(False)
+        return self
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return self.backbone.stages(x, self.out_index)[self.out_index], {}

@@ -3,6 +3,17 @@
 Convolutions run in NCHW, PyTorch's habit; the public model entry takes the
 JAX package's NHWC image and transposes once. Parameters are float32; each
 layer casts to the caller's compute dtype as the flax modules do.
+
+``BatchNorm`` is flax's ``nn.BatchNorm`` as the CNN families configure it
+(``acr_wsss_tpu/models/cnn.py:32-61``, ``resnet_timm.py:37-40``), not
+PyTorch's: statistics in float32 and a float32 output; in training the
+batch's mean and its *biased* variance (flax's E[x^2] - E[x]^2, clipped at
+0) normalize, and the running statistics move as ``r = 0.9 r + 0.1 batch``
+(flax's momentum 0.9; PyTorch's ``BatchNorm2d`` keeps the unbiased
+variance, n / (n - 1) larger). In eval mode the running statistics
+normalize. The buffers are ``mean`` and ``var``, flax's ``batch_stats``
+names. flax's ``axis_name`` (the statistics averaged over a mesh axis,
+SyncBatchNorm's counterpart) is not ported: ``check_bn_axis_name``.
 """
 
 from __future__ import annotations
@@ -116,3 +127,70 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
     y = F.interpolate(y, size=tuple(size), mode="bilinear",
                       align_corners=align_corners, antialias=False)
     return y.permute(0, 2, 3, 1).reshape(*lead, *size, c)
+
+
+def check_bn_axis_name(bn_axis_name: Optional[str]) -> None:
+    """Raise on a named BatchNorm axis: the batch statistics averaged across
+    devices (flax ``axis_name``, SyncBatchNorm) are not ported; None is the
+    one-device behaviour."""
+    if bn_axis_name is not None:
+        raise NotImplementedError(
+            f"bn_axis_name={bn_axis_name!r}: statistics averaged over a mesh axis "
+            "(SyncBatchNorm) are not ported; leave it None for per-device statistics")
+
+
+# flax's BatchNorm momentum (the running average keeps 0.9 of itself) and
+# epsilon, which every ported CNN family uses.
+BN_MOMENTUM, BN_EPS = 0.9, 1e-5
+
+
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm(momentum=BN_MOMENTUM, epsilon=BN_EPS,
+    dtype=float32)`` over the channel axis 1 (the module docstring);
+    ``training`` picks batch or running statistics, as flax's
+    ``use_running_average=not train``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            axes = [0] + list(range(2, x.dim()))
+            mean = x.mean(dim=axes)
+            var = (x.square().mean(dim=axes) - mean.square()).clamp_min(0.0)
+            with torch.no_grad():
+                self.mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1 - BN_MOMENTUM)
+                self.var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1 - BN_MOMENTUM)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
+def conv2d(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """``layer`` (its stride, padding and groups) in ``dtype``, input and
+    weight cast to it: a flax Conv with that dtype."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias, layer.stride, layer.padding,
+                    layer.dilation, layer.groups)
+
+
+def classifier_head(x: torch.Tensor, fc: nn.Linear) -> torch.Tensor:
+    """Global average pool in float32 and a float32 Dense (``layers.py:220``),
+    the head every CNN family shares."""
+    return fc(x.float().mean(dim=(2, 3)))
+
+
+def make_divisible(v: float, divisor: int = 8, min_value: Optional[int] = None) -> int:
+    """timm's channel rounding (``acr_wsss_tpu/models/effnet_builder.py:42``)."""
+    min_value = min_value or divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v

@@ -19,14 +19,17 @@ JAX returns ``(model, variables)``. ``features_only`` wraps the model in
 ``models/features.FeatureExtractor`` (``out_indices``, ``feature_cls``
 "list" or "dict", ``out_map``); the weights load into the wrapped model.
 ``scriptable``, ``exportable`` and ``no_jit`` are accepted and ignored, as
-in JAX. The ``hf_hub:`` source and the four ViT names on a ResNet-D stem
-(``models/resnet_timm.py``) are not ported: they raise and say so.
+in JAX. The ``hf_hub:`` source is not ported: it raises and says so.
 
 The builders register when their modules are imported
 (``_load_builders``): ``vit_classifier`` and ``hybrid`` (the classifier
-zoo), ``swin`` and ``pit``. Each builder sets the JAX builder's defaults;
-the Swin and PiT ones also the input size the model is built for
-(``img_size``), which JAX takes from the input at init.
+zoo), ``swin`` and ``pit``, ``cnn`` and ``resnet_timm`` (the ResNet, VGG
+and DenseNet families) and ``acr`` (the ``acr_*`` names): 197 of JAX's
+522 names. Each builder sets the JAX builder's defaults; the Swin and PiT
+ones also the input size the model is built for (``img_size``), which JAX
+takes from the input at init. A model is returned in PyTorch's training
+mode, as ``nn.Module`` makes it: call ``eval()`` for the running
+BatchNorm statistics JAX's ``train=False`` uses.
 """
 
 from __future__ import annotations
@@ -43,11 +46,6 @@ _MODELS: Dict[str, Callable[..., nn.Module]] = {}
 _MODULE_TO_MODELS: Dict[str, Set[str]] = defaultdict(set)
 _MODEL_TO_MODULE: Dict[str, str] = {}
 
-# Registered in JAX, waiting here for the family they need.
-UNPORTED = {name: "the ResNet-D stem of models/resnet_timm.py (not yet ported)"
-            for name in ("vit_small_resnet26d_224", "vit_small_resnet50d_s16_224",
-                         "vit_base_resnet26d_224", "vit_base_resnet50d_224")}
-
 
 def register_model(fn: Callable[..., nn.Module]) -> Callable[..., nn.Module]:
     """Register ``fn`` under its ``__name__`` and its module's last name; a
@@ -63,8 +61,8 @@ def register_model(fn: Callable[..., nn.Module]) -> Callable[..., nn.Module]:
 
 
 def _load_builders() -> None:
-    from acr_wsss_tpu_torch.models import (hybrid, pit, swin,  # noqa: F401  (they register)
-                                           vit_classifier)
+    from acr_wsss_tpu_torch.models import (acr, cnn, hybrid, pit,  # noqa: F401  (they register)
+                                           resnet_timm, swin, vit_classifier)
 
 
 def is_model(name: str) -> bool:
@@ -74,10 +72,8 @@ def is_model(name: str) -> bool:
 
 def model_entrypoint(name: str) -> Callable[..., nn.Module]:
     """The builder of ``name``; an unknown name raises and names the known
-    ones, a name waiting for its family says which."""
+    ones."""
     _load_builders()
-    if name in UNPORTED:
-        raise NotImplementedError(f"model {name!r} needs {UNPORTED[name]}")
     try:
         return _MODELS[name]
     except KeyError:

@@ -13,13 +13,17 @@ the final norm -> the cls token -> the optional tanh ``pre_logits``
 Hybrids: ``hybrid`` puts the R50 stem (``ResNetV2Stem``, (3, 4, 9)) under
 the trunk; ``stem_layers`` any other plan (channels ``stem_channels`` or
 the first of 256, 512, 1024, 2048), ``()`` the bare stem, with a
-``hybrid_patch_size`` patchify over the stem's map. ``patch_size`` is the
-total stride, the grid's divisor.
+``hybrid_patch_size`` patchify over the stem's map; ``stem_variant`` a
+ResNet-D stem (``hybrid.TimmResNetStem``, ``:56-72``): "resnet26d" and
+"resnet50d" tap the last stage, "resnet50d_s16" the third. ``patch_size``
+is the total stride, the grid's divisor.
 
 The forward takes an NHWC image and returns ``logits``, ``features`` (the
 tokens before the final norm), ``taps`` ({0: the final-norm tokens,
-float32}) and ``grid``. The registry holds 37 of JAX's 41 names; the four
-on a ResNet-D stem wait for ``models/resnet_timm.py`` (``registry.UNPORTED``).
+float32}) and ``grid``. The registry holds all 41 of JAX's names; the two
+``vit_small_resnet*`` names are 768 wide with 8 heads (head dim 96). A
+fine-tuning step runs the forward and backward kernels at every head dim
+they take (16-128).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from acr_wsss_tpu_torch.models.hybrid import ResNetV2Stem
+from acr_wsss_tpu_torch.models.hybrid import ResNetV2Stem, TimmResNetStem
 from acr_wsss_tpu_torch.models.registry import register_model
 from acr_wsss_tpu_torch.models.vit import VisionTransformer
 
@@ -40,11 +44,15 @@ class ViTClassifier(nn.Module):
                  patch_size: int = 16, pretrain_grid: int = 14, distilled: bool = False,
                  representation_size: Optional[int] = None, hybrid: bool = False,
                  stem_layers: Optional[Sequence[int]] = None,
-                 stem_channels: Optional[Sequence[int]] = None, hybrid_patch_size: int = 1,
-                 dtype: torch.dtype = torch.bfloat16, attn_impl: str = "kernel"):
+                 stem_channels: Optional[Sequence[int]] = None, stem_variant: str = "",
+                 hybrid_patch_size: int = 1, dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "kernel"):
         super().__init__()
         backbone = None
-        if stem_layers is not None:
+        if stem_variant:
+            backbone = TimmResNetStem("resnet26d" if stem_variant == "resnet26d" else "resnet50d",
+                                      2 if stem_variant == "resnet50d_s16" else 3, dtype)
+        elif stem_layers is not None:
             backbone = ResNetV2Stem(stem_layers, stem_channels
                                     or (256, 512, 1024, 2048)[:len(stem_layers)])
         elif hybrid:
@@ -167,3 +175,12 @@ _vit("vit_base_r50_s16_224", hybrid=True, patch_size=16, pretrain_grid=14, embed
 # 768 wide with 12 heads, as timm defines it.
 _vit("vit_large_r50_s32_224", stem_layers=(3, 4, 6, 3), patch_size=32, pretrain_grid=7,
      embed_dim=768, depth=12, num_heads=12)
+# ResNet-D stems (``:272-316``; no pretrained weights upstream).
+_vit("vit_small_resnet26d_224", embed_dim=768, depth=8, num_heads=8, mlp_ratio=3.0,
+     stem_variant="resnet26d", patch_size=32, pretrain_grid=7)
+_vit("vit_small_resnet50d_s16_224", embed_dim=768, depth=8, num_heads=8, mlp_ratio=3.0,
+     stem_variant="resnet50d_s16", patch_size=16, pretrain_grid=14)
+_vit("vit_base_resnet26d_224", embed_dim=768, depth=12, num_heads=12,
+     stem_variant="resnet26d", patch_size=32, pretrain_grid=7)
+_vit("vit_base_resnet50d_224", embed_dim=768, depth=12, num_heads=12,
+     stem_variant="resnet50d", patch_size=32, pretrain_grid=7)

@@ -5,8 +5,10 @@ names need.
 ``ZOO_URLS`` holds JAX's upstream checkpoint URL (``:36``) of every name
 of the port's registry that has one. ``fetch`` (``:586``) converts a
 checkpoint into the zoo npz ``<ACR_WSSS_ZOO>/<name>_in21k.npz`` through
-``convert_state_dict`` (``:648``: the Swin, PiT, ViT/DeiT and BiT mappers
-of ``models/convert.py``), in JAX's cache layout: the upstream file sits
+``convert_state_dict`` (``:648``: the Swin, PiT, ViT/DeiT, BiT and CNN
+mappers of ``models/convert.py``, in JAX's order; JAX's routing has no
+rule for the two pruned ECA-ResNets, so neither has the port's), in JAX's
+cache layout: the upstream file sits
 beside it under its own basename. The port downloads nothing: ``fetch``
 reads a ``file://`` URL, or the upstream file already in the zoo
 directory, so a directory that mirrors the upstream files serves
@@ -38,11 +40,15 @@ import torch
 import torch.nn as nn
 
 from acr_wsss_tpu_torch.models.acr import init_random_
-from acr_wsss_tpu_torch.models.convert import (bit_npz_to_torch_names, flax_to_state_dict,
+from acr_wsss_tpu_torch.models.convert import (bit_npz_to_torch_names,
+                                               densenet_state_dict_to_flax, flax_to_state_dict,
                                                pit_state_dict_to_flax,
+                                               resnet_state_dict_to_flax,
                                                resnetv2_bit_state_dict_to_flax,
                                                scanned_to_unrolled, state_dict_to_flax,
                                                swin_state_dict_to_flax,
+                                               timm_resnet_state_dict_to_flax,
+                                               vgg_state_dict_to_flax,
                                                vit_timm_state_dict_to_flax)
 from acr_wsss_tpu_torch.utils.checkpoint import load_params_npz, save_params_npz
 
@@ -173,6 +179,195 @@ ZOO_URLS: Dict[str, str] = {
         "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-vitjx/jx_vit_large_p32_384-9b920ba8.pth",
     "vit_small_patch16_224":
         "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/vit_small_p16_224-15ec54c9.pth",
+    # the CNN families (models/cnn.py, models/resnet_timm.py)
+    "densenet121":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/densenet121_ra-50efcf5c.pth",
+    "densenet161":
+        "https://download.pytorch.org/models/densenet161-8d451a50.pth",
+    "densenet169":
+        "https://download.pytorch.org/models/densenet169-b2777c0a.pth",
+    "densenet201":
+        "https://download.pytorch.org/models/densenet201-c1103571.pth",
+    "densenetblur121d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/densenetblur121d_ra-100dcfbc.pth",
+    "ecaresnet101d":
+        "https://imvl-automl-sh.oss-cn-shanghai.aliyuncs.com/darts/hyperml/hyperml/job_45402/outputs/ECAResNet101D_281c5844.pth",
+    "ecaresnet101d_pruned":
+        "https://imvl-automl-sh.oss-cn-shanghai.aliyuncs.com/darts/hyperml/hyperml/job_45610/outputs/ECAResNet101D_P_75a3370e.pth",
+    "ecaresnet269d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/ecaresnet269d_320_ra2-7baa55cb.pth",
+    "ecaresnet26t":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/ecaresnet26t_ra2-46609757.pth",
+    "ecaresnet50d":
+        "https://imvl-automl-sh.oss-cn-shanghai.aliyuncs.com/darts/hyperml/hyperml/job_45402/outputs/ECAResNet50D_833caf58.pth",
+    "ecaresnet50d_pruned":
+        "https://imvl-automl-sh.oss-cn-shanghai.aliyuncs.com/darts/hyperml/hyperml/job_45899/outputs/ECAResNet50D_P_9c67f710.pth",
+    "ecaresnet50t":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/ecaresnet50t_ra2-f7ac63c4.pth",
+    "ecaresnetlight":
+        "https://imvl-automl-sh.oss-cn-shanghai.aliyuncs.com/darts/hyperml/hyperml/job_45402/outputs/ECAResNetLight_4f34b35b.pth",
+    "gluon_resnet101_v1b":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet101_v1b-3b017079.pth",
+    "gluon_resnet101_v1c":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet101_v1c-1f26822a.pth",
+    "gluon_resnet101_v1d":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet101_v1d-0f9c8644.pth",
+    "gluon_resnet101_v1s":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet101_v1s-60fe0cc1.pth",
+    "gluon_resnet152_v1b":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet152_v1b-c1edb0dd.pth",
+    "gluon_resnet152_v1c":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet152_v1c-a3bb0b98.pth",
+    "gluon_resnet152_v1d":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet152_v1d-bd354e12.pth",
+    "gluon_resnet152_v1s":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet152_v1s-dcc41b81.pth",
+    "gluon_resnet18_v1b":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet18_v1b-0757602b.pth",
+    "gluon_resnet34_v1b":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet34_v1b-c6d82d59.pth",
+    "gluon_resnet50_v1b":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet50_v1b-0ebe02e2.pth",
+    "gluon_resnet50_v1c":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet50_v1c-48092f55.pth",
+    "gluon_resnet50_v1s":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnet50_v1s-1762acc0.pth",
+    "gluon_resnext101_32x4d":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnext101_32x4d-b253c8c4.pth",
+    "gluon_resnext101_64x4d":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnext101_64x4d-f9a8e184.pth",
+    "gluon_resnext50_32x4d":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_resnext50_32x4d-e6a097c1.pth",
+    "gluon_senet154":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_senet154-70a1a3c0.pth",
+    "gluon_seresnext101_32x4d":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_seresnext101_32x4d-cf52900d.pth",
+    "gluon_seresnext101_64x4d":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_seresnext101_64x4d-f9926f93.pth",
+    "gluon_seresnext50_32x4d":
+        "https://github.com/rwightman/pytorch-pretrained-gluonresnet/releases/download/v0.1/gluon_seresnext50_32x4d-90cf2d6e.pth",
+    "ig_resnext101_32x16d":
+        "https://download.pytorch.org/models/ig_resnext101_32x16-c6f796b0.pth",
+    "ig_resnext101_32x32d":
+        "https://download.pytorch.org/models/ig_resnext101_32x32-e4b90b00.pth",
+    "ig_resnext101_32x48d":
+        "https://download.pytorch.org/models/ig_resnext101_32x48-3e41cc8a.pth",
+    "ig_resnext101_32x8d":
+        "https://download.pytorch.org/models/ig_resnext101_32x8-c38310e5.pth",
+    "resnet101":
+        "https://download.pytorch.org/models/resnet101-5d3b4d8f.pth",
+    "resnet101d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnet101d_ra2-2803ffab.pth",
+    "resnet152":
+        "https://download.pytorch.org/models/resnet152-b121ed2d.pth",
+    "resnet152d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnet152d_ra2-5cac0439.pth",
+    "resnet18":
+        "https://download.pytorch.org/models/resnet18-5c106cde.pth",
+    "resnet18d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnet18d_ra2-48a79e06.pth",
+    "resnet200d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnet200d_ra2-bdba9bf9.pth",
+    "resnet26":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnet26-9aa10e23.pth",
+    "resnet26d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnet26d-69e92c46.pth",
+    "resnet34":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnet34-43635321.pth",
+    "resnet34d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnet34d_ra2-f8dcfcaf.pth",
+    "resnet50":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnet50_ram-a26f946b.pth",
+    "resnet50d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnet50d_ra2-464e36ba.pth",
+    "resnetblur50":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnetblur50-84f4748f.pth",
+    "resnetrs101":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-rs-weights/resnetrs101_i192_ema-1509bbf6.pth",
+    "resnetrs152":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-rs-weights/resnetrs152_i256_ema-a9aff7f9.pth",
+    "resnetrs200":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-rs-weights/resnetrs200_ema-623d2f59.pth",
+    "resnetrs270":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-rs-weights/resnetrs270_ema-b40e674c.pth",
+    "resnetrs350":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-rs-weights/resnetrs350_i256_ema-5a1aa8f1.pth",
+    "resnetrs420":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-rs-weights/resnetrs420_ema-972dee69.pth",
+    "resnetrs50":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-rs-weights/resnetrs50_ema-6b53758b.pth",
+    "resnext101_32x8d":
+        "https://download.pytorch.org/models/resnext101_32x8d-8ba56ff5.pth",
+    "resnext50_32x4d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnext50_32x4d_ra-d733960d.pth",
+    "resnext50d_32x4d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/resnext50d_32x4d-103e99f8.pth",
+    "seresnet152d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/seresnet152d_ra2-04464dd2.pth",
+    "seresnext26d_32x4d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/seresnext26d_32x4d-80fa48a3.pth",
+    "seresnext26t_32x4d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/seresnext26tn_32x4d-569cb627.pth",
+    "seresnext26tn_32x4d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/seresnext26tn_32x4d-569cb627.pth",
+    "seresnext50_32x4d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/seresnext50_32x4d_racm-a304a460.pth",
+    "ssl_resnet18":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_supervised_resnet18-d92f0530.pth",
+    "ssl_resnet50":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_supervised_resnet50-08389792.pth",
+    "ssl_resnext101_32x16d":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_supervised_resnext101_32x16-15fffa57.pth",
+    "ssl_resnext101_32x4d":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_supervised_resnext101_32x4-dc43570a.pth",
+    "ssl_resnext101_32x8d":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_supervised_resnext101_32x8-2cfe2f8b.pth",
+    "ssl_resnext50_32x4d":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_supervised_resnext50_32x4-ddb3e555.pth",
+    "swsl_resnet18":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_weakly_supervised_resnet18-118f1556.pth",
+    "swsl_resnet50":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_weakly_supervised_resnet50-16a12f1b.pth",
+    "swsl_resnext101_32x16d":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_weakly_supervised_resnext101_32x16-f3559a9c.pth",
+    "swsl_resnext101_32x4d":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_weakly_supervised_resnext101_32x4-3f87e46b.pth",
+    "swsl_resnext101_32x8d":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_weakly_supervised_resnext101_32x8-b4712904.pth",
+    "swsl_resnext50_32x4d":
+        "https://dl.fbaipublicfiles.com/semiweaksupervision/model_files/semi_weakly_supervised_resnext50_32x4-72679e44.pth",
+    "tv_densenet121":
+        "https://download.pytorch.org/models/densenet121-a639ec97.pth",
+    "tv_resnet101":
+        "https://download.pytorch.org/models/resnet101-5d3b4d8f.pth",
+    "tv_resnet152":
+        "https://download.pytorch.org/models/resnet152-b121ed2d.pth",
+    "tv_resnet34":
+        "https://download.pytorch.org/models/resnet34-333f7ec4.pth",
+    "tv_resnet50":
+        "https://download.pytorch.org/models/resnet50-19c8e357.pth",
+    "tv_resnext50_32x4d":
+        "https://download.pytorch.org/models/resnext50_32x4d-7cdf4587.pth",
+    "vgg11":
+        "https://download.pytorch.org/models/vgg11-bbd30ac9.pth",
+    "vgg11_bn":
+        "https://download.pytorch.org/models/vgg11_bn-6002323d.pth",
+    "vgg13":
+        "https://download.pytorch.org/models/vgg13-c768596a.pth",
+    "vgg13_bn":
+        "https://download.pytorch.org/models/vgg13_bn-abd245e5.pth",
+    "vgg16":
+        "https://download.pytorch.org/models/vgg16-397923af.pth",
+    "vgg16_bn":
+        "https://download.pytorch.org/models/vgg16_bn-6c64b313.pth",
+    "vgg19":
+        "https://download.pytorch.org/models/vgg19-dcbb9e9d.pth",
+    "vgg19_bn":
+        "https://download.pytorch.org/models/vgg19_bn-c79401a0.pth",
+    "wide_resnet101_2":
+        "https://download.pytorch.org/models/wide_resnet101_2-32ee1156.pth",
+    "wide_resnet50_2":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/wide_resnet50_racm-8234f177.pth",
 }
 
 
@@ -187,7 +382,14 @@ def npz_path(backbone: str, directory: Optional[str] = None) -> str:
 
 def convert_state_dict(backbone: str, state: Mapping[str, object]) -> Dict[str, np.ndarray]:
     """A timm state dict of the registry name ``backbone`` as its flat flax
-    dict, by the mapper of its family: Swin, PiT, ViT/DeiT, BiT."""
+    dict, by the mapper of its family, in JAX's order (``zoo.py:648-800``):
+    the timm ResNet constructor's names first (so that resnet50d does not
+    fall to the torchvision layout), then Swin, PiT, ViT/DeiT, BiT, the
+    torchvision ResNets and their aliases, VGG, DenseNet."""
+    from acr_wsss_tpu_torch.models.resnet_timm import _TIMM_RESNET_CFGS
+
+    if backbone in _TIMM_RESNET_CFGS:
+        return timm_resnet_state_dict_to_flax(state)
     if backbone.startswith("swin"):
         return swin_state_dict_to_flax(state)
     if backbone.startswith("pit"):
@@ -196,9 +398,17 @@ def convert_state_dict(backbone: str, state: Mapping[str, object]) -> Dict[str, 
         return vit_timm_state_dict_to_flax(state)
     if backbone.startswith("resnetv2") and "_bitm" in backbone:
         return resnetv2_bit_state_dict_to_flax(state)
+    if backbone.startswith(("resnet", "resnext", "wide_resnet", "tv_resnet", "tv_resnext",
+                            "ssl_resne", "swsl_resne", "ig_resnext")) \
+            and not backbone.startswith("resnetv2"):
+        return resnet_state_dict_to_flax(state)
+    if backbone.startswith("vgg"):
+        return vgg_state_dict_to_flax(state)
+    if backbone.startswith(("densenet", "tv_densenet")):
+        return densenet_state_dict_to_flax(state)
     raise ValueError(f"no timm checkpoint mapper for {backbone!r} in the port: it maps the "
-                     "swin_*, pit_*, vit_* and resnetv2_*_bitm names (resnetv2_50 and "
-                     "resnetv2_101 load from a flat flax .npz)")
+                     "swin_*, pit_*, vit_*, resnetv2_*_bitm names and the CNN families "
+                     "(resnetv2_50 and resnetv2_101 load from a flat flax .npz)")
 
 
 def _validate_checkpoint_file(path: str) -> None:

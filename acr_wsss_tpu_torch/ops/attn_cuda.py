@@ -48,12 +48,13 @@ from acr_wsss_tpu_torch.ops.attention import attention_with_probs
 
 KERNEL = "attn_fwd_headmean"
 BWD_KERNEL = "attn_bwd"
-# Head dims of the forward kernel (K1f, K1n and the K5 forwards): every
-# multiple of 16 up to 128, held as zero-filled tiles of 64 columns
-# (``csrc/attn_tiles.cuh``). The backward kernels (K1b, the K5 backwards)
-# and the pair kernels (K2f, K2b: ``ops/attn_pair.py``) take 64 only.
+# Head dims of the forward and backward kernels (K1f, K1n, K1b and the K5
+# forwards and backwards): every multiple of 16 up to 128, held as
+# zero-filled tiles of 64 columns (``csrc/attn_tiles.cuh``). The pair
+# kernels (K2f, K2b: ``ops/attn_pair.py``) take 64 only: every ACR backbone
+# is at head dim 64, so no path trains the pair at another.
 FWD_HEAD_DIMS = tuple(range(16, 129, 16))
-BWD_HEAD_DIM = 64
+PAIR_HEAD_DIM = 64
 # dtype codes of the C interfaces: 0 is "none" (a null pointer).
 DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
 
@@ -273,7 +274,7 @@ def bwd_launch(qkv: torch.Tensor, launch) -> torch.Tensor:
     entry's backward)."""
     B, N, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
-    bwd_call(qkv.device, B, N, qkv.shape[-1] // (3 * BWD_HEAD_DIM),
+    bwd_call(qkv.device, B, N, qkv.shape[-1] // (3 * PAIR_HEAD_DIM),
              lambda lib, stats, stream: launch(lib, dqkv, stats, stream))
     return dqkv
 
@@ -299,7 +300,7 @@ def backward(layout: str, inputs: Sequence[torch.Tensor], g: torch.Tensor,
     if all(t.device.type == "cpu" for t in inputs):
         return backward_plain(layout, inputs, g, de, scale, num_heads)
     q, k, v = _split(layout, inputs, num_heads)
-    check_operands((q, k, v), (BWD_HEAD_DIM,))
+    check_operands((q, k, v))
     B, N, H, D = q.shape
     out_shape = _from_bnhd(layout, q).shape
     if tuple(g.shape) != tuple(out_shape) or g.device != q.device \
@@ -355,16 +356,10 @@ class _Attention(torch.autograd.Function):
 def _apply(name: str, inputs: Sequence[torch.Tensor], scale: float, num_heads: Optional[int],
            export: str, probs_dtype: torch.dtype):
     """The forward alone where no gradient is asked for; else the forward
-    and its backward, which on the card refuses, before the forward runs, a
-    head dim the backward kernels do not take (``BWD_HEAD_DIM``)."""
+    and its backward."""
     layout, entry = ENTRIES[name][:2]
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
         return forward(layout, inputs, scale, num_heads, export, probs_dtype, entry)
-    head_dim = _split(layout, inputs, num_heads)[0].shape[-1]
-    if inputs[0].device.type != "cpu" and head_dim != BWD_HEAD_DIM:
-        raise ValueError(f"the backward kernels take head dim {BWD_HEAD_DIM}, got {head_dim}: "
-                         "at this head dim the kernel path is inference-only; run it under "
-                         "torch.no_grad(), or train with attn_impl='plain'")
     return _Attention.apply(name, scale, num_heads, export, probs_dtype, *inputs)
 
 
@@ -373,8 +368,7 @@ def _apply(name: str, inputs: Sequence[torch.Tensor], scale: float, num_heads: O
 def check_qkv(qkv: torch.Tensor, num_heads: int, head_dims=FWD_HEAD_DIMS) -> None:
     """Raise on what the column-view kernels (K1, K2) do not take: a (B, N,
     3*H*D) bf16 CUDA tensor, contiguous, 16-byte aligned, head dim in
-    ``head_dims`` (K1's forward: ``FWD_HEAD_DIMS``; the backward and K2:
-    64)."""
+    ``head_dims`` (K1: ``FWD_HEAD_DIMS``; K2: 64)."""
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv must be (B, N, 3*H*D) with H={num_heads}, "
                          f"got {tuple(qkv.shape)}")
@@ -429,7 +423,7 @@ def attention_qkv_cols_backward(qkv: torch.Tensor, g: torch.Tensor,
                                 num_heads: int) -> torch.Tensor:
     """K1b: dqkv from g (B, N, H*D) and de (B, N, N) fp32, bf16 or None."""
     if qkv.device.type != "cpu":
-        check_qkv(qkv, num_heads, (BWD_HEAD_DIM,))
+        check_qkv(qkv, num_heads)
     return backward("cols", (qkv,), g, de, scale, num_heads,
                     attention_qkv_cols_backward, "launches")[0]
 

@@ -27,7 +27,8 @@ recomputes p head by head in order, sums it per view and writes the sign
 tile and partial sums, and a kernel that adds each pair's partials in tile
 order: no token limit, and the same bits from two launches. Each wrapper
 takes its plain version for a CPU tensor; for a CUDA tensor it launches
-its kernel or raises, and counts the launch.
+its kernel or raises, and counts the launch. Both kernels take head dim
+64 (``PAIR_HEAD_DIM``), the head dim of every ACR backbone.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from acr_wsss_tpu_torch.ops import _build
-from acr_wsss_tpu_torch.ops.attn_cuda import (BWD_HEAD_DIM, attention_qkv_cols_backward_plain,
+from acr_wsss_tpu_torch.ops.attn_cuda import (PAIR_HEAD_DIM, attention_qkv_cols_backward_plain,
                                               attention_qkv_cols_plain, bwd_launch,
                                               check_cotangent, check_qkv)
 
@@ -135,7 +136,7 @@ def pair_consistency_forward(qkv: torch.Tensor, scale: float, num_heads: int
     _check_pairs(qkv, num_heads)
     if qkv.device.type == "cpu":
         return pair_consistency_forward_plain(qkv, scale, num_heads)
-    check_qkv(qkv, num_heads, (BWD_HEAD_DIM,))
+    check_qkv(qkv, num_heads, (PAIR_HEAD_DIM,))
     B, N, HD3 = qkv.shape
     pairs = B // 2
     lib = _library()
@@ -151,7 +152,7 @@ def pair_consistency_forward(qkv: torch.Tensor, scale: float, num_heads: int
         err = lib.attn_pair_fwd(
             qkv.data_ptr(), out.data_ptr(), sign.data_ptr(), stats.data_ptr(),
             partials.data_ptr(), cls_sums.data_ptr(), aff_sums.data_ptr(), B, N,
-            num_heads, BWD_HEAD_DIM, float(scale), torch.cuda.current_stream(dev).cuda_stream)
+            num_heads, PAIR_HEAD_DIM, float(scale), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"attn_pair_fwd launch failed: "
                            f"{lib.attn_pair_fwd_error_string(err).decode()}")
@@ -171,7 +172,7 @@ def pair_consistency_backward(qkv: torch.Tensor, g: torch.Tensor, sign: torch.Te
     if qkv.device.type == "cpu":
         return pair_consistency_backward_plain(qkv, g, sign, g_cls, g_aff, scale,
                                                num_heads)
-    check_qkv(qkv, num_heads, (BWD_HEAD_DIM,))
+    check_qkv(qkv, num_heads, (PAIR_HEAD_DIM,))
     g = check_cotangent(g, qkv)
     B, N, _ = qkv.shape
     pairs = B // 2
@@ -186,7 +187,7 @@ def pair_consistency_backward(qkv: torch.Tensor, g: torch.Tensor, sign: torch.Te
     dqkv = bwd_launch(qkv, lambda lib, dqkv, stats, stream: lib.attn_bwd_pair(
         qkv.data_ptr(), g.data_ptr(), sign.data_ptr(), g_cls.data_ptr(),
         g_aff.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, N, num_heads,
-        BWD_HEAD_DIM, float(scale), stream))
+        PAIR_HEAD_DIM, float(scale), stream))
     pair_consistency_backward.launches += 1
     return dqkv
 

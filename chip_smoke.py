@@ -165,7 +165,28 @@ package. Phases, each of which fails the run when it fails:
    ``features_only``'s maps against its ``feature_info``; (e)
    ``create_model(..., checkpoint_path=<timm .pth>)`` giving the logits of
    ``flax_to_state_dict`` on the same weights, to the bit; then K1n's and
-   K1f's times at the new head dims.
+   K1f's times at the new head dims;
+17. fine-tuning on the kernels: (a) K1b with a float32, a bf16 and no de,
+   and the K5a-c backwards, at head dims 16, 32, 48, 80, 96 and 128 (one
+   zero-filled 64-column tile up to 64, two above) against their plain
+   versions on phase 3's cases and at N = 197, H = 8, in phase 3's
+   gradient tolerances, K1b twice to the same bits; (b) one bf16 SGD step
+   of vit_small_resnet50d_s16_224 (head dim 96; 8 K1n and 8 K1b with no
+   de) and of pit_s_224 (head dim 48; 12 K1f and 12 K1b) at batch 8, crop
+   224, from trained-like weights, on the kernels against the plain path
+   in phase 7's step gates, launches counted, their blocks first through
+   phase 16's check, K1b on the (qkv, g) each block's backward got, equal
+   to the bit to the step's gradient and held to its plain version in
+   phase 3's tolerances, each path's step time; (c) the four ViT names on a
+   ResNet-D stem (``models/resnet_timm.py``) on K1n against the plain
+   path, timed; (d) resnet50's and ecaresnet26t's float32 train-mode step
+   (flax BatchNorm, TF32 off) on the card against the same step on the
+   CPU: logits and the running statistics within 1e-3, the parameter
+   updates within twice the spread the CPU's own other summation orders
+   (one thread; oneDNN off) make in the same run; (e) bf16
+   forwards of resnet50, resnet50d, seresnext26d_32x4d, densenet121 and
+   vgg16_bn (host clock); then K1b's and the K5 backwards' times at the
+   fine-tune shapes beside SDPA's forward and backward.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object with one entry per kernel; the last line is
@@ -493,6 +514,32 @@ CLS_CASES = (("vit_base_patch16_384", 384, None),
              ("vit_small_patch16_224", 224, None),
              ("vit_huge_patch14_224_in21k", 224, None))
 CLS_HEAD_DIMS = (32, 48, 80, 96)
+# Fine-tuning phase: (a) the backward kernels (K1b with a float32, a bf16
+# or no de; the K5 backwards) at these head dims against their plain
+# versions, on phase 3's cases and N = 197, H = 8, in phase 3's gradient
+# tolerances (the head dim changes how many products a sum holds, not its
+# roundings); (b) one bf16 SGD step of each FT_CASES name (name, forward
+# kernel, blocks) from trained-like weights, kernel path against plain
+# path, in phase 7's step gates (LOSS_RTOL, UPDATE_REL); (d) one float32
+# train-mode step (TF32 off) of each CNN_STEP_NAMES name on the card
+# against the same step on the CPU: cuDNN's and the CPU's sums in other
+# orders, CNN_REL of the largest |logit| and of each running statistic's
+# update (relative L2). The parameter updates are held to the spread that
+# other summation orders make on the CPU itself, measured in the same run
+# (one thread; oneDNN off, PyTorch's own convolutions): train-mode
+# BatchNorm's backward subtracts batch means that cancel, so those alone
+# move resnet50's whole update by 5.6e-3 and 2.3e-2, far above CNN_REL.
+# cuDNN is a third family of orders; CNN_SPREAD allows it twice the CPU's
+# larger reading (distances of independent orders add in quadrature, so
+# sqrt(2), rounded up), and never more than phase 7's UPDATE_REL.
+BWD_HEAD_DIMS = (16, 32, 48, 80, 96, 128)
+FT_BATCH, FT_CROP, FT_LR = 8, 224, 1e-2
+FT_CASES = (("vit_small_resnet50d_s16_224", "K1n", 8), ("pit_s_224", "K1f", 12))
+HYBRIDS = ("vit_small_resnet26d_224", "vit_small_resnet50d_s16_224", "vit_base_resnet26d_224",
+           "vit_base_resnet50d_224")
+CNN_STEP_NAMES, CNN_STEP_BATCH, CNN_STEP_CROP = ("resnet50", "ecaresnet26t"), 2, 128
+CNN_SPREAD = 2.0
+CNN_TIMED = ("resnet50", "resnet50d", "seresnext26d_32x4d", "densenet121", "vgg16_bn")
 KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL, pamr_ops.KERNEL)
 
 
@@ -3040,6 +3087,370 @@ def phase_classifiers(device, root, card) -> dict:
     return res
 
 
+def check_bwd_head_dims(device) -> dict:
+    """(a) K1b (float32, bf16 and no de) and the K5a-c backwards (float32
+    de) at each head dim of BWD_HEAD_DIMS against their plain versions:
+    phase 3's (B, N) cases at 12 heads and (8, 197) at 8; two launches at
+    the training shape, the same bits. Returns the largest error by
+    (kernel, head dim, de)."""
+    gen = torch.Generator(device=device).manual_seed(19)
+    errs = {}
+    cases = ((2 * TRAIN_BATCH, N_TOKENS, HEADS), (2, 37, HEADS), (2, 17, HEADS),
+             (2, 1025, HEADS), (FT_BATCH, 197, 8))
+    for d in BWD_HEAD_DIMS:
+        scale = d ** -0.5
+        for B, N, H in cases:
+            qkv = torch.randn((B, N, 3 * H * d), generator=gen, device=device).to(torch.bfloat16)
+            g = torch.randn((B, N, H * d), generator=gen, device=device).to(torch.bfloat16)
+            de32 = torch.randn((B, N, N), generator=gen, device=device)
+            worst = {}
+            for de in (de32, de32.to(torch.bfloat16), None):
+                kind = "none" if de is None else str(de.dtype)[6:]
+                got = attention_qkv_cols_backward(qkv, g, de, scale, H)
+                ref = attention_qkv_cols_backward_plain(qkv, g, de, scale, H)
+                torch.cuda.synchronize()
+                err, bad = max_err_and_bad(got, ref, GRAD_RTOL,
+                                           GRAD_ATOL_FRAC * ref.float().abs().max().item())
+                if bad:
+                    raise AssertionError(f"K1b at head dim {d}, B={B} N={N} H={H}, de {kind}: "
+                                         f"{bad} elements out of tolerance, max abs err {err:.3g}")
+                worst[kind] = err
+                errs[("K1b", d, kind)] = max(errs.get(("K1b", d, kind), 0.0), err)
+                if (B, N) == (2 * TRAIN_BATCH, N_TOKENS):
+                    if not torch.equal(got, attention_qkv_cols_backward(qkv, g, de, scale, H)):
+                        raise AssertionError(f"K1b at head dim {d}, de {kind}: two launches on "
+                                             "the same inputs differ")
+            for entry, layout in ENTRY_LAYOUTS.items():
+                xs = (list(qkv.unflatten(-1, (3, H, d)).permute(2, 0, 3, 1, 4))
+                      if entry == "K5a" else [t.contiguous() for t in qkv.chunk(3, dim=-1)]
+                      if entry == "K5b" else [qkv])
+                g_out = g.unflatten(-1, (H, d)).transpose(1, 2).contiguous() \
+                    if entry == "K5a" else g
+                heads = None if entry == "K5a" else H
+                grads = attn_backward(layout, xs, g_out, de32, scale, heads, ENTRIES[entry])
+                refs = backward_plain(layout, xs, g_out, de32, scale, heads)
+                torch.cuda.synchronize()
+                for got, ref in zip(grads, refs):
+                    err, bad = max_err_and_bad(got, ref, GRAD_RTOL,
+                                               GRAD_ATOL_FRAC * ref.float().abs().max().item())
+                    if bad:
+                        raise AssertionError(f"{entry} backward at head dim {d}, B={B} N={N}: "
+                                             f"{bad} elements out of tolerance, max abs err "
+                                             f"{err:.3g}")
+                    worst[entry] = max(worst.get(entry, 0.0), err)
+                    errs[(entry, d, "float32")] = max(errs.get((entry, d, "float32"), 0.0), err)
+            log(f"  backward at head dim {d}, B={B} N={N} H={H}: max abs err " + ", ".join(
+                f"{k} {v:.3g}" for k, v in worst.items()))
+        log(f"  K1b at head dim {d}, B={2 * TRAIN_BATCH} N={N_TOKENS}: two launches equal to the "
+            "bit for each de")
+    return errs
+
+
+def finetune_step(model, x, labels):
+    """One SGD step (lr FT_LR) of ``model`` in training mode on softmax cross
+    entropy: (model, None, {"loss": ...}, state before, state after), the
+    layout of ``compare_steps``."""
+    opt = torch.optim.SGD(model.parameters(), lr=FT_LR)
+    p0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.train()
+    loss = F.cross_entropy(model(x)["logits"].float(), labels)
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    return (model, None, {"loss": loss.item()}, p0,
+            {k: v.detach().clone() for k, v in model.state_dict().items()})
+
+
+@contextlib.contextmanager
+def keep_k1_backward_io(kept: list):
+    """While open, every K1 call of the model's attention blocks appends a
+    dict to ``kept``: its qkv, scale and heads, and, once the backward has
+    run, the gradient that reached its out (``g``) and the one that left
+    for its qkv (``dqkv``), the backward kernel's own input and output."""
+    kernel = vit_mod.fused_attention_qkv_cols
+
+    def keeping(qkv, scale, num_heads, export="mean", probs_dtype=torch.float32):
+        out, probs = kernel(qkv, scale, num_heads, export, probs_dtype)
+        rec = {"qkv": qkv.detach(), "scale": scale, "heads": num_heads}
+        out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+        qkv.register_hook(lambda d: rec.__setitem__("dqkv", d.detach()))
+        kept.append(rec)
+        return out, probs
+
+    vit_mod.fused_attention_qkv_cols = keeping
+    try:
+        yield
+    finally:
+        vit_mod.fused_attention_qkv_cols = kernel
+
+
+def check_blocks_backward(label, kept) -> dict:
+    """K1b (no de) on the (qkv, g) that each attention block of a step gave
+    its backward: the kernel's dqkv equal to the bit to the gradient the
+    step sent to the block's qkv, and held to its plain version with phase
+    3's gradient tolerances. Returns the largest error by (N, heads, head
+    dim)."""
+    errs = {}
+    for rec in kept:
+        qkv, g, heads = rec["qkv"], rec["g"], rec["heads"]
+        got = attention_qkv_cols_backward(qkv, g, None, rec["scale"], heads)
+        ref = attention_qkv_cols_backward_plain(qkv, g, None, rec["scale"], heads)
+        torch.cuda.synchronize()
+        key = (qkv.shape[1], heads, qkv.shape[2] // (3 * heads))
+        if not torch.equal(got, rec["dqkv"]):
+            raise AssertionError(f"{label}: K1b on a block's (qkv, g) at (N, H, D) = {key} is "
+                                 "not the gradient the step gave its qkv")
+        err, bad = max_err_and_bad(got, ref, GRAD_RTOL,
+                                   GRAD_ATOL_FRAC * ref.float().abs().max().item())
+        if bad:
+            raise AssertionError(f"{label}: K1b at (N, H, D) = {key}: {bad} elements out of "
+                                 f"tolerance, max abs err {err:.3g}")
+        errs[key] = max(errs.get(key, 0.0), err)
+    for (n, heads, d), err in errs.items():
+        log(f"    K1b (no de) on the step's own (qkv, g) at N={n}, H={heads}, D={d}: max abs "
+            f"err {err:.3g} ({GRAD_RTOL:.3g}*|ref| + {GRAD_ATOL_FRAC:.3g}*max |ref|); equal to "
+            "the bit to the step's gradient")
+    return errs
+
+
+def check_finetune(name, kernel, blocks, device, card) -> dict:
+    """(b) one name of FT_CASES: trained-like bf16 weights, FT_BATCH images at
+    FT_CROP; its blocks on the kernel (``check_model_on_kernel``); one SGD
+    step on the kernel path, ``blocks`` forward and ``blocks`` K1b launches
+    with no de and no other, against the same step on the plain path from
+    the same weights, and K1b held to its plain version on every block's
+    own backward input (``check_blocks_backward``); each path's step
+    time."""
+    with torch.device(device):
+        model = trained_like(registry.create_model(name), seed=len(name)).eval()
+        plain = registry.create_model(name, attn_impl="plain")
+    plain.load_state_dict(model.state_dict())
+    gen = torch.Generator(device=device).manual_seed(FT_CROP)
+    x = torch.randn((FT_BATCH, FT_CROP, FT_CROP, 3), generator=gen, device=device)
+    labels = torch.randint(0, model.head.out_features, (FT_BATCH,), generator=gen, device=device)
+    res = check_model_on_kernel(name, model, x, kernel)
+    kept = []
+    with keep_k1_backward_io(kept):
+        reset_counts()
+        got = finetune_step(model, x, labels)
+        launches = read_counts()
+    no_de = attention_qkv_cols_backward.launches_no_de
+    ref = finetune_step(plain, x, labels)
+    log(f"  {name}: one bf16 SGD step (lr {FT_LR}, batch {FT_BATCH}, crop {FT_CROP}) on the "
+        f"kernels, launches {launches} ({no_de} K1b with no de), against the plain path:")
+    if launches != {**zero_counts(), kernel: blocks, "K1b": blocks} or no_de != blocks:
+        raise AssertionError(f"{name}: expected {blocks} {kernel} and {blocks} K1b (no de) "
+                             "launches and no other")
+    compare_steps(f"{name} fine-tune step", got, ref)
+    if len(kept) != blocks:
+        raise AssertionError(f"{name}: {len(kept)} attention blocks kept, expected {blocks}")
+    res["bwd_errs"] = check_blocks_backward(name, kept)
+    res["step_launches"] = launches["K1b"]
+    for label, m in (("kernel path", model), ("plain path", plain)):
+        opt = torch.optim.SGD(m.parameters(), lr=FT_LR)
+
+        def step(batch, m=m, opt=opt):
+            opt.zero_grad(set_to_none=True)
+            F.cross_entropy(m(batch[0])["logits"].float(), batch[1]).backward()
+            opt.step()
+
+        res[label] = time_step(f"{name} fine-tune step, {label} (bf16, batch {FT_BATCH}, "
+                               f"crop {FT_CROP})", step, (x, labels), FT_BATCH, card, reps=5)
+    del model, plain
+    torch.cuda.empty_cache()
+    return res
+
+
+def cnn_step(model, x, labels):
+    """One float32 train-mode SGD step (lr 0.1): (logits, state before,
+    state after), running statistics included."""
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    p0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.train()
+    logits = model(x)["logits"]
+    F.cross_entropy(logits, labels).backward()
+    opt.step()
+    return logits.detach().cpu(), p0, {k: v.detach().clone() for k, v in
+                                       model.state_dict().items()}
+
+
+def update_rels(p0, p1, ref_p1) -> dict:
+    """Per tensor that moved in ``ref_p1``: the relative L2 distance of the
+    update p1 - p0 from ref_p1 - p0; under "(all parameters)" that of the
+    whole parameter update (the statistics left out) as one vector."""
+    rel, num, den = {}, 0.0, 0.0
+    for k, v in ref_p1.items():
+        ref_u = v.double().cpu() - p0[k].double().cpu()
+        diff = p1[k].double().cpu() - p0[k].double().cpu() - ref_u
+        if ref_u.norm() > 0:
+            rel[k] = float(diff.norm() / ref_u.norm())
+            if not k.endswith((".mean", ".var")):
+                num, den = num + float(diff.norm()) ** 2, den + float(ref_u.norm()) ** 2
+    rel["(all parameters)"] = math.sqrt(num / den)
+    return rel
+
+
+def check_cnn_steps(device) -> None:
+    """(d) CNN_STEP_NAMES: the step on the card (float32, TF32 off) against
+    the port's step on the CPU (all threads, oneDNN) from the same
+    trained-like weights. Logits within CNN_REL of the largest |logit|;
+    each running statistic's update within CNN_REL (relative L2); the
+    statistics must move. The parameter updates are held to the CPU's own
+    spread: the CPU step again on one thread and with oneDNN off, each
+    against the reference; the card's whole update and its worst tensor
+    within CNN_SPREAD times the larger of those two readings, and never
+    above phase 7's UPDATE_REL."""
+    gen = torch.Generator().manual_seed(26)
+    x = torch.randn((CNN_STEP_BATCH, CNN_STEP_CROP, CNN_STEP_CROP, 3), generator=gen)
+    labels = torch.randint(0, 1000, (CNN_STEP_BATCH,), generator=gen)
+    threads = torch.get_num_threads()
+    for name in CNN_STEP_NAMES:
+        weights = trained_like(registry.create_model(name, dtype=torch.float32),
+                               seed=26).state_dict()
+        cpu = []
+        for n_threads, onednn in ((threads, True), (1, True), (threads, False)):
+            torch.set_num_threads(n_threads)
+            cpu_model = registry.create_model(name, dtype=torch.float32)
+            cpu_model.load_state_dict(weights)
+            with torch.backends.mkldnn.flags(enabled=onednn):
+                cpu.append(cnn_step(cpu_model, x, labels))
+        torch.set_num_threads(threads)
+        ref_logits, p0, ref_p1 = cpu[0]
+        with torch.device(device):
+            card_model = registry.create_model(name, dtype=torch.float32)
+        card_model.load_state_dict(weights)
+        logits, _, p1 = cnn_step(card_model, x.to(device), labels.to(device))
+        torch.cuda.synchronize()
+        rel = update_rels(p0, p1, ref_p1)
+        stats = [k for k in rel if k.endswith((".mean", ".var"))]
+        params = [k for k in rel if k not in stats and k != "(all parameters)"]
+        whole, worst = "(all parameters)", max(params, key=rel.get)
+        worst_stat = max(stats, key=rel.get) if stats else None
+        spread = {whole: 0.0, "tensor": 0.0}
+        log(f"  {name}: one float32 train-mode step (batch {CNN_STEP_BATCH}, crop "
+            f"{CNN_STEP_CROP}), against the CPU's ({threads} threads, oneDNN); the update as "
+            "relative L2 of all parameters and of the worst tensor")
+        for label, (other_logits, _, other_p1) in zip(("CPU, 1 thread", "CPU, oneDNN off"),
+                                                      cpu[1:]):
+            other = update_rels(p0, other_p1, ref_p1)
+            other_worst = max(params, key=other.get)
+            spread = {whole: max(spread[whole], other[whole]),
+                      "tensor": max(spread["tensor"], other[other_worst])}
+            log(f"    {label}: logits max abs err "
+                f"{(other_logits - ref_logits).abs().max().item():.3g}; update {other[whole]:.3g}, "
+                f"{other_worst} {other[other_worst]:.3g}")
+        err = (logits - ref_logits).abs().max().item()
+        limit = {k: min(UPDATE_REL, CNN_SPREAD * v) for k, v in spread.items()}
+        log(f"    card: logits max abs err {err:.3g} of max |logit| {ref_logits.abs().max():.3g} "
+            f"(tolerance {CNN_REL} x); {len(stats)} running statistics, worst update "
+            f"{worst_stat} {rel[worst_stat]:.3g} (tolerance {CNN_REL}); update {rel[whole]:.3g} "
+            f"(tolerance {limit[whole]:.3g}), {worst} {rel[worst]:.3g} (tolerance "
+            f"{limit['tensor']:.3g}): {CNN_SPREAD} x the CPU's, at most {UPDATE_REL}")
+        if (not stats or err > CNN_REL * ref_logits.abs().max().item()
+                or rel[worst_stat] > CNN_REL or rel[whole] > limit[whole]
+                or rel[worst] > limit["tensor"]):
+            raise AssertionError(f"{name}: the card's train-mode step disagrees with the CPU's "
+                                 "or its running statistics did not move")
+        del card_model, cpu, weights
+
+
+def time_cnn_forwards(device, card) -> dict:
+    """(e) bf16 eval forwards of CNN_TIMED at batch CLS_BATCH, crop PIT_CROP:
+    host clock, median of 5 after one."""
+    gen = torch.Generator(device=device).manual_seed(27)
+    x = torch.randn((CLS_BATCH, PIT_CROP, PIT_CROP, 3), generator=gen, device=device)
+    out = {}
+    for name in CNN_TIMED:
+        with torch.device(device):
+            model = trained_like(registry.create_model(name), seed=27).eval()
+        with torch.no_grad():
+            logits = model(x)["logits"]
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{name}: bf16 logits not finite")
+        out[name] = host_forward_ms(model, x)
+        log(f"  {name}: bf16 forward, batch {CLS_BATCH}, crop {PIT_CROP}: {out[name]:.2f} ms "
+            f"(host clock, median of 5), {CLS_BATCH / out[name] * 1e3:.1f} images/s [{card}]")
+        del model
+    return out
+
+
+def time_bwd_head_dims(device, card) -> dict:
+    """K1b at the fine-tune steps' shapes: no de at vit_small_resnet50d_s16_224's
+    (B=FT_BATCH, N=197, H=8, D=96) and pit_s_224's first stage (N=730, H=3,
+    D=48); at D = 96 also with a float32 and a bf16 de, and the K5a-c
+    backwards with a float32 de. The library row: SDPA forward+backward."""
+    gen = torch.Generator(device=device).manual_seed(28)
+    out = {}
+    for key, N, H, D, entries in (("D96", 197, 8, 96, True), ("D48", 730, 3, 48, False)):
+        B, scale = FT_BATCH, D ** -0.5
+        qkv = torch.randn((B, N, 3 * H * D), generator=gen, device=device).to(torch.bfloat16)
+        g = torch.randn((B, N, H * D), generator=gen, device=device).to(torch.bfloat16)
+        de = torch.randn((B, N, N), generator=gen, device=device)
+        q, k, v = (t.detach().contiguous().requires_grad_(True)
+                   for t in qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4))
+        g_heads = g.reshape(B, N, H, D).transpose(1, 2).contiguous()
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(q, k, v, scale=scale).backward(g_heads)
+
+        io, flops = 2 * qkv.numel() * 2 + g.numel() * 2, 10 * B * H * N * N * D
+        dense = [("none", None, 0)] + ([("float32", de, 4), ("bf16", de.to(torch.bfloat16), 2)]
+                                       if entries else [])
+        for kind, de_t, size in dense:
+            out[f"K1b_{key}_{kind}"] = time_kernel(
+                f"{BWD_KERNEL} (K1b, de {kind}) at B={B} N={N} H={H} D={D}",
+                lambda de_t=de_t: attention_qkv_cols_backward(qkv, g, de_t, scale, H),
+                lambda de_t=de_t: attention_qkv_cols_backward_plain(qkv, g, de_t, scale, H),
+                sdpa_fwd_bwd, io + B * N * N * size, flops, 20, card,
+                "SDPA forward+backward (no de)")
+        if entries:
+            for entry, layout in ENTRY_LAYOUTS.items():
+                xs = ([q.detach(), k.detach(), v.detach()] if entry == "K5a" else
+                      [t.contiguous() for t in qkv.chunk(3, dim=-1)] if entry == "K5b"
+                      else [qkv])
+                g_out = g_heads if entry == "K5a" else g
+                heads = None if entry == "K5a" else H
+                out[f"{entry}b_{key}"] = time_kernel(
+                    f"{BWD_KERNEL} ({entry}, {layout} layout, de float32) at B={B} N={N} H={H} "
+                    f"D={D}",
+                    lambda xs=xs, g_out=g_out, heads=heads, layout=layout, entry=entry:
+                        attn_backward(layout, xs, g_out, de, scale, heads, ENTRIES[entry]),
+                    lambda xs=xs, g_out=g_out, heads=heads, layout=layout:
+                        backward_plain(layout, xs, g_out, de, scale, heads),
+                    sdpa_fwd_bwd, io + B * N * N * 4, flops, 20, card,
+                    "SDPA forward+backward (no de)")
+    return out
+
+
+def phase_finetune(device, card) -> dict:
+    """(a) the backward kernels at head dims 16-128 against their plain
+    versions; (b) a fine-tuning step on the kernels of each FT_CASES name
+    against the plain path; (c) the four ViT names on a ResNet-D stem on
+    K1n against the plain path; (d) resnet50's and ecaresnet26t's
+    train-mode step on the card against the CPU's; (e) bf16 CNN forwards;
+    then K1b's and the K5 backwards' times at the fine-tune shapes.
+    Returns (a)'s errors, the runs of (b) and (c) by name and the times."""
+    res = {"errs": check_bwd_head_dims(device), "ft": {}, "hybrids": {}}
+    log("  (b) one fine-tuning step on the kernels against the plain path")
+    for name, kernel, blocks in FT_CASES:
+        res["ft"][name] = check_finetune(name, kernel, blocks, device, card)
+    log("  (c) the ViT names on a ResNet-D stem (models/resnet_timm.py) on K1n")
+    gen = torch.Generator(device=device).manual_seed(29)
+    x = torch.randn((CLS_BATCH, PIT_CROP, PIT_CROP, 3), generator=gen, device=device)
+    for name in HYBRIDS:
+        with torch.device(device):
+            model = trained_like(registry.create_model(name), seed=len(name)).eval()
+        res["hybrids"][name] = check_model_on_kernel(name, model, x, "K1n", card)
+        del model
+    torch.cuda.empty_cache()
+    log("  (d) the CNNs' train-mode step, card against CPU (float32, TF32 off)")
+    check_cnn_steps(device)
+    log("  (e) CNN forwards (cuDNN, no kernel)")
+    res["cnn_ms"] = time_cnn_forwards(device, card)
+    res["timing"] = time_bwd_head_dims(device, card)
+    return res
+
+
 def time_step(label, step, batch, images, card, reps=6) -> dict:
     """Host-clock time (synchronized) of ``step(batch)``: median of ``reps``
     after a warm-up; then a profiler window of 2 steps."""
@@ -3394,12 +3805,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/16] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/17] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/16] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/17] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         kernel = ""
@@ -3417,37 +3828,37 @@ def main() -> int:
         f"{pamr_ops.affinity_blocks_per_sm(PAMR_DILATIONS)} (at its largest halo), "
         f"pamr_update_kernel<{n_dil}> {pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
-    log("[3/16] kernels against their plain versions on the card")
+    log("[3/17] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/16] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+        log("[4/17] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
             f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
         (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
          pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/16] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/17] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/16] resumable training: preempt and resume, --device_aug, the relaunch "
+        log("[6/17] resumable training: preempt and resume, --device_aug, the relaunch "
             "supervisor, --pretrained, COCO; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_resume(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  resume phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[7/16] one train step, kernel path against plain path, same weights and batch")
+        log("[7/17] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
         model, opt, batch, layer_launches, step_ctx, fused = phase_step_compare(device, cfg)
         dp_ref = (step_ctx[0], batch, fused)
         del fused
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[8/16] attention entries: K5a, K5b, K5c against their plain versions and "
+        log("[8/17] attention entries: K5a, K5b, K5c against their plain versions and "
             "through autograd; the per-layer branch with a bf16 export")
         t0 = time.perf_counter()
         entry_errs, entry_launches, bf16_launches = phase_attention_entries(
@@ -3455,31 +3866,31 @@ def main() -> int:
         del step_ctx
         log(f"  attention entries phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[9/16] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+        log(f"[9/17] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
             f"crop 384, the recipe")
         t0 = time.perf_counter()
         phase_pipeline(cfg, os.path.join(tmp, "train"))
         log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[10/16] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
+        log("[10/17] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
             "on either route, pseudo_label")
         t0 = time.perf_counter()
         pseudo_dir = phase_crf(device, tmp, paths, labels, infer_launches, card)
         log(f"  CRF phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[11/16] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
+        log("[11/17] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
             f"{SEG_BATCH}; one bf16 seg step, kernel path against plain path")
         t0 = time.perf_counter()
         seg = phase_seg(device, cfg, tmp, pseudo_dir, card)
         log(f"  segmentation phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[12/16] serving and the reference import: the serving export, the convert "
+        log("[12/17] serving and the reference import: the serving export, the convert "
             "CLI; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_surface(device, tmp, paths, labels, card)
         log(f"  serving phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[13/16] parallel: DDP, FSDP and --dp on one card; vitb_hybrid, crop 384, "
+        log("[13/17] parallel: DDP, FSDP and --dp on one card; vitb_hybrid, crop 384, "
             "batch 4, the recipe")
         t0 = time.perf_counter()
         names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
@@ -3487,7 +3898,7 @@ def main() -> int:
         del dp_ref
         log(f"  parallel phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[14/16] timing on {card}")
+        log(f"[14/17] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "
@@ -3509,19 +3920,27 @@ def main() -> int:
         del model, opt
         torch.cuda.empty_cache()
 
-        log(f"[15/16] Swin and PiT: train_swin at {SWIN_MODEL}, crop {CROP}, batch "
+        log(f"[15/17] Swin and PiT: train_swin at {SWIN_MODEL}, crop {CROP}, batch "
             f"{TRAIN_BATCH}, the recipe; pit_b forwards on K1f at crop {PIT_CROP}")
         t0 = time.perf_counter()
         swin_pit = phase_swin_pit(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  Swin and PiT phase: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
-        log(f"[16/16] the classifier zoo: ViT and DeiT classifiers on K1n at batch "
+        log(f"[16/17] the classifier zoo: ViT and DeiT classifiers on K1n at batch "
             f"{CLS_BATCH}, K1f and K1n at head dims {CLS_HEAD_DIMS}, the PiT names on K1f, "
             "ResNetV2 and BiT, features_only, checkpoint_path")
         t0 = time.perf_counter()
         zoo_phase = phase_classifiers(device, tmp, card)
         log(f"  classifier phase: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        log(f"[17/17] fine-tuning on the kernels: the backward kernels at head dims "
+            f"{BWD_HEAD_DIMS}, a bf16 SGD step of {', '.join(n for n, _, _ in FT_CASES)}, the "
+            "ViT names on a ResNet-D stem, the CNNs' train-mode step and forwards")
+        t0 = time.perf_counter()
+        ft_phase = phase_finetune(device, card)
+        log(f"  fine-tuning phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     timing = phase_kernel_timing(device, card)
 
@@ -3604,6 +4023,16 @@ def main() -> int:
              "launches": sum(r["launches"] for r in runs),
              "max_abs_err": max(e for r in runs for (_, _, dd), e in r["errs"].items()
                                 if dd == d), **zt[key]})
+    # The fine-tuning steps: K1b with no de at head dims 96 and 48; the
+    # errors on their own blocks' backward inputs.
+    ft, ft_t = ft_phase["ft"], ft_phase["timing"]
+    for key, name, d in (("K1b_D96_none", "vit_small_resnet50d_s16_224", 96),
+                         ("K1b_D48_none", "pit_s_224", 48)):
+        kernels.append(
+            {"name": f"{BWD_KERNEL} (no de, head dim {d}: {name} fine-tune step)",
+             "route": "cuda", "source": src + "attn_bwd.cu", "replaces": tpu + "421",
+             "launches": ft[name]["step_launches"], "max_abs_err": max(ft[name]["bwd_errs"].values()),
+             **ft_t[key]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -19,10 +19,11 @@ the pit_b shapes and the pit_b forward on it (13 launches, the same bits
 twice), a head dim outside the kernel's range refusing it, and a Swin
 train step giving the same bits twice; K1f and K1n at head dims 16 to 128
 (every multiple of 16 but 64: zero-filled tiles), ragged N, the same bits
-twice, K5a's forward at head dim 96, and the ViT classifiers on K1n
-against the plain path (launches counted; the PiT names at head dims 48
-and 32 on K1f); a forward that asks for a gradient at a head dim the
-backward kernels do not take raising before it launches.
+twice, and the ViT classifiers on K1n against the plain path (launches
+counted; the PiT names at head dims 48 and 32 on K1f); K1b with a float32,
+a bfloat16 and no de, and the K5 backwards, at head dims 16 to 128 (K5a
+through autograd at 96), and a gradient of vit_small_patch16_224 (head
+dim 96) through the kernels against the plain path's.
 Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
@@ -181,8 +182,8 @@ def test_backward_kernels_raise_on_what_they_do_not_take(device):
     with pytest.raises(TypeError, match="float32"):
         attention_qkv_cols_backward(qkv, g, torch.zeros((2, 5, 5), device=device,
                                                         dtype=torch.float16), D ** -0.5, H)
-    with pytest.raises(ValueError, match="head dim"):
-        attention_qkv_cols_backward(qkv, g, None, D ** -0.5, 2 * H)
+    with pytest.raises(ValueError, match="head dim .*got 24"):     # 32 heads of 24
+        attention_qkv_cols_backward(qkv, g, None, 24 ** -0.5, H * D // 24)
     with pytest.raises(ValueError, match="contiguous"):
         pair_consistency_forward(torch.zeros((2, 5, 6 * H * D), device=device,
                                              dtype=torch.bfloat16)[..., ::2], D ** -0.5, H)
@@ -797,22 +798,28 @@ def test_attn_fwd_headmean_at_other_head_dims(device, d, batch, n, export):
 
 
 def test_k5a_forward_at_head_dim_96(device):
-    """The (B, H, N, D) layout's forward at head dim 96; its backward takes
-    64 only, so a forward that asks for a gradient raises before it runs."""
-    from acr_wsss_tpu_torch.ops.attn_cuda import forward_plain, fused_attention_with_probs
+    """The (B, H, N, D) layout at head dim 96 through autograd: the forward
+    and the backward kernel (one launch each) against the plain versions."""
+    from acr_wsss_tpu_torch.ops.attn_cuda import (backward_plain, forward_plain,
+                                                  fused_attention_with_probs)
 
     gen = torch.Generator(device=device).manual_seed(96)
     q, k, v = (torch.randn((2, 4, 37, 96), generator=gen, device=device).bfloat16()
-               for _ in range(3))
-    out, probs = fused_attention_with_probs(q, k, v, 96 ** -0.5)
+               .requires_grad_(True) for _ in range(3))
+    g = torch.randn((2, 4, 37, 96), generator=gen, device=device).bfloat16()
+    de = torch.randn((2, 37, 37), generator=gen, device=device)
+    fn = fused_attention_with_probs
+    before = (fn.launches, fn.backward_launches)
+    out, probs = fn(q, k, v, 96 ** -0.5)
+    torch.autograd.backward((out, probs), (g, de))
     ref_out, ref_probs = forward_plain("bhnd", (q, k, v), 96 ** -0.5, None)
+    refs = backward_plain("bhnd", (q, k, v), g, de, 96 ** -0.5, None)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.backward_launches) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=OUT_RTOL, atol=OUT_ATOL)
     torch.testing.assert_close(probs, ref_probs, rtol=0, atol=PROBS_ATOL)
-    q.requires_grad_(True)
-    before = fused_attention_with_probs.launches
-    with pytest.raises(ValueError, match="head dim 64, got 96"):
-        fused_attention_with_probs(q, k, v, 96 ** -0.5)
-    assert fused_attention_with_probs.launches == before
+    for got, ref in zip((q.grad, k.grad, v.grad), refs):
+        _assert_grad_close(got, ref)
 
 
 @pytest.mark.parametrize("name,heads,head_dim", [
@@ -867,18 +874,85 @@ def test_pit_at_head_dims_48_and_32_on_k1f(device, name):
     torch.testing.assert_close(out["logits"], ref["logits"], rtol=0, atol=5e-2 * scale)
 
 
-def test_vit_classifier_at_head_dim_96_refuses_a_gradient_at_the_forward(device):
-    """vit_small_patch16_224 (head dim 96) on the kernels: a forward under
-    no_grad runs; one that asks for a gradient raises at its first block,
-    naming the head dim and the backward's, before any launch."""
+def test_vit_classifier_at_head_dim_96_takes_a_gradient_on_the_kernels(device):
+    """vit_small_patch16_224 (head dim 96) on the kernels, two blocks, a
+    forward that asks for a gradient: one K1n and one K1b with no de per
+    block; every parameter's gradient within 5e-2 (relative L2) of the
+    plain path's, the train-step gate of ``chip_smoke.py``."""
+    from acr_wsss_tpu_torch.models.acr import init_random_
     from acr_wsss_tpu_torch.models.registry import create_model
+    from acr_wsss_tpu_torch.ops.attn_cuda import attention_qkv_cols_backward
 
-    with torch.device(device):
-        model = create_model("vit_small_patch16_224", depth=1)
-    x = torch.randn((1, 224, 224, 3), device=device)
-    with torch.no_grad():
-        assert torch.isfinite(model(x)["logits"]).all()
-    before = fused_attention_qkv_cols.launches
-    with pytest.raises(ValueError, match="head dim 64, got 96.*attn_impl='plain'"):
-        model(x)
-    assert fused_attention_qkv_cols.launches == before
+    weights = init_random_(create_model("vit_small_patch16_224", depth=2), seed=0).state_dict()
+    grads = {}
+    x = torch.randn((2, 224, 224, 3), generator=torch.Generator(device=device).manual_seed(1),
+                    device=device)
+    for impl in ("kernel", "plain"):
+        model = create_model("vit_small_patch16_224", depth=2, attn_impl=impl)
+        model.load_state_dict(weights)
+        model.to(device)
+        before = (fused_attention_qkv_cols.launches_noexport,
+                  attention_qkv_cols_backward.launches_no_de)
+        model(x)["logits"].float().square().mean().backward()
+        torch.cuda.synchronize()
+        launched = (fused_attention_qkv_cols.launches_noexport - before[0],
+                    attention_qkv_cols_backward.launches_no_de - before[1])
+        assert launched == ((2, 2) if impl == "kernel" else (0, 0))
+        grads[impl] = {k: p.grad.float() for k, p in model.named_parameters()}
+    for k, ref in grads["plain"].items():
+        rel = ((grads["kernel"][k] - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+        assert rel < 5e-2, (k, rel)
+
+
+@pytest.mark.parametrize("de_dtype", [torch.float32, torch.bfloat16, None])
+@pytest.mark.parametrize("batch,n", [(2, 197), (3, 37), (2, 65), (1, 1)])
+@pytest.mark.parametrize("d", [16, 32, 48, 80, 96, 112, 128])
+def test_attn_bwd_dense_at_other_head_dims(device, d, batch, n, de_dtype):
+    """K1b with a float32, a bfloat16 or no de at every other head dim the
+    backward takes, against the plain version in the D = 64 tolerances;
+    two launches give the same bits."""
+    from acr_wsss_tpu_torch.ops.attn_cuda import (attention_qkv_cols_backward,
+                                                  attention_qkv_cols_backward_plain)
+
+    gen = torch.Generator(device=device).manual_seed(d * n + 1)
+    heads = 4
+    qkv = torch.randn((batch, n, 3 * heads * d), generator=gen, device=device).bfloat16()
+    g = torch.randn((batch, n, heads * d), generator=gen, device=device).bfloat16()
+    de = None if de_dtype is None else torch.randn((batch, n, n), generator=gen,
+                                                   device=device).to(de_dtype)
+    before = attention_qkv_cols_backward.launches
+    got = attention_qkv_cols_backward(qkv, g, de, d ** -0.5, heads)
+    again = attention_qkv_cols_backward(qkv, g, de, d ** -0.5, heads)
+    ref = attention_qkv_cols_backward_plain(qkv, g, de, d ** -0.5, heads)
+    torch.cuda.synchronize()
+    assert attention_qkv_cols_backward.launches == before + 2
+    _assert_grad_close(got, ref)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("d", [16, 48, 96, 128])
+@pytest.mark.parametrize("entry", ["K5a", "K5b", "K5c"])
+def test_attention_entries_backward_at_other_head_dims(device, entry, d):
+    """The K5 backwards at head dims 16-128, float32 de, N = 197, H = 8,
+    against their plain versions."""
+    from acr_wsss_tpu_torch.ops import attn_cuda
+
+    gen = torch.Generator(device=device).manual_seed(d + 7)
+    heads, n = 8, 197
+    qkv = torch.randn((2, n, 3 * heads * d), generator=gen, device=device).bfloat16()
+    xs = ([t.contiguous() for t in qkv.unflatten(-1, (3, heads, d)).permute(2, 0, 3, 1, 4)]
+          if entry == "K5a" else [t.contiguous() for t in qkv.chunk(3, dim=-1)]
+          if entry == "K5b" else [qkv])
+    layout, fn = _layout(entry), _entry(entry)
+    num_heads = None if entry == "K5a" else heads
+    out, _ = attn_cuda.forward(layout, xs, d ** -0.5, num_heads, "mean", torch.float32, fn)
+    g = torch.randn(out.shape, generator=gen, device=device).bfloat16()
+    de = torch.randn((2, n, n), generator=gen, device=device)
+    before = fn.backward_launches
+    grads = attn_cuda.backward(layout, xs, g, de, d ** -0.5, num_heads, fn)
+    refs = attn_cuda.backward_plain(layout, xs, g, de, d ** -0.5, num_heads)
+    torch.cuda.synchronize()
+    assert fn.backward_launches == before + 1
+    for got, ref in zip(grads, refs):
+        assert got.shape == ref.shape
+        _assert_grad_close(got, ref)

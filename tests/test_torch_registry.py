@@ -3,11 +3,12 @@ classifiers, feature extractor, timm mappers and zoo against the JAX
 package's, on the CPU.
 
 * ``models/registry.py``: the query helpers and ``models/cfg.py``'s
-  ``default_cfg`` against JAX's for every name the port registers (75:
-  37 ViT/DeiT, 14 ResNetV2/BiT, 24 Swin and PiT); ``create_model`` builds
-  every ViT/DeiT and ResNetV2/BiT name, their parameters against
-  ``jax.eval_shape`` of the flax init for one name of each layout; the
-  four names on a ResNet-D stem and the ``hf_hub:`` source refuse;
+  ``default_cfg`` against JAX's for every name the port registers (197:
+  41 ViT/DeiT, 14 ResNetV2/BiT, 24 Swin and PiT, 47 ResNet/VGG/DenseNet,
+  66 timm ResNets, 5 ACR); ``create_model`` builds every ViT/DeiT and
+  ResNetV2/BiT name, their parameters against ``jax.eval_shape`` of the
+  flax init for one name of each layout; a JAX name the port lacks and
+  the ``hf_hub:`` source refuse;
 * ``models/hybrid.py``: ``ResNetV2`` and ``BiTResNetV2`` at two stages
   against JAX's (logits, features, taps);
 * ``models/features.py``: ``FeatureExtractor`` as a list, a dict, with
@@ -56,8 +57,11 @@ def _assert_map_close(got, want):
 
 
 def _jax_names():
-    import acr_wsss_tpu.models.hybrid  # noqa: F401  (they register)
+    import acr_wsss_tpu.models.acr  # noqa: F401  (they register)
+    import acr_wsss_tpu.models.cnn  # noqa: F401
+    import acr_wsss_tpu.models.hybrid  # noqa: F401
     import acr_wsss_tpu.models.pit  # noqa: F401
+    import acr_wsss_tpu.models.resnet_timm  # noqa: F401
     import acr_wsss_tpu.models.swin  # noqa: F401
     import acr_wsss_tpu.models.vit_classifier  # noqa: F401
     return set(jax_registry._model_entrypoints)
@@ -69,12 +73,11 @@ CLASSIFIERS = registry.list_models(module="vit_classifier") + registry.list_mode
 
 
 def test_the_registry_holds_the_ported_names():
-    assert len(registry.list_models(module="vit_classifier")) == 37
+    assert len(registry.list_models(module="vit_classifier")) == 41
     assert len(registry.list_models(module="hybrid")) == 14
-    assert len(PORTED) == 75 and set(PORTED) <= _jax_names()
-    assert set(jax_registry.list_models(module="vit_classifier")) - set(PORTED) \
-        == set(registry.UNPORTED)
-    assert registry.list_models(module="hybrid") == jax_registry.list_models(module="hybrid")
+    assert len(PORTED) == 197 and set(PORTED) <= _jax_names()
+    for module in ("vit_classifier", "hybrid", "cnn", "resnet_timm", "acr"):
+        assert registry.list_models(module=module) == jax_registry.list_models(module=module)
 
 
 def test_query_helpers_match_jax():
@@ -84,7 +87,7 @@ def test_query_helpers_match_jax():
         assert registry.is_model_pretrained(name) == jax_registry.is_model_pretrained(name), name
         module = jax_registry._model_to_module[name]
         assert registry.is_model_in_modules(name, [module])
-        assert not registry.is_model_in_modules(name, ("cnn",))
+        assert not registry.is_model_in_modules(name, ("cnn_attn",))
         for key in ("url", "num_classes", "crop_pct", "mean", "first_conv"):
             assert registry.has_model_default_key(name, key) == \
                 jax_registry.has_model_default_key(name, key)
@@ -98,8 +101,9 @@ def test_query_helpers_match_jax():
                dict(pretrained=True)):
         assert registry.list_models(**kw) == [n for n in jax_registry.list_models(**kw)
                                               if n in PORTED], kw
-    assert set(registry.list_modules()) == {"hybrid", "pit", "swin", "vit_classifier"}
-    assert not registry.is_model("resnet50") and registry.get_default_cfg("resnet50") is None
+    assert set(registry.list_modules()) == {"acr", "cnn", "hybrid", "pit", "resnet_timm", "swin",
+                                            "vit_classifier"}
+    assert not registry.is_model("seresnet50") and registry.get_default_cfg("seresnet50") is None
     for name in ("hf_hub:timm/vit_huge_patch14_224_in21k", "timm:vit_small_patch16_224",
                  "vit_base_patch16_224_in21k", "org/Model-v1.5"):
         assert registry.split_model_name(name) == jax_registry.split_model_name(name)
@@ -130,10 +134,12 @@ def test_create_model_builds_every_classifier_name():
 
 
 @pytest.mark.parametrize("name", ["vit_small_patch16_224", "vit_deit_base_distilled_patch16_384",
-                                  "vit_base_r50_s16_224_in21k", "resnetv2_50x1_bitm_in21k"])
+                                  "vit_base_r50_s16_224_in21k", "resnetv2_50x1_bitm_in21k",
+                                  "vit_small_resnet50d_s16_224"])
 def test_full_size_parameters_match_the_flax_init(name):
     """One name of each layout: no qkv bias and head dim 96; the dist token
-    and ``head_dist``; the R50 stem and ``pre_logits``; BiT."""
+    and ``head_dist``; the R50 stem and ``pre_logits``; BiT; the ResNet-D
+    stem (its BatchNorm statistics, its unused last stage and head)."""
     jm = jax_registry.create_model(name)
     shapes = jax.eval_shape(lambda: jm.init(jax.random.key(0), jnp.zeros((1, 64, 64, 3))))
     want = {k: tuple(v.shape) for k, v in flatten_params(shapes).items()}
@@ -145,14 +151,13 @@ def test_full_size_parameters_match_the_flax_init(name):
 
 
 def test_unported_names_and_sources_refuse():
-    for name in registry.UNPORTED:
-        assert jax_registry.is_model(name) and not registry.is_model(name)
-        with pytest.raises(NotImplementedError, match="resnet_timm"):
-            registry.create_model(name)
+    import acr_wsss_tpu.models.cnn_attn  # noqa: F401  (registers seresnet50)
+
+    assert jax_registry.is_model("seresnet50") and not registry.is_model("seresnet50")
+    with pytest.raises(ValueError, match="Unknown model"):
+        registry.create_model("seresnet50")
     with pytest.raises(NotImplementedError, match="hf_hub"):
         registry.create_model("hf_hub:timm/vit_huge_patch14_224_in21k")
-    with pytest.raises(ValueError, match="Unknown model"):
-        registry.create_model("resnet50")
 
 
 # --- ResNetV2 and BiT -------------------------------------------------------

@@ -7,7 +7,10 @@ head dim they use, against the JAX package's, on the CPU.
   48, 80 and 96 (PiT, ``vit_huge_patch14_224_in21k``,
   ``vit_small_patch16_224``), N = 37 and 65, with and without the export,
   in bfloat16 (and float32 against the einsum path), in the D = 64 cases'
-  tolerances (``tests/test_torch_attention.py``);
+  tolerances (``tests/test_torch_attention.py``); and its backward's plain
+  version (what K1b is held to on the card) against ``jax.grad`` through
+  the Pallas entry in interpret mode at head dims 48 and 96, with and
+  without the export's cotangent;
 * ``models/vit_classifier.py``: ``ViTClassifier`` against JAX's at a few
   blocks and a 64x64 input (32x32 for the R50 hybrid), weights crossing by
   ``flax_to_state_dict``: a plain name, a distilled one (head, dist and
@@ -36,7 +39,7 @@ from acr_wsss_tpu_torch.models.vit import Attention
 from acr_wsss_tpu_torch.ops.attn_cuda import FWD_HEAD_DIMS, fused_attention_qkv_cols
 from tests.torch_port_helpers import random_flax_params, unflatten_params
 from tests.test_torch_attention import (BF16_OUT_VS_PALLAS, BF16_OUT_VS_XLA, F32_OUT_TOL,
-                                        F32_PROBS_TOL)
+                                        F32_PROBS_TOL, GRAD_ATOL)
 
 B, H = 2, 4
 # float32 through the trunk: the two frameworks sum in other orders, a few
@@ -88,6 +91,35 @@ def test_qkv_cols_plain_matches_jax_at_other_head_dims(d, n):
                 else:
                     np.testing.assert_allclose(probs_t.numpy(), np.asarray(probs_r, np.float32),
                                                **F32_PROBS_TOL)
+
+
+@pytest.mark.parametrize("with_de", [True, False])
+@pytest.mark.parametrize("d", [48, 96])
+def test_qkv_cols_backward_plain_matches_pallas_grad_at_other_head_dims(d, with_de):
+    """K1b's plain version at head dims 48 (PiT) and 96 (the small ViTs),
+    float32, N = 37, against ``jax.grad`` through the Pallas entry (its
+    backward kernel ``_bwd_kernel_nhd``), as at D = 64."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from acr_wsss_tpu.ops.attn_pallas import fused_attention_qkv_cols as jax_cols
+    from acr_wsss_tpu_torch.ops.attn_cuda import attention_qkv_cols_backward_plain
+
+    n, scale = 37, d ** -0.5
+    rng = np.random.default_rng(d + with_de)
+    qkv = rng.normal(size=(B, n, 3 * H * d)).astype(np.float32)
+    g = rng.normal(size=(B, n, H * d)).astype(np.float32)
+    de = rng.normal(size=(B, n, n)).astype(np.float32)
+    export = "mean" if with_de else "none"
+
+    def loss(x):
+        out, probs = jax_cols(x, scale, H, export=export)
+        return jnp.sum(out * g) + (jnp.sum(probs * de) if with_de else 0.0)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(loss)(jnp.asarray(qkv))
+    got = attention_qkv_cols_backward_plain(torch.from_numpy(qkv), torch.from_numpy(g),
+                                            torch.from_numpy(de) if with_de else None, scale, H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=GRAD_ATOL)
 
 
 def test_kernel_attention_refuses_head_dims_outside_its_range():

@@ -46,7 +46,8 @@ def random_flax_params(jax_module, example, seed, args=()):
     """Seeded numpy weights in the flax layout of ``jax_module`` (called on
     ``example`` and ``args``): fan-in normal kernels, scales
     1 + N(0, 0.1^2), biases and tokens N(0, 0.1^2) (nonzero, so that a
-    mapping mistake shows), pos_embed N(0, 0.02^2)."""
+    mapping mistake shows), pos_embed N(0, 0.02^2); BatchNorm's running
+    statistics (``batch_stats``): means N(0, 0.1^2), variances U(0.5, 1.5)."""
     shapes = jax.eval_shape(lambda: jax_module.init(jax.random.key(0), example, *args))
     return _draw_flax_params({k: v.shape for k, v in flatten_params(shapes).items()}, seed)
 
@@ -62,6 +63,8 @@ def _draw_flax_params(shapes, seed):
             val = 1.0 + 0.1 * rng.standard_normal(shape)
         elif name == "pos_embed":
             val = 0.02 * rng.standard_normal(shape)
+        elif name == "var":                       # BatchNorm's running variance
+            val = 0.5 + rng.uniform(size=shape)
         else:
             val = 0.1 * rng.standard_normal(shape)
         flat[key] = val.astype(np.float32)
@@ -132,3 +135,111 @@ def write_coco(root, seed=0, n_train=6, n_val=3):
             (root / "bbox" / f"{name}.txt").write_text("\n".join(lines + ["x"]) + "\n")
     (root / "train" / "notes.txt").write_text("not an image\n")
     return root
+
+
+# float32 CNN forwards on both sides: each convolution sums in another
+# order (a few float32 ulps), through up to a dozen BatchNorm'd layers ->
+# 1e-5 of the output's largest |value| (1.3e-6 seen at layers (1, 1, 1, 1)).
+CNN_REL = 1e-5
+# Gradients through train-mode BatchNorm: its backward subtracts the batch
+# means of the upstream gradient and of its product with the normalized
+# input, float32 sums over every pixel that cancel to a small difference
+# (2.2e-5 of the largest |gradient| seen) -> 1e-4 of the largest.
+CNN_GRAD_REL = 1e-4
+
+
+def jit_o0(fn):
+    """``jax.jit(fn)`` compiled with XLA's backend optimizations off: the
+    same float32 operations (2e-6 apart from the optimized build on a
+    hybrid's logits), in about half the compile time of the CNN parity
+    tests' models."""
+    def call(*args):
+        return jax.jit(fn).lower(*args).compile(
+            {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+        )(*args)
+    return call
+
+
+def assert_close_to_max(got, want, rel=CNN_REL, err_msg=""):
+    """|got - want| <= rel * max|want|, elementwise."""
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
+                               atol=rel * np.abs(want).max(), err_msg=err_msg)
+
+
+def assert_same_flat(got, want_tree):
+    """The flat dict ``got`` holds exactly the leaves of the flax tree
+    ``want_tree``, bit for bit (the checkpoint mappers)."""
+    want = flatten_params(want_tree)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+
+
+def cnn_pair(jax_model, port_model, crop, seed=0):
+    """``random_flax_params`` of ``jax_model`` (params and batch_stats),
+    loaded into ``port_model``, which is put in eval mode (JAX's default
+    ``train=False``). Returns the flat dict."""
+    flat = random_flax_params(jax_model, jnp.zeros((1, crop, crop, 3)), seed)
+    port_model.load_state_dict(flax_to_state_dict(flat, port_model.state_dict()))
+    port_model.eval()
+    return flat
+
+
+def assert_cnn_matches_jax(jax_model, flat, port_model, x):
+    """Logits, features and every tap of the port's eval forward (NCHW)
+    against JAX's jitted apply (NHWC) on the NHWC image ``x``."""
+    want = jit_o0(jax_model.apply)(unflatten_params(flat), jnp.asarray(x))
+    with torch.no_grad():
+        got = port_model(torch.from_numpy(x))
+    assert_close_to_max(got["logits"].numpy(), want["logits"], err_msg="logits")
+    assert_close_to_max(got["features"].permute(0, 2, 3, 1).numpy(), want["features"],
+                        err_msg="features")
+    assert sorted(got["taps"]) == sorted(want["taps"])
+    for k in want["taps"]:
+        assert_close_to_max(got["taps"][k].permute(0, 2, 3, 1).numpy(), want["taps"][k],
+                            err_msg=f"tap {k}")
+
+
+def cnn_train_step_matches_jax(jax_model, port_model, crop=32, seed=0, num_classes=6):
+    """One train-mode step as ``tests/test_cnn_models.py:359-388``: softmax
+    cross entropy on two images, batch statistics on. The loss, every
+    parameter's gradient and every updated running statistic of the port
+    against ``jax.value_and_grad`` of JAX's; the statistics must move."""
+    import optax
+
+    from acr_wsss_tpu_torch.models.convert import state_dict_to_flax
+
+    flat = cnn_pair(jax_model, port_model, crop, seed)
+    rng = np.random.default_rng(seed + 1)
+    x = rng.normal(size=(2, crop, crop, 3)).astype(np.float32)
+    labels = np.asarray([1, 4])
+    variables = unflatten_params(flat)
+
+    def loss_fn(p, bs):
+        out, upd = jax_model.apply({"params": p, "batch_stats": bs}, jnp.asarray(x),
+                                   train=True, mutable=["batch_stats"])
+        y = jax.nn.one_hot(jnp.asarray(labels), num_classes)
+        return optax.softmax_cross_entropy(out["logits"], y).mean(), upd["batch_stats"]
+
+    (loss, new_bs), grads = jit_o0(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"], variables["batch_stats"])
+    port_model.train()
+    logits = port_model(torch.from_numpy(x))["logits"]
+    loss_t = torch.nn.functional.cross_entropy(logits, torch.from_numpy(labels))
+    loss_t.backward()
+    np.testing.assert_allclose(loss_t.item(), float(loss), rtol=1e-5)
+    got = state_dict_to_flax(port_model, {k: p.grad for k, p in port_model.named_parameters()})
+    want = flatten_params({"params": grads})
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert_close_to_max(got[k], want[k], CNN_GRAD_REL, err_msg=k)
+    stats = {k: v for k, v in state_dict_to_flax(port_model).items()
+             if k.startswith("batch_stats/")}
+    want_stats = flatten_params({"batch_stats": new_bs})
+    assert sorted(stats) == sorted(want_stats)
+    moved = False
+    for k in want_stats:
+        assert_close_to_max(stats[k], want_stats[k], err_msg=k)
+        moved |= not np.allclose(stats[k], flat[k])
+    assert moved

@@ -121,3 +121,20 @@ def tap_config(model, start_layer: int, func: str) -> Tuple[int, str]:
     off_start = min(start_layer, model.spec.depth)
     export = "full" if func in ("cam_grad", "cam_grad_s") else "mean"
     return off_start, export
+
+
+def grad_cam(features: torch.Tensor, head_fn: Callable[[torch.Tensor], torch.Tensor],
+             class_index: int) -> torch.Tensor:
+    """Classic Grad-CAM over a feature map (``getam.py:229-249``; the
+    reference's legacy ``DPT/DPT.py:536-564``): the weights are the spatial
+    mean of d logit_c / d features, the CAM ReLU(sum_k w_k A_k).
+
+    ``features`` (B, K, H, W) are the tapped layer's maps (NCHW, as the
+    port's models return them), ``head_fn`` maps them to (B, C) logits (the
+    rest of the network). Returns the (B, H, W) CAM."""
+    with torch.enable_grad():
+        f = features if features.requires_grad else features.detach().requires_grad_(True)
+        logits = head_fn(f)
+        (grads,) = torch.autograd.grad(logits[:, class_index].sum(), f)
+    weights = grads.mean(dim=(2, 3), keepdim=True)        # GAP over H, W
+    return F.relu((weights * features).sum(dim=1))

@@ -245,12 +245,14 @@ class DenseNet(nn.Module):
 # --- the registry (JAX ``cnn.py:265-495``) -----------------------------------
 
 def _register(name: str, cls, **cfg) -> None:
+    """Register ``name``: ``cls`` with ``cfg`` as defaults, listed under
+    ``cls``'s module (the families after this one register through it)."""
     def builder(**kwargs):
         for k, v in cfg.items():
             kwargs.setdefault(k, v)
         return cls(**kwargs)
 
-    builder.__name__ = name
+    builder.__name__, builder.__module__ = name, cls.__module__
     register_model(builder)
 
 

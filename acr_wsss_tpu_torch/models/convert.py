@@ -66,9 +66,17 @@ layers, the ``_bn`` names' BatchNorms after them; the 7x7-flatten
 classifier has no counterpart and is left out) and
 ``timm_resnet_state_dict_to_flax`` (``models/resnet_timm.TimmResNet``: the
 deep stem ``conv1.{0,3,6}``, the ResNet-RS ``maxpool.{0,1}``, a conv or
-average-pool downsample told by its 4-D weight, SE and ECA). BatchNorm's
-running mean and variance land in ``batch_stats/``, its scale and bias in
-``params/``; ``num_batches_tracked`` is dropped.
+average-pool downsample told by its 4-D weight, SE and ECA). The mobile
+and attention families (``:420-598``, ``:721-836``, ``:1426-1501``,
+``:2400-2507``, ``:2660-2725``): ``efficientnet_state_dict_to_flax`` and
+``mobilenetv3_state_dict_to_flax`` (timm's depthwise-separable stage 0
+and inverted residuals; MobileNetV3's stages flattened, its post-pool
+``conv_head`` a Dense), ``regnet_state_dict_to_flax``,
+``attn_resnet_state_dict_to_flax`` (SEResNet, Res2Net, ResNeSt),
+``sknet_state_dict_to_flax`` and ``legacy_senet_state_dict_to_flax``, to
+``models/cnn_mobile`` and ``models/cnn_attn``. BatchNorm's running mean
+and variance land in ``batch_stats/``, its scale and bias in ``params/``;
+``num_batches_tracked`` is dropped.
 
 The timm Swin and PiT checkpoints (``:228-350``):
 ``swin_state_dict_to_flax`` and ``pit_state_dict_to_flax`` map them, by
@@ -533,13 +541,11 @@ _TIMM_RESNET = (
 )
 
 
-def timm_resnet_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
-    """Any timm ResNet-family state dict (``resnet.py`` and
-    ``gluon_resnet.py`` layouts) as the flat dict of
-    ``models/resnet_timm.TimmResNet``. A block's downsample is a conv and a
-    BatchNorm (``downsample.0``, ``.1``) or an average pool, a conv and a
-    BatchNorm (``.1``, ``.2``): the index whose weight is 4-D is the conv,
-    the other the BatchNorm."""
+def _downsample_by_rank(state_dict: Mapping[str, object]) -> Dict[str, object]:
+    """``state_dict`` with each block's ``downsample.<i>`` renamed to
+    ``downsample.conv`` where the index's weight is 4-D and to
+    ``downsample.bn`` otherwise: a conv and a BatchNorm (``.0``, ``.1``),
+    or an average pool, a conv and a BatchNorm (``.1``, ``.2``)."""
     conv_at = {m[1]: m[2] for k, v in state_dict.items()
                if (m := re.fullmatch(r"(layer\d+\.\d+\.downsample)\.(\d)\.weight", k))
                and _numpy(v).ndim == 4}
@@ -549,7 +555,176 @@ def timm_resnet_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str
         if m:
             name = f"{m[1]}.{'conv' if conv_at.get(m[1]) == m[2] else 'bn'}.{m[3]}"
         state[name] = value
-    return _table_to_flax(state, _TIMM_RESNET)
+    return state
+
+
+def timm_resnet_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """Any timm ResNet-family state dict (``resnet.py`` and
+    ``gluon_resnet.py`` layouts) as the flat dict of
+    ``models/resnet_timm.TimmResNet``; a block's downsample told by rank
+    (``_downsample_by_rank``)."""
+    return _table_to_flax(_downsample_by_rank(state_dict), _TIMM_RESNET)
+
+
+# timm's EfficientNet b0-b4 and MobileNetV3-Large (``_map_efficientnet_name``
+# :446, ``_map_mbv3_name`` :544), onto ``models/cnn_mobile``: a block of
+# stage 0 is depthwise-separable (``conv_dw``/``bn1`` the depthwise conv,
+# ``conv_pw``/``bn2`` the project), the others inverted residuals
+# (``conv_pw``/``bn1`` expand, ``conv_dw``/``bn2``, ``conv_pwl``/``bn3``
+# project). ``block`` names a timm block (stage, index) by its flax path.
+def _mbconv_table(block, stages: str):
+    b = r"blocks\.({})\.(\d+)\.".format(stages)
+    b0 = r"blocks\.(0)\.(\d+)\."
+    return (
+        (b0 + r"conv_dw", lambda s, j: block(s, j) + "/dw/conv", "conv"),
+        (b0 + r"conv_pw", lambda s, j: block(s, j) + "/project/conv", "conv"),
+        (b0 + r"bn1", lambda s, j: block(s, j) + "/dw/bn", "bn"),
+        (b0 + r"bn2", lambda s, j: block(s, j) + "/project/bn", "bn"),
+        (b + r"conv_pw", lambda s, j: block(s, j) + "/expand/conv", "conv"),
+        (b + r"conv_dw", lambda s, j: block(s, j) + "/dw/conv", "conv"),
+        (b + r"conv_pwl", lambda s, j: block(s, j) + "/project/conv", "conv"),
+        (b + r"bn1", lambda s, j: block(s, j) + "/expand/bn", "bn"),
+        (b + r"bn2", lambda s, j: block(s, j) + "/dw/bn", "bn"),
+        (b + r"bn3", lambda s, j: block(s, j) + "/project/bn", "bn"),
+        (b + r"se\.conv_(reduce|expand)", lambda s, j, r: block(s, j) + f"/se/{r}", "conv"),
+        (r"conv_stem", "stem/conv", "conv"),
+        (r"bn1", "stem/bn", "bn"),
+        (r"classifier", "classifier", "linear"),
+    )
+
+
+_EFFICIENTNET = _mbconv_table(lambda s, j: f"stage{s}_block{j}", r"\d+") + (
+    (r"conv_head", "head_conv/conv", "conv"),
+    (r"bn2", "head_conv/bn", "bn"),
+)
+# timm's stages (1, 2, 3, 4, 2, 3) -> the flat ``block<i>`` of MobileNetV3;
+# stage 6 (a ConvBnAct) is ``head_conv``, the post-pool ``conv_head`` (a
+# biased 1x1 conv) the ``pre`` Dense.
+_MBV3_STAGE_OFFSETS = (0, 1, 3, 6, 10, 12)
+_MBV3 = _mbconv_table(lambda s, j: f"block{_MBV3_STAGE_OFFSETS[int(s)] + int(j)}", r"[0-5]") + (
+    (r"blocks\.6\.\d+\.conv", "head_conv/conv", "conv"),
+    (r"blocks\.6\.\d+\.bn1", "head_conv/bn", "bn"),
+    (r"conv_head", "pre", "conv1x1"),
+)
+
+
+def efficientnet_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A timm EfficientNet (b0-b4, not the ``tf_`` ports) state dict as the
+    flat dict of ``models/cnn_mobile.EfficientNet``."""
+    return _table_to_flax(state_dict, _EFFICIENTNET)
+
+
+def mobilenetv3_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A timm mobilenetv3_large_100 state dict as the flat dict of
+    ``models/cnn_mobile.MobileNetV3``."""
+    return _table_to_flax(state_dict, _MBV3)
+
+
+# timm's RegNet (``_map_regnet_name`` :1453): ``s<i>.b<j>`` (1-based) ->
+# ``stage<i-1>_block<j-1>``; the bare grouped ``conv2`` and its BatchNorm.
+def _regnet_block(fmt: str):
+    return lambda s, b, *rest: f"stage{int(s) - 1}_block{int(b) - 1}/" + fmt.format(*rest)
+
+
+_RB = r"s(\d+)\.b(\d+)\."
+_REGNET = (
+    (r"stem\.conv", "stem/conv", "conv"),
+    (r"stem\.bn", "stem/bn", "bn"),
+    (r"head\.fc", "head", "linear"),
+    (_RB + r"conv([13])\.conv", _regnet_block("conv{}/conv"), "conv"),
+    (_RB + r"conv([13])\.bn", _regnet_block("conv{}/bn"), "bn"),
+    (_RB + r"conv2\.conv", _regnet_block("conv2"), "conv"),
+    (_RB + r"conv2\.bn", _regnet_block("bn2"), "bn"),
+    (_RB + r"se\.fc1", _regnet_block("se/reduce"), "conv"),
+    (_RB + r"se\.fc2", _regnet_block("se/expand"), "conv"),
+    (_RB + r"downsample\.conv", _regnet_block("downsample/conv"), "conv"),
+    (_RB + r"downsample\.bn", _regnet_block("downsample/bn"), "bn"),
+)
+
+
+def regnet_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A timm RegNet X/Y state dict as the flat dict of
+    ``models/cnn_mobile.RegNet``."""
+    return _table_to_flax(state_dict, _REGNET)
+
+
+# timm's SEResNet, Res2Net and ResNeSt (``_map_attn_resnet_name`` :752), onto
+# ``models/cnn_attn.AttnResNet``: the ResNet layout, Res2Net's cascade
+# ``convs.<i>``/``bns.<i>``, SE's ``se.fc1``/``fc2``, the split attention's
+# ``conv2.{conv,bn0,fc1,bn1,fc2}``; the deep stem where ``conv1.0`` is there.
+_ATTN_BLOCKS = (
+    (_LAYER + r"conv(\d)", "layer{}_{}/conv{}/conv", "conv"),
+    (_LAYER + r"bn(\d)", "layer{}_{}/conv{}/bn", "bn"),
+    (_LAYER + r"convs\.(\d+)", "layer{}_{}/convs_{}/conv", "conv"),
+    (_LAYER + r"bns\.(\d+)", "layer{}_{}/convs_{}/bn", "bn"),
+    (_LAYER + r"se\.fc1", "layer{}_{}/se/reduce", "conv"),
+    (_LAYER + r"se\.fc2", "layer{}_{}/se/expand", "conv"),
+    (_LAYER + r"conv2\.conv", "layer{}_{}/splat/conv", "conv"),
+    (_LAYER + r"conv2\.(bn[01])", "layer{}_{}/splat/{}", "bn"),
+    (_LAYER + r"conv2\.(fc[12])", "layer{}_{}/splat/{}", "conv"),
+    (_LAYER + r"downsample\.conv", "layer{}_{}/downsample/conv", "conv"),
+    (_LAYER + r"downsample\.bn", "layer{}_{}/downsample/bn", "bn"),
+    (r"fc", "fc", "linear"),
+)
+_DEEP_STEM = (
+    (r"conv1\.([036])", lambda i: f"stem{'036'.index(i)}/conv", "conv"),
+    (r"conv1\.([14])", lambda i: f"stem{'14'.index(i)}/bn", "bn"),
+    (r"bn1", "stem2/bn", "bn"),
+)
+_STEM = ((r"conv1", "stem/conv", "conv"), (r"bn1", "stem/bn", "bn"))
+
+
+def attn_resnet_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A timm SEResNet, Res2Net or ResNeSt state dict as the flat dict of
+    ``models/cnn_attn.AttnResNet``; a downsample told by rank."""
+    stem = _DEEP_STEM if "conv1.0.weight" in state_dict else _STEM
+    return _table_to_flax(_downsample_by_rank(state_dict), stem + _ATTN_BLOCKS)
+
+
+# timm's SK-ResNets (``_map_sknet_name`` :2426), onto ``models/cnn_attn.SKResNet``:
+# the SK conv at ``conv1`` (basic blocks) or ``conv2`` (bottlenecks), its
+# ``paths.<i>.{conv,bn}`` and ``attn.{fc_reduce,bn,fc_select}``; the plain
+# ConvBnActs ``conv<i>.{conv,bn}``.
+_SKNET_BLOCKS = (
+    (_LAYER + r"conv[12]\.paths\.(\d)\.conv", "layer{}_{}/path{}_conv", "conv"),
+    (_LAYER + r"conv[12]\.paths\.(\d)\.bn", "layer{}_{}/path{}_bn", "bn"),
+    (_LAYER + r"conv[12]\.attn\.fc_(reduce|select)", "layer{}_{}/attn_{}", "conv"),
+    (_LAYER + r"conv[12]\.attn\.bn", "layer{}_{}/attn_bn", "bn"),
+    (_LAYER + r"(conv[123])\.conv", "layer{}_{}/{}/conv", "conv"),
+    (_LAYER + r"(conv[123])\.bn", "layer{}_{}/{}/bn", "bn"),
+    (_LAYER + r"downsample\.conv", "layer{}_{}/downsample/conv", "conv"),
+    (_LAYER + r"downsample\.bn", "layer{}_{}/downsample/bn", "bn"),
+    (r"fc", "fc", "linear"),
+)
+
+
+def sknet_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A timm SK-ResNet state dict (skresnet18/34/50/50d, skresnext50) as
+    the flat dict of ``models/cnn_attn.SKResNet``; the deep stem where
+    ``conv1.6`` is there, a downsample told by rank."""
+    stem = _DEEP_STEM if "conv1.6.weight" in state_dict else _STEM
+    return _table_to_flax(_downsample_by_rank(state_dict), stem + _SKNET_BLOCKS)
+
+
+# timm's legacy SENets (``_map_legacy_senet_name`` :2681), onto
+# ``models/cnn_attn.LegacySENet``: the ``layer0`` stem, biased SE convs,
+# the Sequential downsample.
+_LEGACY_SENET = (
+    (r"last_linear", "last_linear", "linear"),
+    (r"layer0\.(conv\d)", "layer0_{}", "conv"),
+    (r"layer0\.(bn\d)", "layer0_{}", "bn"),
+    (_LAYER + r"(conv\d)", "layer{}_{}/{}", "conv"),
+    (_LAYER + r"(bn\d)", "layer{}_{}/{}", "bn"),
+    (_LAYER + r"se_module\.(fc[12])", "layer{}_{}/se_module/{}", "conv"),
+    (_LAYER + r"downsample\.0", "layer{}_{}/downsample_conv", "conv"),
+    (_LAYER + r"downsample\.1", "layer{}_{}/downsample_bn", "bn"),
+)
+
+
+def legacy_senet_state_dict_to_flax(state_dict: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A timm legacy SENet state dict (``legacy_se*``, senet154) as the flat
+    dict of ``models/cnn_attn.LegacySENet``."""
+    return _table_to_flax(state_dict, _LEGACY_SENET)
 
 
 def bit_npz_to_torch_names(weights: Mapping[str, np.ndarray], prefix: str = "resnet/"
@@ -629,7 +804,8 @@ def _check_standalone(name: str, flat: Mapping[str, np.ndarray]) -> None:
     A VGG's classifier is not converted (``vgg_state_dict_to_flax``)."""
     from acr_wsss_tpu_torch.models.registry import create_model
 
-    head = next((h for h in ("head", "fc", "classifier", "fc3") if f"params/{h}/bias" in flat),
+    head = next((h for h in ("head", "fc", "classifier", "fc3", "last_linear")
+                 if f"params/{h}/bias" in flat),
                 None)
     kwargs = {} if head is None else {"num_classes": len(flat[f"params/{head}/bias"])}
     with torch.device("meta"):
@@ -660,9 +836,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--backbone", default="vitb_hybrid",
                         help="an ACR backbone (vitb_hybrid, vit_small, ...), or a name of "
                              "the registry: swin_*, pit_*, vit_*_224/384... (the ViT and DeiT "
-                             "classifiers), resnetv2_*_bitm, the ResNet, VGG and DenseNet "
-                             "families (resnet50, resnet50d, seresnext26d_32x4d, vgg16_bn, "
-                             "densenet121, ...)")
+                             "classifiers), resnetv2_*_bitm, the ResNet, VGG, DenseNet, "
+                             "EfficientNet, MobileNetV3, RegNet, SENet, SK-ResNet, Res2Net "
+                             "and ResNeSt families (resnet50, resnet50d, efficientnet_b0, "
+                             "regnety_032, seresnet50, resnest50d, legacy_senet154, ...)")
     parser.add_argument("--scan", action="store_true",
                         help="write JAX's stacked layout (trunk/blocks_scan/block/...)")
     args = parser.parse_args(argv)

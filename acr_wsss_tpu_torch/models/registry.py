@@ -24,10 +24,12 @@ in JAX. The ``hf_hub:`` source is not ported: it raises and says so.
 The builders register when their modules are imported
 (``_load_builders``): ``vit_classifier`` and ``hybrid`` (the classifier
 zoo), ``swin`` and ``pit``, ``cnn`` and ``resnet_timm`` (the ResNet, VGG
-and DenseNet families) and ``acr`` (the ``acr_*`` names): 197 of JAX's
-522 names. Each builder sets the JAX builder's defaults; the Swin and PiT
-ones also the input size the model is built for (``img_size``), which JAX
-takes from the input at init. A model is returned in PyTorch's training
+and DenseNet families), ``cnn_mobile`` (EfficientNet, MobileNetV3,
+RegNet), ``cnn_attn`` (SENet, SKNet, Res2Net, ResNeSt, the legacy SENets)
+and ``acr`` (the ``acr_*`` names): 262 of JAX's 522 names. Each builder
+sets the JAX builder's defaults; the Swin and PiT ones also the input
+size the model is built for (``img_size``), which JAX takes from the
+input at init. A model is returned in PyTorch's training
 mode, as ``nn.Module`` makes it: call ``eval()`` for the running
 BatchNorm statistics JAX's ``train=False`` uses.
 """
@@ -61,8 +63,9 @@ def register_model(fn: Callable[..., nn.Module]) -> Callable[..., nn.Module]:
 
 
 def _load_builders() -> None:
-    from acr_wsss_tpu_torch.models import (acr, cnn, hybrid, pit,  # noqa: F401  (they register)
-                                           resnet_timm, swin, vit_classifier)
+    from acr_wsss_tpu_torch.models import (acr, cnn, cnn_attn,  # noqa: F401  (they register)
+                                           cnn_mobile, hybrid, pit, resnet_timm, swin,
+                                           vit_classifier)
 
 
 def is_model(name: str) -> bool:

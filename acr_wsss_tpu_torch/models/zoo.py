@@ -40,13 +40,19 @@ import torch
 import torch.nn as nn
 
 from acr_wsss_tpu_torch.models.acr import init_random_
-from acr_wsss_tpu_torch.models.convert import (bit_npz_to_torch_names,
-                                               densenet_state_dict_to_flax, flax_to_state_dict,
+from acr_wsss_tpu_torch.models.convert import (attn_resnet_state_dict_to_flax,
+                                               bit_npz_to_torch_names,
+                                               densenet_state_dict_to_flax,
+                                               efficientnet_state_dict_to_flax,
+                                               flax_to_state_dict,
+                                               legacy_senet_state_dict_to_flax,
+                                               mobilenetv3_state_dict_to_flax,
                                                pit_state_dict_to_flax,
+                                               regnet_state_dict_to_flax,
                                                resnet_state_dict_to_flax,
                                                resnetv2_bit_state_dict_to_flax,
-                                               scanned_to_unrolled, state_dict_to_flax,
-                                               swin_state_dict_to_flax,
+                                               scanned_to_unrolled, sknet_state_dict_to_flax,
+                                               state_dict_to_flax, swin_state_dict_to_flax,
                                                timm_resnet_state_dict_to_flax,
                                                vgg_state_dict_to_flax,
                                                vit_timm_state_dict_to_flax)
@@ -179,7 +185,6 @@ ZOO_URLS: Dict[str, str] = {
         "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-vitjx/jx_vit_large_p32_384-9b920ba8.pth",
     "vit_small_patch16_224":
         "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/vit_small_p16_224-15ec54c9.pth",
-    # the CNN families (models/cnn.py, models/resnet_timm.py)
     "densenet121":
         "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/densenet121_ra-50efcf5c.pth",
     "densenet161":
@@ -368,6 +373,84 @@ ZOO_URLS: Dict[str, str] = {
         "https://download.pytorch.org/models/wide_resnet101_2-32ee1156.pth",
     "wide_resnet50_2":
         "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/wide_resnet50_racm-8234f177.pth",
+    "efficientnet_b0":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/efficientnet_b0_ra-3dd342df.pth",
+    "efficientnet_b1":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/efficientnet_b1-533bc792.pth",
+    "efficientnet_b2":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/efficientnet_b2_ra-bcdf34b7.pth",
+    "efficientnet_b3":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/efficientnet_b3_ra2-cf984f9c.pth",
+    "legacy_senet154":
+        "http://data.lip6.fr/cadene/pretrainedmodels/senet154-c7b49a05.pth",
+    "legacy_seresnet101":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-cadene/se_resnet101-7e38fcc6.pth",
+    "legacy_seresnet152":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-cadene/se_resnet152-d17c99b7.pth",
+    "legacy_seresnet18":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/seresnet18-4bb0ce65.pth",
+    "legacy_seresnet34":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/seresnet34-a4004e63.pth",
+    "legacy_seresnet50":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-cadene/se_resnet50-ce0d4300.pth",
+    "legacy_seresnext101_32x4d":
+        "http://data.lip6.fr/cadene/pretrainedmodels/se_resnext101_32x4d-3b2fe3d8.pth",
+    "legacy_seresnext26_32x4d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/seresnext26_32x4d-65ebdb501.pth",
+    "legacy_seresnext50_32x4d":
+        "http://data.lip6.fr/cadene/pretrainedmodels/se_resnext50_32x4d-a260b3a4.pth",
+    "mobilenetv3_large_100":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/mobilenetv3_large_100_ra-f55367f5.pth",
+    "mobilenetv3_large_100_miil":
+        "https://miil-public-eu.oss-eu-central-1.aliyuncs.com/model-zoo/ImageNet_21K_P/models/timm/mobilenetv3_large_100_1k_miil_78_0.pth",
+    "mobilenetv3_large_100_miil_in21k":
+        "https://miil-public-eu.oss-eu-central-1.aliyuncs.com/model-zoo/ImageNet_21K_P/models/timm/mobilenetv3_large_100_in21k_miil.pth",
+    "regnetx_002":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-regnet/regnetx_002-e7e85e5c.pth",
+    "regnetx_032":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-regnet/regnetx_032-ed0c7f7e.pth",
+    "regnety_002":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-regnet/regnety_002-e68ca334.pth",
+    "res2net101_26w_4s":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-res2net/res2net101_26w_4s-02a759a1.pth",
+    "res2net50":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-res2net/res2net50_26w_4s-06e79181.pth",
+    "res2net50_14w_8s":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-res2net/res2net50_14w_8s-6527dddc.pth",
+    "res2net50_26w_4s":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-res2net/res2net50_26w_4s-06e79181.pth",
+    "res2net50_26w_6s":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-res2net/res2net50_26w_6s-19041792.pth",
+    "res2net50_26w_8s":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-res2net/res2net50_26w_8s-2c7c9f12.pth",
+    "res2net50_48w_2s":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-res2net/res2net50_48w_2s-afed724a.pth",
+    "res2next50":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-res2net/res2next50_4s-6ef7e7bf.pth",
+    "resnest101e":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-resnest/resnest101-22405ba7.pth",
+    "resnest14d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/gluon_resnest14-9c8fe254.pth",
+    "resnest200e":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-resnest/resnest200-75117900.pth",
+    "resnest269e":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-resnest/resnest269-0cc87c48.pth",
+    "resnest26d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/gluon_resnest26-50eb607c.pth",
+    "resnest50d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-resnest/resnest50-528c19ca.pth",
+    "resnest50d_1s4x24d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-resnest/resnest50_fast_1s4x24d-d4a4f76f.pth",
+    "resnest50d_4s2x40d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-resnest/resnest50_fast_4s2x40d-41d14ed0.pth",
+    "seresnet50":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/seresnet50_ra_224-8efdb4bb.pth",
+    "skresnet18":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/skresnet18_ra-4eec2804.pth",
+    "skresnet34":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/skresnet34_ra-bdc0ccde.pth",
+    "skresnext50_32x4d":
+        "https://github.com/rwightman/pytorch-image-models/releases/download/v0.1-weights/skresnext50_ra-f40e40bf.pth",
 }
 
 
@@ -380,12 +463,22 @@ def npz_path(backbone: str, directory: Optional[str] = None) -> str:
     return os.path.join(directory or zoo_dir(), f"{backbone}_in21k.npz")
 
 
+# JAX sends the other efficientnet_* names and these MobileNetV3s to its
+# generic EfficientNet mapper (``zoo.py:751-770``), which the port lacks.
+_EFFICIENTNET_MAPPED = frozenset(f"efficientnet_b{i}" for i in range(5))
+_GENERIC_MOBILENETV3 = frozenset(("mobilenetv3_large_075", "mobilenetv3_rw",
+                                  "mobilenetv3_small_075", "mobilenetv3_small_100"))
+
+
 def convert_state_dict(backbone: str, state: Mapping[str, object]) -> Dict[str, np.ndarray]:
     """A timm state dict of the registry name ``backbone`` as its flat flax
-    dict, by the mapper of its family, in JAX's order (``zoo.py:648-800``):
+    dict, by the mapper of its family, in JAX's order (``zoo.py:648-862``):
     the timm ResNet constructor's names first (so that resnet50d does not
     fall to the torchvision layout), then Swin, PiT, ViT/DeiT, BiT, the
-    torchvision ResNets and their aliases, VGG, DenseNet."""
+    torchvision ResNets and their aliases, the legacy SENets, SEResNet,
+    Res2Net and ResNeSt, EfficientNet b0-b4, VGG, DenseNet, RegNet, the
+    SK-ResNets, MobileNetV3. As in JAX, sknet50 and res2next50 match no
+    rule."""
     from acr_wsss_tpu_torch.models.resnet_timm import _TIMM_RESNET_CFGS
 
     if backbone in _TIMM_RESNET_CFGS:
@@ -402,10 +495,22 @@ def convert_state_dict(backbone: str, state: Mapping[str, object]) -> Dict[str, 
                             "ssl_resne", "swsl_resne", "ig_resnext")) \
             and not backbone.startswith("resnetv2"):
         return resnet_state_dict_to_flax(state)
+    if backbone.startswith(("legacy_seresnet", "legacy_senet", "legacy_seresnext")):
+        return legacy_senet_state_dict_to_flax(state)
+    if backbone.startswith(("seresnet", "res2net", "resnest")):
+        return attn_resnet_state_dict_to_flax(state)
+    if backbone in _EFFICIENTNET_MAPPED:
+        return efficientnet_state_dict_to_flax(state)
     if backbone.startswith("vgg"):
         return vgg_state_dict_to_flax(state)
     if backbone.startswith(("densenet", "tv_densenet")):
         return densenet_state_dict_to_flax(state)
+    if backbone.startswith("regnet"):
+        return regnet_state_dict_to_flax(state)
+    if backbone.startswith(("skresnet", "skresnext")):
+        return sknet_state_dict_to_flax(state)
+    if backbone.startswith("mobilenetv3") and backbone not in _GENERIC_MOBILENETV3:
+        return mobilenetv3_state_dict_to_flax(state)
     raise ValueError(f"no timm checkpoint mapper for {backbone!r} in the port: it maps the "
                      "swin_*, pit_*, vit_*, resnetv2_*_bitm names and the CNN families "
                      "(resnetv2_50 and resnetv2_101 load from a flat flax .npz)")

@@ -37,7 +37,7 @@ from torch.nn.parallel import DistributedDataParallel
 def wrap_ddp(model: nn.Module, device: torch.device, mesh: DeviceMesh
              ) -> DistributedDataParallel:
     """``model`` replicated over the mesh's ranks, gradients averaged in
-    the backward. The final LayerNorm (``trunk.norm``) is on no loss
+    the backward. ACR's final LayerNorm (``trunk.norm``) is on no loss
     path of the train step (the head reads a tap taken before it), as in
     the reference's hooked ViT, hence ``find_unused_parameters``; its
     weight decay still applies, identically on every rank."""

@@ -27,10 +27,17 @@ JAX's ``compute_joint_loss`` (the bg/fg split cross-entropy,
 ``myTool.py:838-857``) is one call of ``losses.compute_joint_ce``; the port's
 callers use that directly.
 
-The recipes no ``--recipe`` reaches (``compute_seg_label_coco``,
-``_crf_sure``, ``_2``, ``_old``, ``_no_saliency``, ``_4``, ``_5`` and
-``_two_step_coco``) are not ported; they come with a caller that needs
-them.
+The long-tail recipes, which no ``--recipe`` reaches (``myTool.py:57-670``,
+JAX's ``pseudo_label.py:284-451``): :func:`compute_seg_label_coco` (the
+80-class recipe, bg power 32), :func:`compute_seg_label_crf_sure` (the
+base recipe; the reference's own ``compute_seg_label`` crashes on its
+``for class_i in 20`` loop), :func:`compute_seg_label_2` (la=4),
+:func:`compute_seg_label_old` (bg power 8, no saliency),
+:func:`compute_seg_label_no_saliency`, :func:`compute_seg_label_4` (a
+dilated-saliency "safe background" gate), :func:`compute_seg_label_5`
+(and the dilated foreground mask) and
+:func:`compute_seg_label_two_step_coco` (80 classes), with their helpers
+``_dilate`` and ``_sure_region_la_ha``, on the same host CRF.
 """
 
 from __future__ import annotations
@@ -71,13 +78,28 @@ def _morph_open(mask_u8: np.ndarray, ksize: int = 10) -> np.ndarray:
     return (opened * 255).astype(np.uint8)
 
 
+def _dilate(mask_u8: np.ndarray, ksize: int) -> np.ndarray:
+    """Binary dilation with a ksize x ksize all-ones structuring element
+    (cv2.dilate semantics on a 0/255 mask)."""
+    from scipy import ndimage
+
+    dilated = ndimage.binary_dilation(mask_u8 > 0,
+                                      structure=np.ones((ksize, ksize), bool))
+    return (dilated * 255).astype(np.uint8)
+
+
 def _mine_sure_regions(crf_label: np.ndarray, norm_cam: np.ndarray,
                        cam_label: np.ndarray, saliency: Optional[np.ndarray],
-                       cut_threshold: float) -> np.ndarray:
+                       cut_threshold: float,
+                       claimable: Optional[np.ndarray] = None) -> np.ndarray:
     """Per-class confidence-percentile mining over background pixels
     (reference ``myTool.py:229-246``): pixels above the cut_threshold
     percentile of a present class's positive CAM values reclaim background;
-    overlaps between classes become 255 (conflict)."""
+    overlaps between classes become 255 (conflict).
+
+    ``claimable`` overrides which pixels a class may claim (default: the
+    current background ``crf_label == 0``; ``compute_seg_label_4`` uses the
+    complement of the dilated saliency instead, ``myTool.py:497-513``)."""
     h, w = crf_label.shape
     high_conf_area = np.zeros((h, w), bool)
     for class_i in range(norm_cam.shape[0]):
@@ -89,13 +111,88 @@ def _mine_sure_regions(crf_label: np.ndarray, norm_cam: np.ndarray,
         if confidence_pos <= 0:
             continue
         confidence_value = positives[confidence_pos]
-        high_conf_cls = (cam_class > confidence_value) & (crf_label == 0)
+        gate = (crf_label == 0) if claimable is None else claimable
+        high_conf_cls = (cam_class > confidence_value) & gate
         crf_label[high_conf_cls] = class_i + 1
         if saliency is not None:
             saliency[high_conf_cls] = 255
         conflict = high_conf_cls & high_conf_area
         crf_label[conflict] = 255
         high_conf_area[high_conf_cls] = True
+    return crf_label
+
+
+def _sure_region_la_ha(
+    ori_img: np.ndarray,
+    cam_label: np.ndarray,
+    norm_cam: np.ndarray,
+    la_alpha: float,
+    ha_alpha: float,
+    bg_power: float,
+    fg_floor: float = 0.1,
+    fg_percentile: float = 0.6,
+    bg_sure: float = 0.8,
+    crf_sure: float = 0.8,
+) -> np.ndarray:
+    """Shared low/high-alpha CRF fusion with CAM sure-region mining — the
+    structure common to the reference's ``compute_seg_label`` (base, which
+    crashes on its ``for class_i in 20`` loop; intended semantics taken
+    from the fixed loop in ``compute_seg_label_2``, ``myTool.py:151-170``),
+    ``compute_seg_label_2`` and ``compute_seg_label_old``:
+
+    * candidates = low-alpha CRF argmax, background demoted to 255;
+    * per class present in the candidates: sure = CAM above the
+      ``fg_percentile`` percentile of its > ``fg_floor`` values inside its
+      own CAM-argmax region (background: fixed ``bg_sure`` threshold);
+    * high-alpha CRF background forced to 0;
+    * pixels with fused CRF confidence (ha bg channel + la fg channels)
+      below ``crf_sure`` OR outside the sure region -> 255.
+    """
+    cam_label = cam_label.astype(np.uint8)
+    cam_dict = {i: norm_cam[i] for i in range(norm_cam.shape[0])
+                if cam_label[i] > 1e-5}
+    cam_np = np.where(cam_label[:, None, None] > 0, norm_cam, 0.0)
+    bg_score = np.power(1 - np.max(cam_np, 0), bg_power)[None]
+    cam_all = np.concatenate((bg_score, cam_np))
+    cam_img = np.argmax(cam_all, 0)
+
+    crf_la = crf_with_alpha(ori_img, cam_dict, la_alpha)
+    crf_ha = crf_with_alpha(ori_img, cam_dict, ha_alpha)
+    la_label = np.argmax(crf_la, 0)
+    ha_label = np.argmax(crf_ha, 0)
+    crf_label = la_label.astype(np.int32).copy()
+    crf_label[la_label == 0] = 255
+
+    sure = np.zeros(cam_img.shape, bool)
+    for class_i in np.unique(la_label):
+        cam_class = cam_all[class_i].copy()
+        cam_class[cam_img != class_i] = 0
+        if class_i != 0:
+            order = np.sort(cam_class[cam_class > fg_floor])
+            pos = int(order.shape[0] * fg_percentile)
+            if pos <= 0:
+                continue
+            sure |= cam_class > order[pos]
+        else:
+            sure |= cam_class > bg_sure
+    crf_label[ha_label == 0] = 0
+    fused_conf = np.concatenate([crf_ha[:1], crf_la[1:]])
+    not_sure = (np.max(fused_conf, 0) < crf_sure) | ~sure
+    crf_label[not_sure] = 255
+    return crf_label
+
+
+def _power_background_labels(cam_label: np.ndarray, norm_cam: np.ndarray,
+                             saliency: np.ndarray, bg_power: float) -> np.ndarray:
+    """The mining recipes' start (``myTool.py:188-226``): the argmax over
+    [(1 - max present CAM)^bg_power, the present classes' CAMs], its
+    background demoted to 255 and the saliency's background (0) forced to
+    0; int32."""
+    cam_np = np.where(cam_label[:, None, None] > 0, norm_cam, 0.0)
+    bg_score = np.power(1 - np.max(cam_np, 0), bg_power)[None]
+    crf_label = np.argmax(np.concatenate((bg_score, cam_np)), 0).astype(np.int32)
+    crf_label[crf_label == 0] = 255
+    crf_label[saliency == 0] = 0
     return crf_label
 
 
@@ -120,15 +217,7 @@ def compute_seg_label(
       (crf_label (H, W) uint8 pseudo mask with 255=ignore, updated saliency)
     """
     cam_label = cam_label.astype(np.uint8)
-    cam_np = np.where(cam_label[:, None, None] > 0, norm_cam, 0.0)
-
-    bg_score = np.power(1 - np.max(cam_np, 0), bg_power)[None]
-    cam_all = np.concatenate((bg_score, cam_np))
-    crf_label = np.argmax(cam_all, 0).astype(np.int32)
-
-    crf_label[crf_label == 0] = 255
-    crf_label[saliency == 0] = 0
-
+    crf_label = _power_background_labels(cam_label, norm_cam, saliency, bg_power)
     crf_label = _mine_sure_regions(crf_label, norm_cam, cam_label, saliency,
                                    cut_threshold)
 
@@ -204,6 +293,160 @@ def dense_energy_loss(images: np.ndarray, probs, croppings: np.ndarray,
         images.astype(np.float32), probs * croppings[:, None],
         sigma_xy, sigma_rgb) / max(n, 1)
     return value, grad
+
+
+def compute_seg_label_coco(
+    ori_img: np.ndarray,
+    cam_label: np.ndarray,
+    norm_cam: np.ndarray,
+    saliency: np.ndarray,
+    cut_threshold: float = 0.9,
+    out_dir: Optional[str] = None,
+    name: str = "",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """80-class COCO pseudo-label recipe (reference
+    ``compute_seg_label_coco``, ``myTool.py:748-821``): same structure as
+    the VOC recipe with bg power 32."""
+    return compute_seg_label(ori_img, cam_label, norm_cam, saliency,
+                             cut_threshold=cut_threshold, bg_power=32.0,
+                             out_dir=out_dir, name=name)
+
+
+def compute_seg_label_crf_sure(
+    ori_img: np.ndarray,
+    cam_label: np.ndarray,
+    norm_cam: np.ndarray,
+    saliency: Optional[np.ndarray] = None,
+    la_alpha: float = 8.0,
+    ha_alpha: float = 32.0,
+    bg_power: float = 32.0,
+) -> np.ndarray:
+    """Reference ``compute_seg_label`` (base variant, ``myTool.py:57-124``):
+    la=8/ha=32 CRF fusion + CAM sure-region mining + saliency gate. The
+    reference function crashes on its ``for class_i in 20`` loop; intended
+    semantics implemented per ``compute_seg_label_2``'s fixed loop."""
+    crf_label = _sure_region_la_ha(ori_img, cam_label, norm_cam,
+                                   la_alpha, ha_alpha, bg_power)
+    if saliency is not None:
+        crf_label[saliency == 0] = 0
+    return crf_label.astype(np.uint8)
+
+
+def compute_seg_label_2(
+    ori_img: np.ndarray,
+    cam_label: np.ndarray,
+    norm_cam: np.ndarray,
+    saliency: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Reference ``compute_seg_label_2`` (``myTool.py:126-186``): the base
+    recipe with a tighter low alpha (4)."""
+    crf_label = _sure_region_la_ha(ori_img, cam_label, norm_cam,
+                                   la_alpha=4.0, ha_alpha=32.0, bg_power=32.0)
+    crf_label[saliency == 0] = 0
+    return crf_label.astype(np.uint8), saliency
+
+
+def compute_seg_label_old(
+    ori_img: np.ndarray,
+    cam_label: np.ndarray,
+    norm_cam: np.ndarray,
+) -> np.ndarray:
+    """Reference ``compute_seg_label_old`` (``myTool.py:612-670``): base
+    recipe with bg power 8 and NO saliency gate."""
+    return _sure_region_la_ha(ori_img, cam_label, norm_cam, la_alpha=8.0,
+                              ha_alpha=32.0, bg_power=8.0).astype(np.uint8)
+
+
+def compute_seg_label_no_saliency(
+    ori_img: np.ndarray,
+    cam_label: np.ndarray,
+    norm_cam: np.ndarray,
+    la_alpha: float = 8.0,
+) -> np.ndarray:
+    """Reference ``compute_seg_label_no_saliency`` (``myTool.py:266-311``):
+    single low-alpha CRF; its argmax with background demoted to ignore."""
+    cam_label = cam_label.astype(np.uint8)
+    cam_dict = {i: norm_cam[i] for i in range(norm_cam.shape[0])
+                if cam_label[i] > 1e-5}
+    crf_la = crf_with_alpha(ori_img, cam_dict, la_alpha)
+    crf_label = np.argmax(crf_la, 0).astype(np.int32)
+    crf_label[crf_label == 0] = 255
+    return crf_label.astype(np.uint8)
+
+
+def compute_seg_label_4(
+    ori_img: np.ndarray,
+    cam_label: np.ndarray,
+    norm_cam: np.ndarray,
+    saliency: np.ndarray,
+    cut_threshold: float = 0.95,
+    bg_power: float = 32.0,
+    saliency_dilate_ksize: int = 40,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Reference ``compute_seg_label_4`` (``myTool.py:456-525``): "safe
+    background" mining — classes may only claim pixels OUTSIDE the 40x40-
+    dilated saliency (a margin away from known objects), percentile 0.95,
+    no morphological cleanup."""
+    cam_label = cam_label.astype(np.uint8)
+    crf_label = _power_background_labels(cam_label, norm_cam, saliency, bg_power)
+    claimable = _dilate(saliency.astype(np.uint8), saliency_dilate_ksize) == 0
+    crf_label = _mine_sure_regions(crf_label, norm_cam, cam_label, saliency,
+                                   cut_threshold, claimable=claimable)
+    return crf_label.astype(np.uint8), saliency
+
+
+def compute_seg_label_5(
+    ori_img: np.ndarray,
+    cam_label: np.ndarray,
+    norm_cam: np.ndarray,
+    saliency: np.ndarray,
+    cut_threshold: float = 0.95,
+    bg_power: float = 32.0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Reference ``compute_seg_label_5`` (``myTool.py:534-609``): the
+    two-step mining recipe (percentile 0.95) + morphological-open denoise,
+    additionally returning the 40x40-dilated (opened) foreground mask."""
+    cam_label = cam_label.astype(np.uint8)
+    crf_label = _power_background_labels(cam_label, norm_cam, saliency, bg_power)
+    crf_label = _mine_sure_regions(crf_label, norm_cam, cam_label, saliency,
+                                   cut_threshold)
+    frg_open = _morph_open(((crf_label != 0) * 255).astype(np.uint8), 10)
+    crf_label[frg_open != 255] = 0
+    frg_dilate = _dilate(frg_open, 40)
+    return crf_label.astype(np.uint8), saliency, frg_dilate
+
+
+def compute_seg_label_two_step_coco(
+    ori_img: np.ndarray,
+    cam_label: np.ndarray,
+    norm_cam: np.ndarray,
+    saliency: np.ndarray,
+    native_size: Optional[Tuple[int, int]] = None,
+    cut_threshold: float = 0.95,
+    bg_power: float = 32.0,
+    out_dir: Optional[str] = None,
+    name: str = "",
+) -> np.ndarray:
+    """Reference ``compute_seg_label_two_step_coco`` (``myTool.py:388-453``):
+    80-class mining at percentile 0.95, no morphological cleanup,
+    nearest-neighbor resize to the native image size."""
+    cam_label = cam_label.astype(np.uint8)
+    crf_label = _power_background_labels(cam_label, norm_cam, saliency, bg_power)
+    crf_label = _mine_sure_regions(crf_label, norm_cam, cam_label, saliency,
+                                   cut_threshold)
+    crf_label = crf_label.astype(np.uint8)
+    if native_size is not None:
+        from PIL import Image
+
+        H, W = native_size
+        crf_label = np.asarray(
+            Image.fromarray(crf_label).resize((W, H), Image.NEAREST))
+    if out_dir:
+        from PIL import Image
+
+        os.makedirs(out_dir, exist_ok=True)
+        Image.fromarray(crf_label).save(os.path.join(out_dir, f"{name}.png"))
+    return crf_label
 
 
 def compute_seg_label_rrm(

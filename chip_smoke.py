@@ -186,7 +186,25 @@ package. Phases, each of which fails the run when it fails:
    (one thread; oneDNN off) make in the same run; (e) bf16
    forwards of resnet50, resnet50d, seresnext26d_32x4d, densenet121 and
    vgg16_bn (host clock); then K1b's and the K5 backwards' times at the
-   fine-tune shapes beside SDPA's forward and backward.
+   fine-tune shapes beside SDPA's forward and backward;
+18. the zoo and the WSSS surface, no kernel: (a) ``train_swin``'s step on
+   the data mesh (``make_data_mesh_for_batch``, DDP) at swin_base_384's
+   widths and depth, crop 384, from phase 15's seeded zoo npz
+   (``--pretrained``), float32 with TF32 off: two gloo ranks on the card,
+   2 + 2 images, against the one-device step on the 4 in phase 13 (b)'s
+   gates, and a world-size-1 NCCL step giving the one-device step's bits;
+   then ``train_swin.main --pretrained`` on the two ranks under the
+   launcher's variables: 2 steps, one history on both, ``swin_last.npz``
+   written by rank 0 alone, no launch; (b) float32 eval forwards at each name's default input size, batch 8,
+   of efficientnet_b0/b3, mobilenetv3_large_100, regnety_032, seresnet50,
+   resnest50d, res2net50_26w_4s, skresnet50 and legacy_senet154 against
+   the CPU within 1e-3 of the largest |logit|, and each one's bf16
+   forward time; (c) phase 17 (d)'s train-mode step for efficientnet_b0
+   and seresnet50; (d) ``ASPP`` (2048 -> 256 on 32x32), ``AttentionConv``
+   (64 channels, kernel 7, 8 groups, 64x64) and ``grad_cam`` on (b)'s
+   seresnet50 features, card against CPU within 1e-4 of the largest
+   value. (b)'s float32 checks, (c) and (d) run while (a)'s ranks work;
+   (b)'s bf16 forwards are timed after, alone.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object with one entry per kernel; the last line is
@@ -234,7 +252,9 @@ from acr_wsss_tpu_torch.data import voc as voc_data  # noqa: E402
 from acr_wsss_tpu_torch.infer_cam import build_infer_fn, process_image  # noqa: E402
 from acr_wsss_tpu_torch.models.acr import ACR, init_random_  # noqa: E402
 from acr_wsss_tpu_torch.models import vit as vit_mod  # noqa: E402
-from acr_wsss_tpu_torch.models import convert, registry, zoo  # noqa: E402
+from acr_wsss_tpu_torch.getam import grad_cam  # noqa: E402
+from acr_wsss_tpu_torch.models import convert, extras, registry, zoo  # noqa: E402
+from acr_wsss_tpu_torch.models.layers import classifier_head  # noqa: E402
 from acr_wsss_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax  # noqa: E402
 from acr_wsss_tpu_torch.models.dpt import DPTSegmentationModel  # noqa: E402
 from acr_wsss_tpu_torch.ops import _build, attn_pair  # noqa: E402
@@ -540,6 +560,29 @@ HYBRIDS = ("vit_small_resnet26d_224", "vit_small_resnet50d_s16_224", "vit_base_r
 CNN_STEP_NAMES, CNN_STEP_BATCH, CNN_STEP_CROP = ("resnet50", "ecaresnet26t"), 2, 128
 CNN_SPREAD = 2.0
 CNN_TIMED = ("resnet50", "resnet50d", "seresnext26d_32x4d", "densenet121", "vgg16_bn")
+# Phase 18, the zoo and the WSSS surface. (a) ``train_swin`` on the data
+# mesh at swin_base_384's published widths and depth (phase 15's
+# configuration and seeded zoo npz, --pretrained), float32 with TF32 off:
+# at world size 1 (NCCL) the one-device step's bits; two gloo ranks on the
+# card, 2 + 2 images, against the one-device 4-image step with phase 13
+# (b)'s gates (LOSS_RTOL, UPDATE_REL: float32 sums of 2 + 2 images in
+# another order, 3.1e-05 on the hybrid). (b) float32 eval forwards (TF32
+# off) of ZOO_FORWARDS at each name's default input size, batch CLS_BATCH,
+# card against CPU within CNN_REL of the largest |logit| (phase 16 (d)'s
+# reason); their bf16 forward times. (c) phase 17 (d)'s train-mode step
+# for ZOO_STEP_NAMES. CNN_ZERO_GRAD: per name, the tensors whose gradient
+# is 0 in exact arithmetic (EfficientNet's project BatchNorm feeds the next
+# 1x1 conv and its train-mode BatchNorm, which takes the mean out). (d) the
+# WSSS surface, card against CPU on the same inputs within SURFACE_REL of
+# the largest |value|: one layer of float32 sums in another order, no
+# chain of them (CNN_REL's 1e-3 covers a whole network).
+ZOO_FORWARDS = ("efficientnet_b0", "efficientnet_b3", "mobilenetv3_large_100", "regnety_032",
+                "seresnet50", "resnest50d", "res2net50_26w_4s", "skresnet50", "legacy_senet154")
+ZOO_STEP_NAMES = ("efficientnet_b0", "seresnet50")
+CNN_ZERO_GRAD = {"efficientnet_b0": r"\.project\.bn\.bias$"}
+SURFACE_REL, SWIN_DP_RANKS = 1e-4, 2
+ASPP_CASE = (2, 2048, 32, 32)          # DeepLab's widths: 2048 in, 256 out
+ATTN_CONV_CASE = (2, 64, 64, 64)       # 64 channels, kernel 7, 8 groups
 KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL, pamr_ops.KERNEL)
 
 
@@ -3290,8 +3333,8 @@ def update_rels(p0, p1, ref_p1) -> dict:
     return rel
 
 
-def check_cnn_steps(device) -> None:
-    """(d) CNN_STEP_NAMES: the step on the card (float32, TF32 off) against
+def check_cnn_steps(device, names=CNN_STEP_NAMES) -> None:
+    """(d) ``names``: the step on the card (float32, TF32 off) against
     the port's step on the CPU (all threads, oneDNN) from the same
     trained-like weights. Logits within CNN_REL of the largest |logit|;
     each running statistic's update within CNN_REL (relative L2); the
@@ -3299,12 +3342,17 @@ def check_cnn_steps(device) -> None:
     spread: the CPU step again on one thread and with oneDNN off, each
     against the reference; the card's whole update and its worst tensor
     within CNN_SPREAD times the larger of those two readings, and never
-    above phase 7's UPDATE_REL."""
+    above phase 7's UPDATE_REL. A name's CNN_ZERO_GRAD tensors, whose
+    gradient is 0 in exact arithmetic, are printed and left out of the
+    worst tensor (their update is rounding noise on every side) and held,
+    on the card and on the CPU alike, within CNN_REL of the largest
+    element of the CPU's update."""
     gen = torch.Generator().manual_seed(26)
     x = torch.randn((CNN_STEP_BATCH, CNN_STEP_CROP, CNN_STEP_CROP, 3), generator=gen)
     labels = torch.randint(0, 1000, (CNN_STEP_BATCH,), generator=gen)
     threads = torch.get_num_threads()
-    for name in CNN_STEP_NAMES:
+    for name in names:
+        zero = CNN_ZERO_GRAD.get(name)
         weights = trained_like(registry.create_model(name, dtype=torch.float32),
                                seed=26).state_dict()
         cpu = []
@@ -3323,7 +3371,8 @@ def check_cnn_steps(device) -> None:
         torch.cuda.synchronize()
         rel = update_rels(p0, p1, ref_p1)
         stats = [k for k in rel if k.endswith((".mean", ".var"))]
-        params = [k for k in rel if k not in stats and k != "(all parameters)"]
+        noise = [k for k in p0 if zero and re.search(zero, k)]
+        params = [k for k in rel if k not in stats + noise and k != "(all parameters)"]
         whole, worst = "(all parameters)", max(params, key=rel.get)
         worst_stat = max(stats, key=rel.get) if stats else None
         spread = {whole: 0.0, "tensor": 0.0}
@@ -3346,6 +3395,16 @@ def check_cnn_steps(device) -> None:
             f"{worst_stat} {rel[worst_stat]:.3g} (tolerance {CNN_REL}); update {rel[whole]:.3g} "
             f"(tolerance {limit[whole]:.3g}), {worst} {rel[worst]:.3g} (tolerance "
             f"{limit['tensor']:.3g}): {CNN_SPREAD} x the CPU's, at most {UPDATE_REL}")
+        if noise:
+            largest = max((ref_p1[k] - p0[k]).abs().max().item() for k in params)
+            tiny = {side: max((after[k].cpu() - p0[k]).abs().max().item() for k in noise)
+                    for side, after in (("CPU", ref_p1), ("card", p1))}
+            log(f"    {len(noise)} tensors with a gradient of 0 in exact arithmetic ({zero}) "
+                f"left out of the worst tensor: their update at most {tiny['CPU']:.3g} on the "
+                f"CPU and {tiny['card']:.3g} on the card, the largest update {largest:.3g} "
+                f"(tolerance {CNN_REL} x)")
+            if max(tiny.values()) > CNN_REL * largest:
+                raise AssertionError(f"{name}: a tensor of {zero} moved")
         if (not stats or err > CNN_REL * ref_logits.abs().max().item()
                 or rel[worst_stat] > CNN_REL or rel[whole] > limit[whole]
                 or rel[worst] > limit["tensor"]):
@@ -3449,6 +3508,285 @@ def phase_finetune(device, card) -> dict:
     res["cnn_ms"] = time_cnn_forwards(device, card)
     res["timing"] = time_bwd_head_dims(device, card)
     return res
+
+
+def swin_dp_config(cfg):
+    """Phase 15's Swin configuration (SWIN_MODEL at crop 384, the recipe's
+    batch, lr and alpha) in float32 on the first card."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone=SWIN_MODEL, compute_dtype="float32"), device="cuda:0")
+
+
+def swin_dp_step(cfg, batch, mesh):
+    """One ``train_swin`` step as ``main`` builds it (``--pretrained`` from
+    the zoo npz of ``ACR_WSSS_ZOO``), on ``mesh`` (None: one device):
+    (None, None, loss parts, parameters before, after), launches."""
+    device = torch.device(cfg.device)
+    model, opt = train_swin.create_swin_train_state(cfg, TRAIN_IMAGES // TRAIN_BATCH,
+                                                    SWIN_MODEL, pretrained=True, mesh=mesh)
+    before = {k: v.detach().clone() for k, v in unwrap(model).named_parameters()}
+    step = train_swin.make_swin_train_step(model, opt, cfg, CROP, device, mesh)
+    reset_counts()
+    parts = {k: float(v) for k, v in step(batch).items()}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    after = {k: v.detach().clone() for k, v in unwrap(model).named_parameters()}
+    return (None, None, parts, before, after), launches
+
+
+def swin_dp_rank(rank, world, store, tmp, cfg, port, argv):
+    """(a)'s ranks: one of ``world`` gloo ranks on the card, its share of
+    the batch in ``tmp``; rank 0 writes the loss parts (averaged over the
+    ranks) and the parameters after the update. Then ``train_swin.main(argv)``
+    under the launcher's variables, each rank with the weight directory
+    ``<argv's>/rank<r>``, writing its run's steps and history to
+    ``tmp/swin_dp_cli<r>.pt``. NCCL takes no two ranks on one card, so the
+    rank joins the launcher's group over gloo (``env://``, ``LOCAL_RANK``
+    0: the one card) before ``main``, whose own ``initialize`` finds it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize("cuda:0", init_method=f"file://{store}", rank=rank,
+                           world_size=world, backend="gloo")
+    batch = dict(np.load(os.path.join(tmp, "swin_dp_batch.npz")))
+    per = cfg.batch_size // world
+    mesh = make_data_mesh_for_batch(cfg.batch_size, "cuda")
+    (_, _, parts, _, after), launches = swin_dp_step(
+        cfg, {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}, mesh)
+    if rank == 0:
+        torch.save({"parts": parts, "after": {k: v.cpu() for k, v in after.items()},
+                    "launches": launches}, os.path.join(tmp, "swin_dp_rank0.pt"))
+    distributed.shutdown()
+    del after
+    torch.cuda.empty_cache()
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    distributed.initialize("cuda", backend="gloo")
+    argv = list(argv)
+    argv[argv.index("--weight_dir") + 1] += f"/rank{rank}"
+    reset_counts()
+    state = train_swin.main(argv)
+    torch.save({"steps": state.steps, "history": state.history, "launches": read_counts()},
+               os.path.join(tmp, f"swin_dp_cli{rank}.pt"))
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def check_swin_dp_cli(tmp, weight_dir) -> None:
+    """(a)'s ``train_swin.main`` on the ranks: both ran every step with the
+    same loss parts, finite, and no kernel; rank 0 alone wrote the npz."""
+    runs = [torch.load(os.path.join(tmp, f"swin_dp_cli{r}.pt"), weights_only=True)
+            for r in range(SWIN_DP_RANKS)]
+    files = {r: sorted(os.listdir(os.path.join(weight_dir, f"rank{r}")))
+             if os.path.isdir(os.path.join(weight_dir, f"rank{r}")) else []
+             for r in range(SWIN_DP_RANKS)}
+    log(f"  (a) train_swin.main --pretrained on {SWIN_DP_RANKS} gloo ranks under the launcher's "
+        f"variables, {TRAIN_BATCH // SWIN_DP_RANKS} images each: steps "
+        f"{[run['steps'] for run in runs]}, files written {files}, launches "
+        f"{[run['launches'] for run in runs]}")
+    for step, parts in enumerate(runs[0]["history"]):
+        log(f"    step {step}: " + ", ".join(f"{k} {v:.6g}" for k, v in parts.items()))
+    if not all(run["steps"] == 2 and run["history"] == runs[0]["history"] for run in runs):
+        raise AssertionError("the ranks of train_swin.main ran other steps or other loss parts")
+    if not all(math.isfinite(v) for parts in runs[0]["history"] for v in parts.values()):
+        raise AssertionError("train_swin.main on the ranks: a loss part is not finite")
+    if files[0] != ["swin_last.npz"] or any(files[r] for r in range(1, SWIN_DP_RANKS)):
+        raise AssertionError("train_swin.main on the ranks: rank 0 alone must write "
+                             "swin_last.npz")
+    if any(run["launches"] != zero_counts() for run in runs):
+        raise AssertionError("train_swin.main on the ranks launched a kernel")
+
+
+def check_swin_data_parallel(device, cfg, root, tmp, meanwhile) -> None:
+    """(a) ``train_swin`` over the data mesh: SWIN_DP_RANKS gloo ranks take
+    their steps (2 + 2 images) and then run ``train_swin.main`` under the
+    launcher's variables, while this process takes the one-device step on
+    the 4, the world-size-1 NCCL step (bit for bit against it) and then
+    ``meanwhile()``; the ranks' step against the one-device one, and their
+    ``main`` runs, once they are done. No time is read while the ranks
+    run."""
+    scfg = swin_dp_config(cfg)
+    batch = {k: np.asarray(v) for k, v in first_batch(cfg).items() if k in ("image", "label")}
+    np.savez(os.path.join(tmp, "swin_dp_batch.npz"), **batch)
+    # One batch of the fixture and one epoch: main's two steps (the range's
+    # and the one at its end).
+    cli_list, weight_dir = os.path.join(tmp, "swin_dp_list.txt"), os.path.join(tmp, "swin_dp")
+    with open(cli_list, "w") as fh:
+        fh.write("\n".join(voc_data.read_file(cfg.train_list)[:TRAIN_BATCH]) + "\n")
+    argv = ["--model", SWIN_MODEL, "--crop_size", str(CROP), "--batch_size", str(TRAIN_BATCH),
+            "--lr", str(cfg.lr), "--alpha", str(cfg.alpha), "--max_epoches", "1",
+            "--IMpath", cfg.image_dir, "--train_list", cli_list,
+            "--cls_labels", cfg.cls_labels_path, "--weight_dir", weight_dir,
+            "--session_name", "swin", "--pretrained", "--device", "cuda"]
+    previous = os.environ.get("ACR_WSSS_ZOO")
+    os.environ["ACR_WSSS_ZOO"] = os.path.join(root, "swin_zoo")   # phase 15's npz
+    t0 = time.perf_counter()
+    try:
+        ranks = torch.multiprocessing.spawn(
+            swin_dp_rank, args=(SWIN_DP_RANKS, os.path.join(tmp, "swin_dp_store"), tmp, scfg,
+                                free_port(), argv),
+            nprocs=SWIN_DP_RANKS, join=False)
+        try:
+            ref, ref_launches = swin_dp_step(scfg, batch, None)
+            distributed.initialize("cuda:0",
+                                   init_method=f"file://{os.path.join(tmp, 'swin_ws1')}",
+                                   rank=0, world_size=1)
+            try:
+                ws1, ws1_launches = swin_dp_step(
+                    scfg, batch, make_data_mesh_for_batch(scfg.batch_size, "cuda"))
+            finally:
+                distributed.shutdown()
+            same = ws1[2] == ref[2] and all(torch.equal(v, ref[4][k]) for k, v in ws1[4].items())
+            diff = max(float((v - ref[4][k]).abs().max()) for k, v in ws1[4].items())
+            log(f"  (a) world-size-1 NCCL DDP step of train_swin against the one-device step: "
+                "loss parts " + ", ".join(f"{k} {v:.7g}" for k, v in ws1[2].items())
+                + f"; parameters after, largest difference {diff:.3g}; the same bits: {same}")
+            if not same:
+                raise AssertionError("the world-size-1 Swin DDP step is not the one-device "
+                                     "step's bits")
+            del ws1
+            meanwhile()
+        finally:
+            while not ranks.join(timeout=300):
+                pass
+    finally:
+        if previous is None:
+            os.environ.pop("ACR_WSSS_ZOO")
+        else:
+            os.environ["ACR_WSSS_ZOO"] = previous
+    out = torch.load(os.path.join(tmp, "swin_dp_rank0.pt"), weights_only=True)
+    log(f"  (a) {SWIN_DP_RANKS} gloo ranks on cuda:0, {scfg.batch_size // SWIN_DP_RANKS} images "
+        f"each, {time.perf_counter() - t0:.1f} s with the rest of (a), (b), (c) and (d); launches: "
+        f"one device {ref_launches}, rank 0 {out['launches']}, world size 1 {ws1_launches}")
+    if not ref_launches == out["launches"] == ws1_launches == zero_counts():
+        raise AssertionError("a Swin step launched a kernel")
+    got = (None, None, out["parts"], ref[3], {k: v.to(device) for k, v in out["after"].items()})
+    compare_steps(f"{SWIN_DP_RANKS}-rank float32 Swin DDP step", got, ref,
+                  f"the {scfg.batch_size}-image one-device float32 step")
+    check_swin_dp_cli(tmp, weight_dir)
+
+
+def check_zoo_forwards(device) -> dict:
+    """(b) ZOO_FORWARDS: float32 eval forwards on the card against the CPU
+    from the same trained-like weights. Returns each name's weights, for
+    ``time_zoo_forwards``, and seresnet50's CPU model and CPU output, for
+    (d)."""
+    kept = {"weights": {}}
+    for name in ZOO_FORWARDS:
+        size = registry.get_default_cfg(name)["input_size"][1]
+        gen = torch.Generator().manual_seed(30)
+        x = torch.randn((CLS_BATCH, size, size, 3), generator=gen)
+        cpu_model = trained_like(registry.create_model(name, dtype=torch.float32), seed=30).eval()
+        with torch.device(device):
+            card_model = registry.create_model(name, dtype=torch.float32).eval()
+        card_model.load_state_dict(cpu_model.state_dict())
+        with torch.no_grad():
+            want = cpu_model(x)
+            got = card_model(x.to(device))
+        torch.cuda.synchronize()
+        scale = want["logits"].abs().max().item()
+        err = (got["logits"].cpu() - want["logits"]).abs().max().item()
+        del card_model
+        log(f"  (b) {name}: float32, batch {CLS_BATCH}, {size}x{size}, logits card against CPU "
+            f"max abs err {err:.3g} of max |logit| {scale:.3g} (tolerance {CNN_REL} x)")
+        if not (math.isfinite(scale) and scale > 0 and err <= CNN_REL * scale):
+            raise AssertionError(f"{name}: the card's forward disagrees with the CPU's")
+        kept["weights"][name] = cpu_model.state_dict()
+        if name == "seresnet50":
+            kept["seresnet"] = {"model": cpu_model, "out": want}
+        del cpu_model
+    torch.cuda.empty_cache()
+    return kept
+
+
+def time_zoo_forwards(device, card, weights) -> dict:
+    """(b) each name's bf16 eval forward from ``weights``: host clock,
+    median of 5 after one, with nothing else running."""
+    out = {}
+    for name, state in weights.items():
+        size = registry.get_default_cfg(name)["input_size"][1]
+        x = torch.randn((CLS_BATCH, size, size, 3), generator=torch.Generator().manual_seed(30))
+        with torch.device(device):
+            bf16 = registry.create_model(name).eval()
+        bf16.load_state_dict(state)
+        out[name] = host_forward_ms(bf16, x.to(device))
+        del bf16
+        log(f"  (b) {name}: bf16 forward, batch {CLS_BATCH}, {size}x{size}: {out[name]:.2f} ms "
+            f"(host clock, median of 5), {CLS_BATCH / out[name] * 1e3:.1f} images/s [{card}]")
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_surface_module(label, cpu_fn, card_fn) -> float:
+    """``card_fn()`` against ``cpu_fn()`` within SURFACE_REL of the largest
+    |value|; returns the error relative to it."""
+    want = cpu_fn()
+    got = card_fn()
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got.detach().cpu() - want.detach()).abs().max().item()
+    log(f"  (d) {label}: card against CPU max abs err {err:.3g} of max |value| {scale:.3g} "
+        f"(tolerance {SURFACE_REL} x)")
+    if not (math.isfinite(scale) and scale > 0 and err <= SURFACE_REL * scale):
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+    return err / scale
+
+
+def check_surface(device, seresnet) -> None:
+    """(d) ``ASPP`` at DeepLab's widths, ``AttentionConv``, and
+    ``grad_cam`` on (b)'s seresnet50 features (the CPU's, on both sides)
+    for the top class of its first image, through its classifier head."""
+    gen = torch.Generator().manual_seed(31)
+    for label, make, shape in (
+            ("ASPP 2048 -> 256, dilations 1/6/12/18", lambda: extras.ASPP(2048), ASPP_CASE),
+            ("AttentionConv 64, kernel 7, 8 groups",
+             lambda: extras.AttentionConv(64, 64, kernel_size=7, groups=8), ATTN_CONV_CASE)):
+        cpu_m = trained_like(make(), seed=31).eval()
+        with torch.device(device):
+            card_m = make().eval()
+        card_m.load_state_dict(cpu_m.state_dict())
+        x = torch.randn(shape, generator=gen)
+        with torch.no_grad():
+            check_surface_module(f"{label}, {tuple(shape)}", lambda: cpu_m(x),
+                                 lambda: card_m(x.to(device)))
+    cpu_model, out = seresnet["model"], seresnet["out"]
+    with torch.device(device):
+        card_fc = torch.nn.Linear(cpu_model.fc.in_features, cpu_model.fc.out_features)
+    card_fc.load_state_dict(cpu_model.fc.state_dict())
+    feats = out["features"]
+    cls = int(out["logits"][0].argmax())
+    check_surface_module(
+        f"grad_cam on seresnet50's features {tuple(feats.shape)}, class {cls}",
+        lambda: grad_cam(feats, lambda f: classifier_head(f, cpu_model.fc), cls),
+        lambda: grad_cam(feats.to(device), lambda f: classifier_head(f, card_fc), cls))
+
+
+def phase_zoo_surface(device, cfg, root, tmp, card) -> None:
+    """(a) ``train_swin`` over the data mesh, whose ranks run while this
+    process takes (a)'s one-device and world-size-1 steps, (b) the mobile
+    and attention CNN families' float32 forwards against the CPU, (c) the
+    CNNs' train-mode step and (d) the WSSS surface (ASPP, AttentionConv,
+    grad_cam); then, with the ranks done, (b)'s bf16 forwards timed
+    alone."""
+    kept = {}
+
+    def meanwhile():
+        t0 = time.perf_counter()
+        kept.update(check_zoo_forwards(device))
+        log(f"  (b) {time.perf_counter() - t0:.1f} s")
+        log("  (c) the train-mode step, card against CPU (float32, TF32 off)")
+        check_cnn_steps(device, ZOO_STEP_NAMES)
+        check_surface(device, kept["seresnet"])
+
+    check_swin_data_parallel(device, cfg, root, tmp, meanwhile)
+    time_zoo_forwards(device, card, kept.pop("weights"))
 
 
 def time_step(label, step, batch, images, card, reps=6) -> dict:
@@ -3805,12 +4143,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/17] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/18] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/17] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/18] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         kernel = ""
@@ -3828,37 +4166,37 @@ def main() -> int:
         f"{pamr_ops.affinity_blocks_per_sm(PAMR_DILATIONS)} (at its largest halo), "
         f"pamr_update_kernel<{n_dil}> {pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
-    log("[3/17] kernels against their plain versions on the card")
+    log("[3/18] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/17] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+        log("[4/18] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
             f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
         (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
          pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/17] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/18] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/17] resumable training: preempt and resume, --device_aug, the relaunch "
+        log("[6/18] resumable training: preempt and resume, --device_aug, the relaunch "
             "supervisor, --pretrained, COCO; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_resume(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  resume phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[7/17] one train step, kernel path against plain path, same weights and batch")
+        log("[7/18] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
         model, opt, batch, layer_launches, step_ctx, fused = phase_step_compare(device, cfg)
         dp_ref = (step_ctx[0], batch, fused)
         del fused
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[8/17] attention entries: K5a, K5b, K5c against their plain versions and "
+        log("[8/18] attention entries: K5a, K5b, K5c against their plain versions and "
             "through autograd; the per-layer branch with a bf16 export")
         t0 = time.perf_counter()
         entry_errs, entry_launches, bf16_launches = phase_attention_entries(
@@ -3866,31 +4204,31 @@ def main() -> int:
         del step_ctx
         log(f"  attention entries phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[9/17] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+        log(f"[9/18] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
             f"crop 384, the recipe")
         t0 = time.perf_counter()
         phase_pipeline(cfg, os.path.join(tmp, "train"))
         log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[10/17] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
+        log("[10/18] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
             "on either route, pseudo_label")
         t0 = time.perf_counter()
         pseudo_dir = phase_crf(device, tmp, paths, labels, infer_launches, card)
         log(f"  CRF phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[11/17] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
+        log("[11/18] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
             f"{SEG_BATCH}; one bf16 seg step, kernel path against plain path")
         t0 = time.perf_counter()
         seg = phase_seg(device, cfg, tmp, pseudo_dir, card)
         log(f"  segmentation phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[12/17] serving and the reference import: the serving export, the convert "
+        log("[12/18] serving and the reference import: the serving export, the convert "
             "CLI; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_surface(device, tmp, paths, labels, card)
         log(f"  serving phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[13/17] parallel: DDP, FSDP and --dp on one card; vitb_hybrid, crop 384, "
+        log("[13/18] parallel: DDP, FSDP and --dp on one card; vitb_hybrid, crop 384, "
             "batch 4, the recipe")
         t0 = time.perf_counter()
         names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
@@ -3898,7 +4236,7 @@ def main() -> int:
         del dp_ref
         log(f"  parallel phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[14/17] timing on {card}")
+        log(f"[14/18] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "
@@ -3920,14 +4258,14 @@ def main() -> int:
         del model, opt
         torch.cuda.empty_cache()
 
-        log(f"[15/17] Swin and PiT: train_swin at {SWIN_MODEL}, crop {CROP}, batch "
+        log(f"[15/18] Swin and PiT: train_swin at {SWIN_MODEL}, crop {CROP}, batch "
             f"{TRAIN_BATCH}, the recipe; pit_b forwards on K1f at crop {PIT_CROP}")
         t0 = time.perf_counter()
         swin_pit = phase_swin_pit(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  Swin and PiT phase: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
-        log(f"[16/17] the classifier zoo: ViT and DeiT classifiers on K1n at batch "
+        log(f"[16/18] the classifier zoo: ViT and DeiT classifiers on K1n at batch "
             f"{CLS_BATCH}, K1f and K1n at head dims {CLS_HEAD_DIMS}, the PiT names on K1f, "
             "ResNetV2 and BiT, features_only, checkpoint_path")
         t0 = time.perf_counter()
@@ -3935,12 +4273,21 @@ def main() -> int:
         log(f"  classifier phase: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
-        log(f"[17/17] fine-tuning on the kernels: the backward kernels at head dims "
+        log(f"[17/18] fine-tuning on the kernels: the backward kernels at head dims "
             f"{BWD_HEAD_DIMS}, a bf16 SGD step of {', '.join(n for n, _, _ in FT_CASES)}, the "
             "ViT names on a ResNet-D stem, the CNNs' train-mode step and forwards")
         t0 = time.perf_counter()
         ft_phase = phase_finetune(device, card)
         log(f"  fine-tuning phase: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        log(f"[18/18] the zoo and the WSSS surface: train_swin on the data mesh ({SWIN_MODEL}, "
+            f"crop {CROP}, batch {TRAIN_BATCH}), {len(ZOO_FORWARDS)} EfficientNet, MobileNetV3, "
+            "RegNet and attention-ResNet forwards, their train-mode step, ASPP, AttentionConv, "
+            "grad_cam")
+        t0 = time.perf_counter()
+        phase_zoo_surface(device, cfg, os.path.join(tmp, "train"), tmp, card)
+        log(f"  zoo and surface phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     timing = phase_kernel_timing(device, card)
 

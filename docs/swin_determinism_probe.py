@@ -10,7 +10,11 @@ Then it runs one more step under ``torch.use_deterministic_algorithms(True,
 warn_only=True)`` and prints each distinct warning: the operations of the
 step that have no deterministic CUDA implementation.
 
-    python docs/swin_determinism_probe.py [--pairs 8]
+    python docs/swin_determinism_probe.py [--pairs 8] [--load]
+
+``--load`` runs the pairs while another process keeps the card busy with
+float32 and bf16 matrix products (it is stopped at the end): whether
+another process's work on the card changes the step's bits.
 
 Needs a CUDA card.
 """
@@ -18,6 +22,7 @@ Needs a CUDA card.
 import argparse
 import json
 import subprocess
+import sys
 import warnings
 
 import numpy as np
@@ -49,10 +54,42 @@ def differences(a, b) -> dict:
             if not torch.equal(a[k], b[k])}
 
 
+# Another process's load on the card: products until it is killed.
+LOAD = """
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+a = torch.randn(4096, 4096, device="cuda")
+b = a.bfloat16()
+a @ a
+torch.cuda.synchronize()
+print("busy", flush=True)
+while True:
+    for _ in range(20):
+        a @ a
+        b @ b
+    torch.cuda.synchronize()
+"""
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs", type=int, default=8)
+    ap.add_argument("--load", action="store_true",
+                    help="run the pairs while another process keeps the card busy")
     args = ap.parse_args()
+    load = (subprocess.Popen([sys.executable, "-c", LOAD], stdout=subprocess.PIPE, text=True)
+            if args.load else None)
+    try:
+        if load is not None:
+            load.stdout.readline()           # "busy": its products have started
+        run(args)
+    finally:
+        if load is not None:
+            load.kill()
+            load.wait()
+
+
+def run(args) -> None:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     weights = init_random_(SwinTransformer(**KW), seed=1).state_dict()
@@ -72,8 +109,8 @@ def main() -> None:
             if d:
                 differ += 1
                 first = first or d
-        print(json.dumps({"dtype": str(dtype)[6:], "pairs": args.pairs, "pairs_that_differ":
-                          differ, "first_difference": first}))
+        print(json.dumps({"dtype": str(dtype)[6:], "pairs": args.pairs, "load": args.load,
+                          "pairs_that_differ": differ, "first_difference": first}))
     torch.use_deterministic_algorithms(True, warn_only=True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")

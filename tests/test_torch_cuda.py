@@ -23,7 +23,9 @@ twice, and the ViT classifiers on K1n against the plain path (launches
 counted; the PiT names at head dims 48 and 32 on K1f); K1b with a float32,
 a bfloat16 and no de, and the K5 backwards, at head dims 16 to 128 (K5a
 through autograd at 96), and a gradient of vit_small_patch16_224 (head
-dim 96) through the kernels against the plain path's.
+dim 96) through the kernels against the plain path's; a Swin DDP step at
+world size 1 giving the one-device step's bits, and float32 forwards of
+the mobile and attention CNN families on the card against the CPU.
 Tolerances are those of ``chip_smoke.py``, with the reasons given there.
 """
 
@@ -763,9 +765,11 @@ def test_swin_step_gives_the_same_bits_twice(device, dtype):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
     (parts_a, params_a), (parts_b, params_b) = runs
     for k in parts_a:
-        assert torch.isfinite(parts_a[k]) and torch.equal(parts_a[k], parts_b[k]), k
+        assert torch.isfinite(parts_a[k]) and torch.equal(parts_a[k], parts_b[k]), (
+            k, parts_a[k].item(), parts_b[k].item())
     for k in params_a:
-        assert torch.equal(params_a[k], params_b[k]), k
+        assert torch.equal(params_a[k], params_b[k]), (
+            k, float((params_a[k].double() - params_b[k].double()).abs().max()))
 
 
 # --- head dims other than 64 (K1f, K1n), the ViT classifiers ----------------
@@ -956,3 +960,89 @@ def test_attention_entries_backward_at_other_head_dims(device, entry, d):
     for got, ref in zip(grads, refs):
         assert got.shape == ref.shape
         _assert_grad_close(got, ref)
+
+
+# --- Swin data parallelism; the mobile and attention CNN families ------------
+
+def test_swin_ddp_step_at_world_size_1_gives_the_one_device_bits(device, tmp_path):
+    """One float32 ``train_swin`` step (a Swin of width 32, window 4, crop 64,
+    batch 2, TF32 off) as a DDP replica over a world-size-1 NCCL group (a
+    ``file://`` store), against the same step on one device from the same
+    weights and batch: the same bits in every loss part and parameter."""
+    import numpy as np
+
+    from acr_wsss_tpu_torch.configs import TrainConfig
+    from acr_wsss_tpu_torch.models.acr import init_random_
+    from acr_wsss_tpu_torch.models.swin import SwinTransformer
+    from acr_wsss_tpu_torch.parallel import distributed
+    from acr_wsss_tpu_torch.parallel.mesh import make_data_mesh_for_batch
+    from acr_wsss_tpu_torch.parallel.sharding import wrap_ddp
+    from acr_wsss_tpu_torch.train_swin import make_swin_train_step
+    from acr_wsss_tpu_torch.utils.schedule import make_optimizer
+
+    kw = dict(embed_dim=32, depths=(2, 2), num_heads=(2, 4), window_size=4, img_size=64)
+    weights = init_random_(SwinTransformer(**kw), seed=3).state_dict()
+    rng = np.random.default_rng(1)
+    batch = {"image": rng.normal(size=(2, 64, 64, 3)).astype(np.float32),
+             "label": (rng.uniform(size=(2, 20)) > 0.7).astype(np.float32)}
+    cfg = TrainConfig(crop_size=64, batch_size=2, device="cuda:0")
+
+    def step(mesh):
+        model = SwinTransformer(**kw, dtype=torch.float32)
+        model.load_state_dict(weights)
+        model.to(device)
+        opt = make_optimizer(model.parameters(), cfg.lr, 4)
+        wrapped = model if mesh is None else wrap_ddp(model, device, mesh)
+        parts = make_swin_train_step(wrapped, opt, cfg, 64, device, mesh)(batch)
+        torch.cuda.synchronize()
+        return parts, {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref_parts, ref_params = step(None)
+        distributed.initialize("cuda:0", init_method=f"file://{tmp_path}/store", rank=0,
+                               world_size=1)
+        try:
+            parts, params = step(make_data_mesh_for_batch(cfg.batch_size, "cuda"))
+        finally:
+            distributed.shutdown()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    for k, ref in ref_parts.items():
+        assert torch.isfinite(ref) and torch.equal(parts[k].to(ref.dtype), ref), k
+    for k, ref in ref_params.items():
+        assert torch.equal(params[k], ref), k
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("efficientnet_b0", dict(depth_mult=0.5)),
+    ("seresnet50", dict(layers=(1, 1, 1, 1))),
+    ("legacy_senet154", dict(layers=(1, 1, 1, 1))),
+    ("resnest50d", dict(layers=(1, 2, 1, 1)))])
+def test_cnn_forward_on_the_card_matches_the_cpu(device, name, kw):
+    """A float32 eval forward (TF32 off, batch 2, crop 96) of a cnn_mobile
+    and of cnn_attn families on the card against the same weights on the
+    CPU: logits and every tap within 1e-3 of their largest |value|
+    (``chip_smoke.CNN_REL``: cuDNN's sums in other orders)."""
+    from acr_wsss_tpu_torch.models import registry
+
+    torch.manual_seed(0)
+    cpu_model = registry.create_model(name, dtype=torch.float32, **kw).eval()
+    with torch.device(device):
+        card_model = registry.create_model(name, dtype=torch.float32, **kw).eval()
+    card_model.load_state_dict(cpu_model.state_dict())
+    x = torch.randn((2, 96, 96, 3), generator=torch.Generator().manual_seed(1))
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = card_model(x.to(device))
+            want = cpu_model(x)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    for g, w in [(got["logits"], want["logits"])] + [(got["taps"][k], want["taps"][k])
+                                                      for k in want["taps"]]:
+        scale = w.abs().max().item()
+        assert scale > 0
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-3 * scale)

@@ -74,7 +74,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "parallel", "parallel.distributed", "parallel.mesh", "parallel.sharding",
                  "models.registry", "models.swin", "models.pit", "train_swin",
                  "models.vit_classifier", "models.cfg", "models.features", "models.cnn",
-                 "models.resnet_timm", "models.layers", "models.hybrid"):
+                 "models.resnet_timm", "models.layers", "models.hybrid", "models.cnn_mobile",
+                 "models.cnn_attn", "models.extras", "data.datasets", "getam"):
         assert f"acr_wsss_tpu_torch.{name}" in proc.stdout, name
 
 

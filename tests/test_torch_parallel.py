@@ -24,6 +24,14 @@
   spawned one whose group is closed), plus one step, equals two JAX
   single-device steps within 1e-4.
 
+* ``train_swin`` over the data mesh: a small Swin (width 32, depths (2,
+  2), window 4, crop 64) on 2 ranks, 2 + 2 images of a batch of 4, against
+  JAX's ``train_swin`` step on a data mesh of 2 devices (its
+  ``train_swin.main`` layout: replicated parameters, a sharded batch) and
+  against the port's one-process step on the 4; ``train_swin.main`` under
+  the launcher's variables on 2 ranks: one history on both, the npz files
+  on rank 0 alone.
+
 Crop 32 in float32, lr 0.01, alpha 1 (JAX's data-mesh test). JAX steps
 its per-layer branch on plain attention; the port its default, the fused
 branch, whose pair-consistency entry takes its plain version on the CPU.
@@ -209,3 +217,129 @@ def test_elastic_resume_matches_two_jax_steps(job, case):
     out = torch.load(tmp / f"resumed_{case}_resume.pt", weights_only=True)
     assert (out["restored_step"], out["updates"]) == (0, 2)
     _assert_params(_flax(out["params"], "vit_small"), jax_out["two_steps"], TOL)
+
+
+# --- train_swin over the data mesh ---------------------------------------------
+
+# The Swin step's tolerances against JAX on one device
+# (tests/test_torch_swin.py::test_swin_train_step_matches_jax): loss parts
+# 2e-5 relative; parameters after the update 1e-4 relative plus 2e-6.
+SWIN_PARTS_RTOL, SWIN_RTOL, SWIN_ATOL = 2e-5, 1e-4, 2e-6
+
+
+def _swin_voc(root, n=4):
+    """``n`` JPEGs at least as large as the crop (a zero-padded crop from
+    the seeded init diverges, ROADMAP Queue 3), labels, a list."""
+    from PIL import Image
+
+    (root / "img").mkdir()
+    rng = np.random.default_rng(4)
+    labels = {}
+    for i in range(n):
+        h, w = 64 + 6 * (i % 3), 70 + 4 * i
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).save(
+            root / "img" / f"s{i}.jpg")
+        labels[f"s{i}"] = np.eye(20, dtype=np.float32)[[i, (3 * i + 5) % 20]].sum(0)
+    np.save(root / "cls_labels.npy", labels)
+    (root / "train.txt").write_text("".join(f"s{i}\n" for i in range(n)))
+    return ["--model", workers.SWIN_NAME, "--batch_size", str(workers.SWIN_BATCH),
+            "--max_epoches", "1", "--crop_size", str(workers.SWIN_CROP), "--lr", "0.01",
+            "--IMpath", str(root / "img"), "--train_list", str(root / "train.txt"),
+            "--cls_labels", str(root / "cls_labels.npy"), "--weight_dir", str(root / "cli"),
+            "--session_name", "sw", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def swin_job(tmp_path_factory):
+    """The 2-rank Swin job (``torch_parallel_workers.swin_job``, which also
+    takes the port's one-process step) and, while it runs, JAX's data-mesh
+    step."""
+    from acr_wsss_tpu import train_swin as jax_train_swin
+    from acr_wsss_tpu.models import swin as jax_swin
+    from acr_wsss_tpu.train import TrainState as JaxTrainState
+    from acr_wsss_tpu_torch.models import swin
+    from acr_wsss_tpu_torch.models.convert import flax_to_state_dict
+    from tests.torch_port_helpers import jit_o0, random_flax_params, unflatten_params
+
+    tmp = tmp_path_factory.mktemp("swin_parallel")
+    crop, batch_size = workers.SWIN_CROP, workers.SWIN_BATCH
+    kw = {k: v for k, v in workers.SWIN_KW.items() if k != "img_size"}
+    jm = jax_swin.SwinTransformer(dtype=jnp.float32, **kw)
+    flat = random_flax_params(jm, jnp.zeros((1, crop, crop, 3)), seed=6)
+    pm = swin.SwinTransformer(**workers.SWIN_KW, dtype=torch.float32)
+    weights = flax_to_state_dict(flat, pm.state_dict())
+    torch.save(weights, tmp / "swin_weights.pt")
+    rng = np.random.default_rng(7)
+    batch = {"image": (rng.normal(size=(batch_size, crop, crop, 3))
+                       + [0.3, -0.2, 0.1]).astype(np.float32),
+             "label": (rng.uniform(size=(batch_size, 20)) > 0.8).astype(np.float32)}
+    np.savez(tmp / "swin_batch.npz", **batch)
+    argv = _swin_voc(tmp)
+    ctx = mp.spawn(workers.swin_job, args=(2, str(tmp / "store"), str(tmp), argv), nprocs=2,
+                   join=False)
+
+    jcfg = JaxTrainConfig(model=JaxModelConfig(backbone="swin"), crop_size=crop,
+                          batch_size=batch_size, lr=workers.SWIN_LR)
+    tx = jax_train.make_optimizer(jcfg.lr, MAX_STEP, jcfg.weight_decay, jcfg.momentum,
+                                  jcfg.poly_power)
+    state = JaxTrainState.create(apply_fn=jm.apply, params=unflatten_params(flat), tx=tx)
+    mesh = jax_make_mesh((-1,), ("data",), devices=jax.devices()[:2])
+    state = state.replace(params=jax.device_put(state.params, param_shardings(mesh, state.params)),
+                          opt_state=jax.device_put(state.opt_state, replicated(mesh)))
+    step = jit_o0(jax_train_swin.make_swin_train_step(jm, jcfg, crop))
+    state, parts = step(state, {k: jax.device_put(jnp.asarray(v), batch_sharding(mesh))
+                                for k, v in batch.items()})
+    jax_out = ({k: float(v) for k, v in parts.items()},
+               flatten_params(jax.device_get(state.params)))
+    while not ctx.join(timeout=600):
+        pass
+    one = torch.load(tmp / "swin_one.pt", weights_only=True)
+    yield tmp, jax_out, (one["parts"], one["params"]), pm
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def test_two_rank_swin_step_matches_jax(swin_job):
+    tmp, (jparts, jparams), _, pm = swin_job
+    out = torch.load(tmp / "swin_ddp.pt", weights_only=True)
+    assert jparts["window_consistency"] > 0
+    for k, v in jparts.items():
+        np.testing.assert_allclose(out["parts"][k], v, rtol=SWIN_PARTS_RTOL, err_msg=k)
+    got = state_dict_to_flax(pm, out["params"])
+    assert got.keys() == jparams.keys()
+    for k, v in jparams.items():
+        np.testing.assert_allclose(got[k], np.asarray(v), rtol=SWIN_RTOL, atol=SWIN_ATOL,
+                                   err_msg=k)
+
+
+def test_two_rank_swin_step_matches_one_process(swin_job):
+    """Loss parts and every parameter after the update within PORT_TOL, and
+    each tensor's update within PORT_UPDATE_REL, of the one process's on
+    the whole batch."""
+    tmp, _, (parts, after), _ = swin_job
+    out = torch.load(tmp / "swin_ddp.pt", weights_only=True)
+    weights = torch.load(tmp / "swin_weights.pt", weights_only=True)
+    for k, v in parts.items():
+        np.testing.assert_allclose(out["parts"][k], v, rtol=PORT_TOL, err_msg=k)
+    worst = max(float((v - after[k]).abs().max()) for k, v in out["params"].items())
+    assert worst < PORT_TOL, worst
+    rel = workers.update_rel(out["params"], after, weights)
+    assert max(rel.values()) < PORT_UPDATE_REL, max(rel, key=rel.get)
+
+
+def test_train_swin_cli_on_two_ranks_writes_the_npz_on_rank_0(swin_job):
+    """4 images, a global batch of 4: 1 update, 2 steps on each rank (the
+    range's and the one at its end), the same averaged loss parts on both;
+    ``_last.npz`` in rank 0's weight directory only, loadable by the small
+    Swin."""
+    from acr_wsss_tpu_torch.models.convert import flax_to_state_dict
+    from acr_wsss_tpu_torch.utils.checkpoint import load_params_npz
+
+    tmp, _, _, pm = swin_job
+    runs = [torch.load(tmp / f"swin_cli{r}.pt", weights_only=True) for r in range(2)]
+    assert runs[0]["steps"] == runs[1]["steps"] == 2
+    assert runs[0]["history"] == runs[1]["history"]
+    assert all(np.isfinite(v) for parts in runs[0]["history"] for v in parts.values())
+    assert os.listdir(tmp / "cli" / "rank0") == ["sw_last.npz"]
+    assert not (tmp / "cli" / "rank1").exists()
+    flax_to_state_dict(load_params_npz(str(tmp / "cli" / "rank0" / "sw_last.npz")),
+                       pm.state_dict())

@@ -1,4 +1,4 @@
-"""The port's pseudo-label toolbox (``pseudo_label.py``,
+"""The port's pseudo-label toolbox (``pseudo_label.py``: every recipe,
 ``utils/visualization.py``, the JET and VOC palettes of ``ops/imops.py``)
 against the JAX package's, on the CPU.
 
@@ -106,25 +106,32 @@ def test_main_writes_the_masks(corpus, tmp_path):
     assert _assert_same_pngs(tmp_path / "port", tmp_path / "jax") == [f"{n}.png" for n in names]
 
 
-RECIPES = ["compute_seg_label", "compute_seg_label_two_step", "compute_seg_label_rrm"]
+# The recipes ``generate_pseudo_masks`` reaches, then the eight it does not
+# (two of them COCO's, on 80 classes).
+RECIPES = ["compute_seg_label", "compute_seg_label_two_step", "compute_seg_label_rrm",
+           "compute_seg_label_coco", "compute_seg_label_crf_sure", "compute_seg_label_2",
+           "compute_seg_label_old", "compute_seg_label_no_saliency", "compute_seg_label_4",
+           "compute_seg_label_5", "compute_seg_label_two_step_coco"]
+NO_SALIENCY = ("compute_seg_label_rrm", "compute_seg_label_old", "compute_seg_label_no_saliency")
 
 
 @pytest.mark.parametrize("n_classes", [1, 3])
 @pytest.mark.parametrize("recipe", RECIPES)
 def test_recipes_match_jax(recipe, n_classes):
-    """The recipes ``generate_pseudo_masks`` reaches, with one present class
-    and with three."""
+    """Every recipe, with one present class and with three: the same masks
+    (and saliency, and ``_5``'s dilated foreground) as JAX's."""
     rng = np.random.default_rng(10 * RECIPES.index(recipe) + n_classes)
     h, w = 48, 56
+    total = 80 if recipe.endswith("_coco") else 20
     img = np.clip(rng.normal(120, 40, (h, w, 3)), 0, 255).astype(np.uint8)
-    cam_label = np.zeros(20, np.float32)
-    classes = rng.choice(20, size=n_classes, replace=False)
+    cam_label = np.zeros(total, np.float32)
+    classes = rng.choice(total, size=n_classes, replace=False)
     cam_label[classes] = 1.0
-    norm_cam = np.zeros((20, h, w), np.float32)
+    norm_cam = np.zeros((total, h, w), np.float32)
     for c, m in _blob_cams(rng, h, w, classes).items():
         norm_cam[c] = m
     sal = (rng.uniform(size=(h, w)) > 0.2).astype(np.uint8)
-    args = (img, cam_label, norm_cam) + (() if recipe == "compute_seg_label_rrm" else (sal,))
+    args = (img, cam_label, norm_cam) + (() if recipe in NO_SALIENCY else (sal,))
     got = getattr(pseudo_label, recipe)(*(a.copy() for a in args))
     ref = getattr(jax_pl, recipe)(*(a.copy() for a in args))
     got = got if isinstance(got, tuple) else (got,)

@@ -3,9 +3,10 @@ classifiers, feature extractor, timm mappers and zoo against the JAX
 package's, on the CPU.
 
 * ``models/registry.py``: the query helpers and ``models/cfg.py``'s
-  ``default_cfg`` against JAX's for every name the port registers (197:
+  ``default_cfg`` against JAX's for every name the port registers (262:
   41 ViT/DeiT, 14 ResNetV2/BiT, 24 Swin and PiT, 47 ResNet/VGG/DenseNet,
-  66 timm ResNets, 5 ACR); ``create_model`` builds every ViT/DeiT and
+  66 timm ResNets, 32 EfficientNet/MobileNetV3/RegNet, 33 SENet/SKNet/
+  Res2Net/ResNeSt, 5 ACR); ``create_model`` builds every ViT/DeiT and
   ResNetV2/BiT name, their parameters against ``jax.eval_shape`` of the
   flax init for one name of each layout; a JAX name the port lacks and
   the ``hf_hub:`` source refuse;
@@ -59,6 +60,8 @@ def _assert_map_close(got, want):
 def _jax_names():
     import acr_wsss_tpu.models.acr  # noqa: F401  (they register)
     import acr_wsss_tpu.models.cnn  # noqa: F401
+    import acr_wsss_tpu.models.cnn_attn  # noqa: F401
+    import acr_wsss_tpu.models.cnn_mobile  # noqa: F401
     import acr_wsss_tpu.models.hybrid  # noqa: F401
     import acr_wsss_tpu.models.pit  # noqa: F401
     import acr_wsss_tpu.models.resnet_timm  # noqa: F401
@@ -75,8 +78,9 @@ CLASSIFIERS = registry.list_models(module="vit_classifier") + registry.list_mode
 def test_the_registry_holds_the_ported_names():
     assert len(registry.list_models(module="vit_classifier")) == 41
     assert len(registry.list_models(module="hybrid")) == 14
-    assert len(PORTED) == 197 and set(PORTED) <= _jax_names()
-    for module in ("vit_classifier", "hybrid", "cnn", "resnet_timm", "acr"):
+    assert len(PORTED) == 262 and set(PORTED) <= _jax_names()
+    for module in ("vit_classifier", "hybrid", "cnn", "resnet_timm", "cnn_mobile", "cnn_attn",
+                   "acr"):
         assert registry.list_models(module=module) == jax_registry.list_models(module=module)
 
 
@@ -87,7 +91,7 @@ def test_query_helpers_match_jax():
         assert registry.is_model_pretrained(name) == jax_registry.is_model_pretrained(name), name
         module = jax_registry._model_to_module[name]
         assert registry.is_model_in_modules(name, [module])
-        assert not registry.is_model_in_modules(name, ("cnn_attn",))
+        assert not registry.is_model_in_modules(name, ("cnn_misc",))
         for key in ("url", "num_classes", "crop_pct", "mean", "first_conv"):
             assert registry.has_model_default_key(name, key) == \
                 jax_registry.has_model_default_key(name, key)
@@ -101,9 +105,9 @@ def test_query_helpers_match_jax():
                dict(pretrained=True)):
         assert registry.list_models(**kw) == [n for n in jax_registry.list_models(**kw)
                                               if n in PORTED], kw
-    assert set(registry.list_modules()) == {"acr", "cnn", "hybrid", "pit", "resnet_timm", "swin",
-                                            "vit_classifier"}
-    assert not registry.is_model("seresnet50") and registry.get_default_cfg("seresnet50") is None
+    assert set(registry.list_modules()) == {"acr", "cnn", "cnn_attn", "cnn_mobile", "hybrid", "pit",
+                                            "resnet_timm", "swin", "vit_classifier"}
+    assert not registry.is_model("cspresnet50") and registry.get_default_cfg("cspresnet50") is None
     for name in ("hf_hub:timm/vit_huge_patch14_224_in21k", "timm:vit_small_patch16_224",
                  "vit_base_patch16_224_in21k", "org/Model-v1.5"):
         assert registry.split_model_name(name) == jax_registry.split_model_name(name)
@@ -151,11 +155,11 @@ def test_full_size_parameters_match_the_flax_init(name):
 
 
 def test_unported_names_and_sources_refuse():
-    import acr_wsss_tpu.models.cnn_attn  # noqa: F401  (registers seresnet50)
+    import acr_wsss_tpu.models.cnn_misc  # noqa: F401  (registers cspresnet50)
 
-    assert jax_registry.is_model("seresnet50") and not registry.is_model("seresnet50")
+    assert jax_registry.is_model("cspresnet50") and not registry.is_model("cspresnet50")
     with pytest.raises(ValueError, match="Unknown model"):
-        registry.create_model("seresnet50")
+        registry.create_model("cspresnet50")
     with pytest.raises(NotImplementedError, match="hf_hub"):
         registry.create_model("hf_hub:timm/vit_huge_patch14_224_in21k")
 

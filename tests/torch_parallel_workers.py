@@ -220,3 +220,85 @@ def train_job(rank, world, store, cfg, sigterm_rank, sigterm_step):
         results.append(str(e))
     torch.save(results, os.path.join(cfg.checkpoint_dir, f"rank{rank}.pt"))
     distributed.shutdown()
+
+
+# The 2-rank Swin job: a small Swin (width 32, depths (2, 2), window 4, crop
+# 64), the global batch SWIN_BATCH; the CLI case registers it as SWIN_NAME.
+SWIN_KW = dict(num_classes=20, embed_dim=32, depths=(2, 2), num_heads=(2, 4), window_size=4,
+               img_size=64)
+SWIN_CROP, SWIN_BATCH, SWIN_LR, SWIN_NAME = 64, 4, 0.01, "swin_parallel_test"
+
+
+def swin_config(**kw):
+    from acr_wsss_tpu_torch.configs import ModelConfig, TrainConfig
+
+    return TrainConfig(model=ModelConfig(backbone="swin", compute_dtype="float32"),
+                       crop_size=SWIN_CROP, batch_size=SWIN_BATCH, lr=SWIN_LR, device="cpu",
+                       **kw)
+
+
+def swin_step(weights, batch, rows, mesh=None):
+    """(loss parts, parameters after) of one ``train_swin`` step of the small
+    Swin from ``weights`` on ``rows`` of ``batch``; a DDP replica on
+    ``mesh``."""
+    from acr_wsss_tpu_torch.models.swin import SwinTransformer
+    from acr_wsss_tpu_torch.parallel.sharding import wrap_ddp
+    from acr_wsss_tpu_torch.train_swin import make_swin_train_step
+    from acr_wsss_tpu_torch.utils.schedule import make_optimizer
+
+    cfg = swin_config()
+    model = SwinTransformer(**SWIN_KW, dtype=torch.float32)
+    model.load_state_dict(weights)
+    opt = make_optimizer(model.parameters(), cfg.lr, MAX_STEP, cfg.weight_decay, cfg.momentum,
+                         cfg.poly_power)
+    cpu = torch.device("cpu")
+    wrapped = model if mesh is None else wrap_ddp(model, cpu, mesh)
+    step = make_swin_train_step(wrapped, opt, cfg, SWIN_CROP, cpu, mesh)
+    parts = {k: float(v) for k, v in step({"image": batch["image"][rows],
+                                           "label": batch["label"][rows]}).items()}
+    return parts, {k: v.detach().clone() for k, v in model.named_parameters()}
+
+
+def register_small_swin():
+    from acr_wsss_tpu_torch.models import registry
+    from acr_wsss_tpu_torch.models.swin import SwinTransformer
+
+    def builder(**kwargs):
+        return SwinTransformer(**{**SWIN_KW, **kwargs})
+
+    registry._MODELS.setdefault(SWIN_NAME, builder)
+
+
+def swin_job(rank, world, store, tmp, argv):
+    """One ``train_swin`` step on this rank's half of ``tmp/swin_batch.npz``
+    over a DDP replica (rank 0 writes ``tmp/swin_ddp.pt``: the loss parts
+    and the parameters after); once the group is closed, rank 1 takes the
+    one-process step on the whole batch (``tmp/swin_one.pt``); then
+    ``train_swin.main(argv)`` on a new
+    group, under the launcher's variables, each rank with the weight
+    directory ``<argv's>/rank<r>``; each rank writes the CLI run's history
+    to ``tmp/swin_cli<r>.pt``."""
+    from acr_wsss_tpu_torch import train_swin
+
+    _join(rank, world, store)
+    batch = dict(np.load(os.path.join(tmp, "swin_batch.npz")))
+    weights = torch.load(os.path.join(tmp, "swin_weights.pt"), weights_only=True)
+    mesh = make_data_mesh_for_batch(SWIN_BATCH, "cpu")
+    per = SWIN_BATCH // world
+    parts, after = swin_step(weights, batch, slice(rank * per, (rank + 1) * per), mesh)
+    if rank == 0:
+        torch.save({"parts": parts, "params": after}, os.path.join(tmp, "swin_ddp.pt"))
+    torch.distributed.barrier()
+    distributed.shutdown()
+    if rank == 1:
+        parts, after = swin_step(weights, batch, slice(None))
+        torch.save({"parts": parts, "params": after}, os.path.join(tmp, "swin_one.pt"))
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    _join(rank, world, store + "_cli")
+    register_small_swin()
+    argv = list(argv)
+    argv[argv.index("--weight_dir") + 1] += f"/rank{rank}"
+    state = train_swin.main(argv)
+    torch.save({"steps": state.steps, "history": state.history},
+               os.path.join(tmp, f"swin_cli{rank}.pt"))

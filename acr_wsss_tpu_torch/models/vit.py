@@ -36,6 +36,17 @@ The classifiers' fields (``:261-310``, ``models/vit_classifier.py``):
 forward kernel does not take raises at construction (``attn_cuda.
 check_head_dim``); there is no fallback to plain.
 
+Tensor parallelism (``parallel/sharding.apply_tensor_parallel``, the
+mesh's ``model`` axis): a block whose ``tp_group`` is set holds the rows
+of its H / M heads in ``attn.qkv`` and its share of the MLP's hidden
+units, and runs them between ``copy_to_model`` and ``reduce_from_model``;
+``proj`` and ``fc2`` add their bias once, after the reduction. Its
+head-mean export is the mean over its own heads, times (H / M) / H, summed
+over the model ranks: every rank holds the full head mean, and the
+export's cotangent reaches each rank's backward (K1b on the kernel path)
+as it is. Only exports "mean" and "none" without a probs offset run
+under the axis.
+
 ``scan_blocks``, remat and the bkg token of the JAX trunk are not part of
 this module.
 """
@@ -53,6 +64,7 @@ from acr_wsss_tpu_torch.models.layers import Mlp, linear, resize_bilinear
 from acr_wsss_tpu_torch.ops.attention import attention_with_probs
 from acr_wsss_tpu_torch.ops.attn_cuda import check_head_dim, fused_attention_qkv_cols
 from acr_wsss_tpu_torch.ops.attn_pair import fused_attention_pair_consistency
+from acr_wsss_tpu_torch.parallel.sharding import copy_to_model, reduce_from_model
 
 ATTN_IMPLS = ("kernel", "plain")
 
@@ -85,10 +97,16 @@ class Attention(nn.Module):
         self.probs_dtype = probs_dtype
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
+        self.tp_group, self.tp_size = None, 1
 
     def forward(self, x: torch.Tensor, probs_offset: Optional[torch.Tensor] = None,
                 export: str = "mean") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        B, N, C = x.shape
+        B, N, _ = x.shape
+        if self.tp_group is not None:
+            if probs_offset is not None or export not in ("mean", "none"):
+                raise ValueError("under a model axis the attention takes export 'mean' or "
+                                 f"'none' and no probs_offset, got export={export!r}")
+            x = copy_to_model(x, self.tp_group)
         qkv = linear(x, self.qkv)
         if export == "pair_l1":
             if self.attn_impl != "kernel" or probs_offset is not None:
@@ -105,8 +123,20 @@ class Attention(nn.Module):
             q, k, v = qkv.reshape(B, N, 3, self.num_heads, -1).permute(2, 0, 3, 1, 4)
             out, probs = attention_with_probs(q, k, v, self.scale,
                                               probs_offset=probs_offset, export=export)
-            out = out.transpose(1, 2).reshape(B, N, C)
-        return linear(out, self.proj), probs
+            out = out.transpose(1, 2).reshape(B, N, -1)
+        if self.tp_group is None:
+            return linear(out, self.proj), probs
+        if probs is not None:
+            probs = reduce_from_model(probs * (1.0 / self.tp_size), self.tp_group).to(probs.dtype)
+        return row_parallel(out, self.proj, self.tp_group), probs
+
+
+def row_parallel(x: torch.Tensor, layer: nn.Linear, group) -> torch.Tensor:
+    """``layer`` on ``x``'s share of its input columns (a model axis): the
+    partial products summed over ``group`` in float32, the bias added
+    once, one rounding to ``x``'s dtype."""
+    y = reduce_from_model(F.linear(x, layer.weight.to(x.dtype)), group)
+    return (y + layer.bias.float()).to(x.dtype)
 
 
 class Block(nn.Module):
@@ -120,12 +150,16 @@ class Block(nn.Module):
         self.attn = Attention(dim, num_heads, attn_impl, probs_dtype, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.tp_group = None
 
     def forward(self, x, probs_offset=None, export="mean"):
         h, probs = self.attn(self.norm1(x.float()).to(x.dtype), probs_offset, export)
         x = x + h
-        x = x + self.mlp(self.norm2(x.float()).to(x.dtype))
-        return x, probs
+        y = self.norm2(x.float()).to(x.dtype)
+        if self.tp_group is None:
+            return x + self.mlp(y), probs
+        y = F.gelu(linear(copy_to_model(y, self.tp_group), self.mlp.fc1), approximate="none")
+        return x + row_parallel(y, self.mlp.fc2, self.tp_group), probs
 
 
 class PatchEmbed(nn.Module):

@@ -1,8 +1,9 @@
-"""Data parallelism of the port: process groups, meshes, DDP and FSDP.
+"""Data and tensor parallelism of the port: process groups, meshes, DDP,
+FSDP and the model axis.
 
-Counterpart of ``acr_wsss_tpu/parallel`` on its data axis. Tensor,
-sequence and pipeline parallelism (``TP_RULES``, ``seq_axis``,
-``make_train_step_pp``) are not ported.
+Counterpart of ``acr_wsss_tpu/parallel`` on its data and model axes.
+Sequence and pipeline parallelism (``seq_axis``, ``make_train_step_pp``)
+are not ported.
 """
 
 from acr_wsss_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -11,5 +12,6 @@ from acr_wsss_tpu_torch.parallel.mesh import (  # noqa: F401
 )
 from acr_wsss_tpu_torch.parallel.sharding import (  # noqa: F401
     apply_fsdp,
+    apply_tensor_parallel,
     wrap_ddp,
 )

@@ -2,10 +2,15 @@
 
 Counterpart of ``acr_wsss_tpu/parallel/mesh.py`` (``:43-73``). A mesh
 here is a ``torch.distributed.DeviceMesh`` of ranks, one GPU each, where
-JAX's holds the devices of one controller. The port has the ``data`` axis
-alone: DDP (``sharding.wrap_ddp``) or FSDP (``sharding.apply_fsdp``)
-over it. The ``model``, ``seq`` and ``pipe`` axes of the JAX mesh
-(tensor, sequence and pipeline parallelism) are refused by name.
+JAX's holds the devices of one controller. The port has the ``data`` and
+``model`` axes: DDP (``sharding.wrap_ddp``) or FSDP
+(``sharding.apply_fsdp``) over ``data``, and tensor parallelism over
+``model`` (``sharding.apply_tensor_parallel``: each block's attention
+heads and MLP hidden width cut over the ranks). A ``(D, M)`` mesh lays
+the ranks out as JAX's ``make_mesh`` lays out its devices, row-major with
+the model axis varying fastest: rank ``d * M + m`` is data coordinate
+``d``, model coordinate ``m``. The ``seq`` and ``pipe`` axes (sequence
+and pipeline parallelism) are refused by name.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from acr_wsss_tpu_torch.parallel.distributed import world_size
 
-AXES = ("data",)
+AXES = ("data", "model")
 
 
 def check_axes(axis_names: Sequence[str]) -> None:
@@ -25,9 +30,8 @@ def check_axes(axis_names: Sequence[str]) -> None:
     other = [a for a in axis_names if a not in AXES]
     if other:
         raise ValueError(
-            f"mesh axes {other}: tensor, sequence and pipeline parallelism (the "
-            "model, seq and pipe axes) are not ported; the mesh takes the data "
-            "axis only")
+            f"mesh axes {other}: sequence and pipeline parallelism (the seq and pipe "
+            "axes) are not ported; the mesh takes the data and model axes")
 
 
 def resolve_shape(shape: Sequence[int], n: int) -> Tuple[int, ...]:
@@ -70,3 +74,23 @@ def make_data_mesh_for_batch(batch_size: int, device_type: str = "cuda") -> Devi
 
 def in_mesh(mesh: Optional[DeviceMesh]) -> bool:
     return mesh is None or mesh.get_coordinate() is not None
+
+
+def data_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """The 1-D ``data`` sub-mesh of this rank (``mesh`` itself when it has
+    no other axis): the ranks that hold the same model coordinate."""
+    return mesh["data"] if mesh.ndim > 1 else mesh
+
+
+def model_mesh(mesh: Optional[DeviceMesh]) -> Optional[DeviceMesh]:
+    """The 1-D ``model`` sub-mesh of this rank, None without that axis."""
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return None
+    return mesh["model"] if mesh.ndim > 1 else mesh
+
+
+def mesh_group(mesh: DeviceMesh):
+    """The process group of every rank of ``mesh``: its own for a 1-D mesh
+    (which may leave ranks idle), the default group for a mesh of more
+    axes, which ``make_mesh`` builds over every rank."""
+    return mesh.get_group() if mesh.ndim == 1 else None

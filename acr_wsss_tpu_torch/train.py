@@ -49,7 +49,23 @@ one-device layout (FSDP's shards gathered), and any world size, with or
 without FSDP, resumes from it. A preemption signal is agreed over the
 ranks every ``log_every`` steps, so that all of them stop at one step.
 ``--multihost`` requires the launcher's environment (multi-node runs).
-The model, seq and pipe axes of the JAX mesh are refused.
+
+Tensor parallelism (``--mesh data=D,model=M``, JAX's ``:519-549`` and
+``:273``): D x M ranks, rank ``d * M + m`` at data coordinate d and model
+coordinate m. Every rank draws the one-device init and keeps its part
+(``sharding.apply_tensor_parallel``: each block's heads and MLP hidden
+units cut over the M model ranks), and DDP runs over the data sub-group.
+The data order, the validation names and the loss averages follow the
+data coordinate: the M ranks of one data coordinate read the same
+examples and hold equal loss parts. The step takes the per-layer aligned
+branch (K1f and K1b on each rank's H / M heads), not the fused one:
+K2f's sums |mean_h p1 - mean_h p2| need the head mean of every head
+(``uses_fused_consistency``). Checkpoints, the preemption flag and the
+final npz are gathered and agreed over every rank, in the one-device
+layout, so a checkpoint moves between any two meshes. With ``--fsdp``
+the model axis is ignored, as in JAX (``:267-271``): FSDP over each data
+sub-mesh, the model ranks replicas. The seq and pipe axes of the JAX mesh
+are refused.
 """
 
 from __future__ import annotations
@@ -70,13 +86,15 @@ from acr_wsss_tpu_torch.configs import ModelConfig, TrainConfig
 from acr_wsss_tpu_torch.data import device_aug
 from acr_wsss_tpu_torch.data import voc as voc_data
 from acr_wsss_tpu_torch.models import zoo
-from acr_wsss_tpu_torch.models.acr import ACR, init_random_
+from acr_wsss_tpu_torch.models.acr import ACR, init_random_, resolve_backbone
 from acr_wsss_tpu_torch.models.convert import state_dict_to_flax
 from acr_wsss_tpu_torch.parallel import distributed
-from acr_wsss_tpu_torch.parallel.mesh import (check_axes, in_mesh, make_data_mesh_for_batch,
-                                              make_mesh)
-from acr_wsss_tpu_torch.parallel.sharding import (apply_fsdp, full_tensors, shard_like, unwrap,
-                                                  wrap_ddp)
+from acr_wsss_tpu_torch.parallel.mesh import (check_axes, data_mesh, in_mesh,
+                                              make_data_mesh_for_batch, make_mesh, mesh_group,
+                                              model_mesh)
+from acr_wsss_tpu_torch.parallel.sharding import (apply_fsdp, apply_tensor_parallel,
+                                                  check_model_extent, full_state_dict,
+                                                  shard_like, unwrap, wrap_ddp)
 from acr_wsss_tpu_torch.utils.checkpoint import CheckpointManager, save_params_npz
 from acr_wsss_tpu_torch.utils.logging import MetricWriter
 from acr_wsss_tpu_torch.utils.meters import AverageMeter, Timer
@@ -115,9 +133,11 @@ def create_train_state(cfg: TrainConfig, max_step: int, init: bool = True,
     the zoo npz with ``cfg.pretrained``, on ``cfg.device`` (this rank's
     GPU), and its optimizer; ``max_step`` counts optimizer updates.
     ``init=False`` skips the seeded init and the graft, for a caller that
-    restores a checkpoint over every parameter. On a data ``mesh`` the
-    model comes back wrapped in DDP, or sharded by FSDP2 with
-    ``cfg.fsdp``; every rank draws the same init."""
+    restores a checkpoint over every parameter. On a ``mesh`` the model
+    comes back wrapped in DDP over the data axis, or sharded by FSDP2 over
+    it with ``cfg.fsdp``; every rank draws the same init. A ``model``
+    axis (without ``cfg.fsdp``) cuts it first (``apply_tensor_parallel``),
+    so the sharded model equals the one-device one."""
     device = distributed.local_device(cfg.device)
     model = build_model(cfg.model)
     if init and cfg.pretrained:
@@ -126,19 +146,31 @@ def create_train_state(cfg: TrainConfig, max_step: int, init: bool = True,
         init_random_(model, seed=cfg.seed)
     model.to(device)
     if mesh is not None and cfg.fsdp:
-        apply_fsdp(model, mesh)
+        apply_fsdp(model, data_mesh(mesh))
+    elif model_mesh(mesh) is not None:
+        apply_tensor_parallel(model, model_mesh(mesh))
     optimizer = make_optimizer(
         model.parameters(), cfg.lr, max_step, cfg.weight_decay, cfg.momentum,
         cfg.poly_power, reference_quirk=cfg.reference_optimizer_quirk,
         clip_grad_norm=cfg.clip_grad_norm, accum_steps=cfg.accum_steps)
     if mesh is not None and not cfg.fsdp:
-        model = wrap_ddp(model, device, mesh)
+        model = wrap_ddp(model, device, data_mesh(mesh))
     return model, optimizer
 
 
+def tensor_parallel(cfg: TrainConfig) -> bool:
+    """Whether ``cfg``'s mesh cuts the model over a ``model`` axis (not
+    under ``--fsdp``, which ignores that axis)."""
+    return "model" in cfg.mesh_axes and not cfg.fsdp
+
+
 def uses_fused_consistency(cfg: TrainConfig) -> bool:
+    """The fused branch, unless a model axis cuts the heads: K2f's sums
+    |mean_h p1 - mean_h p2| do not split over heads (each needs the mean
+    over all of them before the L1), so that mesh takes the per-layer
+    aligned branch, whose head mean is reduced over the model ranks."""
     return (cfg.model.fuse_consistency and cfg.aligned_mirror
-            and cfg.model.attn_impl == "kernel")
+            and cfg.model.attn_impl == "kernel" and not tensor_parallel(cfg))
 
 
 def make_train_step(model: torch.nn.Module, optimizer: PolySGD, cfg: TrainConfig,
@@ -146,16 +178,16 @@ def make_train_step(model: torch.nn.Module, optimizer: PolySGD, cfg: TrainConfig
     """batch {"image" (B, H, W, 3), "label" (B, C)}, or a packed
     ``--device_aug`` batch {"image_u8", "aug", "label"} -> loss parts
     (detached tensors on the device); one forward, backward and optimizer
-    call. ``model`` is an ``ACR``, FSDP's or DDP's; on a data ``mesh``
-    (this rank's share of the global batch) the loss parts come back
-    averaged over its ranks; with ``accum_steps`` > 1 every micro-step's
-    gradient is averaged over the ranks, so the optimizer's mean of them
-    is the global one."""
+    call. ``model`` is an ``ACR``, FSDP's or DDP's; on a ``mesh`` (this
+    rank's share of the global batch) the loss parts come back averaged
+    over its data axis (the model ranks hold equal ones); with
+    ``accum_steps`` > 1 every micro-step's gradient is averaged over the
+    ranks, so the optimizer's mean of them is the global one."""
     alpha = cfg.alpha
     aligned = cfg.aligned_mirror
     fused = uses_fused_consistency(cfg)
     device = next(unwrap(model).parameters()).device
-    group = None if mesh is None else mesh.get_group()
+    group = None if mesh is None else data_mesh(mesh).get_group()
 
     def loss_fn(x1, labels):
         x2 = torch.flip(x1, dims=(2,))          # horizontal flip (train_acr.py:135)
@@ -192,8 +224,9 @@ def make_eval_step(model: torch.nn.Module):
     """batch {"image", "label", "weight"} -> (sum of weighted per-example
     MLSM losses, sum of weights). The weights let validation pad its last
     batch to the train batch size. DDP's model runs unwrapped (no
-    collective); FSDP's gathers its shards, so every rank of its mesh
-    calls it the same number of times."""
+    collective); FSDP's gathers its shards, and a model axis's blocks
+    reduce over the model ranks, so every rank of the mesh calls it the
+    same number of times."""
     model = unwrap(model)
     device = next(model.parameters()).device
 
@@ -228,15 +261,15 @@ def _dataset_setup(cfg: TrainConfig):
 def validate(cfg: TrainConfig, model: ACR, eval_step, val_names=None, labels=None,
              mesh=None) -> float:
     """Mean validation MLSM loss; each batch is padded with zero-weight
-    rows to the train batch size. On a data ``mesh`` each rank takes its
-    share of the names (``shard_names``) in batches of its share of the
-    batch size, all ranks the same number of batches, and the sums are
-    added over the ranks: the one-process value."""
+    rows to the train batch size. On a ``mesh`` each data coordinate takes
+    its share of the names (``shard_names``) in batches of its share of
+    the batch size, all ranks the same number of batches, and the sums
+    are added over the data axis: the one-process value."""
     if labels is None:
         _, val_names, labels = _dataset_setup(cfg)
     source = voc_data.VOCClassificationSource(cfg.val_image_dir or cfg.image_dir, labels,
                                               cfg.crop_size)
-    world, host = (1, 0) if mesh is None else (mesh.size(), mesh.get_local_rank())
+    world, host = data_share(mesh)
     bs = max(cfg.batch_size // world, 1)
     batches = iter(voc_data.EvalIterator(source, voc_data.shard_names(val_names, host, world),
                                          batch_size=bs))
@@ -257,31 +290,40 @@ def validate(cfg: TrainConfig, model: ACR, eval_step, val_names=None, labels=Non
         count += float(c)
     if mesh is not None:
         sums = torch.tensor([total, count], dtype=torch.float64, device=mesh.device_type)
-        dist.all_reduce(sums, group=mesh.get_group())
+        dist.all_reduce(sums, group=data_mesh(mesh).get_group())
         total, count = sums.tolist()
     return total / max(count, 1.0)
 
 
+def data_share(mesh) -> Tuple[int, int]:
+    """(data extent, this rank's data coordinate): the hosts of the data
+    order; (1, 0) for one process."""
+    if mesh is None:
+        return 1, 0
+    data = data_mesh(mesh)
+    return data.size(), data.get_local_rank()
+
+
 def checkpoint_state(step: int, model: torch.nn.Module, optimizer: PolySGD) -> dict:
     """What a checkpoint holds: the JAX loop's params, optimizer state and
-    step, in the one-device layout (FSDP's shards gathered: a collective,
-    called on every rank). The train step draws no random numbers (no
-    dropout; the data order and augmentations come from ``cfg.seed``), so
-    there is no generator state to keep."""
-    return full_tensors({"model": unwrap(model).state_dict(),
-                         "optimizer": optimizer.state_dict(), "step": step})
+    step, in the one-device layout (FSDP's and the model axis's shards
+    gathered: a collective, called on every rank). The train step draws
+    no random numbers (no dropout; the data order and augmentations come
+    from ``cfg.seed``), so there is no generator state to keep."""
+    return {"model": full_state_dict(model), "optimizer": optimizer.state_dict(), "step": step}
 
 
 def restore_checkpoint(ckpt: CheckpointManager, model: torch.nn.Module, optimizer: PolySGD
                        ) -> Optional[int]:
     """Load the latest entry of ``ckpt`` into ``model`` and ``optimizer``
-    (built over the same parameters, on one device, DDP or FSDP with any
-    number of ranks); its step, or None when there is none."""
+    (built over the same parameters, on one device, DDP, FSDP or a model
+    axis with any number of ranks); its step, or None when there is
+    none."""
     restored = ckpt.restore()
     if restored is None:
         return None
     model = unwrap(model)
-    current = model.state_dict()
+    current = model.state_dict(keep_vars=True)
     model.load_state_dict({k: shard_like(v, current[k]) for k, v in restored["model"].items()})
     optimizer.load_state_dict(restored["optimizer"])
     return int(restored["step"])
@@ -314,10 +356,26 @@ def _fit_data_mesh(cfg: TrainConfig, device: torch.device):
         mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes, device.type)
     else:
         mesh = make_data_mesh_for_batch(cfg.batch_size, device.type)
-    if cfg.batch_size % mesh.size():
-        raise ValueError(f"batch {cfg.batch_size} does not split over a data mesh of "
-                         f"{mesh.size()} ranks")
+    data = data_mesh(mesh).size()
+    if cfg.batch_size % data:
+        raise ValueError(f"batch {cfg.batch_size} does not split over a data axis of "
+                         f"{data} ranks")
     return mesh
+
+
+def check_mesh(cfg: TrainConfig) -> None:
+    """Refuse the seq and pipe axes, and a model axis whose extent does not
+    divide the backbone's heads and MLP hidden width, before any process
+    group is joined."""
+    check_axes(cfg.mesh_axes)
+    if "data" not in cfg.mesh_axes:
+        raise ValueError(f"mesh axes {list(cfg.mesh_axes)}: the mesh needs a data axis "
+                         "(--mesh data=D,model=M)")
+    if tensor_parallel(cfg):
+        size = cfg.mesh_shape[list(cfg.mesh_axes).index("model")]
+        spec = resolve_backbone(cfg.model.backbone)
+        if size != -1:
+            check_model_extent(size, spec.num_heads, 4 * spec.embed_dim)
 
 
 def _resume_step(ckpt: CheckpointManager, mesh, device: torch.device) -> Optional[int]:
@@ -331,7 +389,7 @@ def _resume_step(ckpt: CheckpointManager, mesh, device: torch.device) -> Optiona
         return step
     mine = -1 if step is None else step
     seen = torch.tensor([mine, -mine], device=device)
-    dist.all_reduce(seen, op=dist.ReduceOp.MAX, group=mesh.get_group())
+    dist.all_reduce(seen, op=dist.ReduceOp.MAX, group=mesh_group(mesh))
     highest, lowest = int(seen[0]), -int(seen[1])
     if highest != lowest:
         raise RuntimeError(
@@ -346,14 +404,14 @@ def _resume_step(ckpt: CheckpointManager, mesh, device: torch.device) -> Optiona
 def _agree(flag: bool, mesh, device: torch.device) -> bool:
     """Whether ``flag`` is set on any rank of ``mesh`` (an all-reduce MAX)."""
     value = torch.tensor([int(flag)], device=device)
-    dist.all_reduce(value, op=dist.ReduceOp.MAX, group=mesh.get_group())
+    dist.all_reduce(value, op=dist.ReduceOp.MAX, group=mesh_group(mesh))
     return bool(value.item())
 
 
 def train(cfg: TrainConfig) -> Optional[TrainState]:
     """The training run of ``cfg``; under a launcher, this rank's part of
     it. None on a rank outside the data mesh, which idles."""
-    check_axes(cfg.mesh_axes)
+    check_mesh(cfg)
     if cfg.multihost:
         distributed.require_launcher()
     distributed.initialize(cfg.device)
@@ -363,8 +421,8 @@ def train(cfg: TrainConfig) -> Optional[TrainState]:
         print(f"rank {distributed.rank()}: outside the data mesh of {mesh.size()} ranks "
               f"(global batch {cfg.batch_size}); idle", flush=True)
         return None
-    world, host = (1, 0) if mesh is None else (mesh.size(), mesh.get_local_rank())
-    lead = host == 0
+    world, host = data_share(mesh)
+    lead = distributed.rank() == 0
     names, val_names, labels = _dataset_setup(cfg)
     steps_per_epoch = len(names) // cfg.batch_size
     # max_step counts optimizer updates (the poly horizon); with gradient
@@ -463,7 +521,7 @@ def train(cfg: TrainConfig) -> Optional[TrainState]:
         if profiler is not None:
             _stop_profiler(profiler, cfg)
     if not preempted:
-        full = full_tensors(state.model.state_dict())
+        full = full_state_dict(state.model)
         if lead:
             os.makedirs(cfg.checkpoint_dir, exist_ok=True)
             save_params_npz(os.path.join(cfg.checkpoint_dir, f"{cfg.session_name}_last.npz"),
@@ -472,7 +530,7 @@ def train(cfg: TrainConfig) -> Optional[TrainState]:
     ckpt.close()
     if mesh is not None:
         # Every rank leaves with rank 0's files written.
-        dist.barrier(group=mesh.get_group())
+        dist.barrier(group=mesh_group(mesh))
     return state
 
 
@@ -520,11 +578,13 @@ def parse_args(argv: Optional[List[str]] = None) -> TrainConfig:
     parser.add_argument("--aug_pad", default=512, type=int,
                         help="static pad square for --device_aug rasters")
     parser.add_argument("--mesh", default="data=-1",
-                        help="device mesh as 'axis=size': 'data=-1' (every rank, cut to "
-                             "the largest divisor of the batch) or 'data=N'")
+                        help="device mesh as 'axis=size,...': 'data=-1' (every rank, cut "
+                             "to the largest divisor of the batch), 'data=N', or "
+                             "'data=D,model=M' (tensor parallelism over M ranks)")
     parser.add_argument("--fsdp", action="store_true",
                         help="shard parameters, gradients and momentum over the data "
-                             "axis (FSDP2) instead of replicating them (DDP)")
+                             "axis (FSDP2) instead of replicating them (DDP); a model "
+                             "axis is then ignored")
     parser.add_argument("--multihost", action="store_true",
                         help="require the launcher's environment (RANK, WORLD_SIZE, "
                              "LOCAL_RANK, MASTER_ADDR, MASTER_PORT): multi-node runs")

@@ -22,9 +22,13 @@ the same semantics on ``torch.optim.SGD``:
 SGD's momentum buffers and lr, the schedule's position, the counters and
 the accumulation buffers of an accumulation in progress.
 
-Under FSDP the parameters are shards: clipping takes the norm over all
-of them (``parallel.sharding.global_norm``), and ``load_state_dict``
-takes the one-device layout of a checkpoint and keeps this rank's share
+Under FSDP or a model axis the parameters are shards: clipping takes the
+norm of the one-device model over all of them
+(``parallel.sharding.global_norm``: a part cut over the model axis adds
+its squares over the model ranks, a replicated parameter counts once),
+``state_dict`` gives the momentum and accumulation buffers in the
+one-device layout (``parallel.sharding.full_like``, a collective), and
+``load_state_dict`` takes that layout and keeps this rank's share
 (``parallel.sharding.shard_like``).
 """
 
@@ -34,7 +38,7 @@ from typing import Iterable, List
 
 import torch
 
-from acr_wsss_tpu_torch.parallel.sharding import global_norm, shard_like
+from acr_wsss_tpu_torch.parallel.sharding import full_like, global_norm, shard_like
 
 
 def poly_factor(step: int, max_step: int, power: float = 0.9) -> float:
@@ -88,7 +92,7 @@ class PolySGD:
             self.mini_step = 0
             grads = self._acc
         if self.clip_grad_norm:
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.params)
             if norm >= self.clip_grad_norm:
                 grads = [(g / norm) * self.clip_grad_norm for g in grads]
         for p, g in zip(self.params, grads):
@@ -105,10 +109,17 @@ class PolySGD:
 
     def state_dict(self) -> dict:
         """Restore it into a PolySGD built over the same parameters in the
-        same order: SGD keys its state by parameter index."""
-        return {"sgd": self.sgd.state_dict(), "schedule": self.schedule.state_dict(),
+        same order: SGD keys its state by parameter index. Tensors come in
+        the one-device layout (a collective when parameters are sharded:
+        every rank calls it)."""
+        sgd = self.sgd.state_dict()
+        sgd["state"] = {i: {k: full_like(v, self.params[i]) if isinstance(v, torch.Tensor)
+                            else v for k, v in entry.items()}
+                        for i, entry in sgd["state"].items()}
+        return {"sgd": sgd, "schedule": self.schedule.state_dict(),
                 "mini_step": self.mini_step, "updates": self.updates,
-                "acc": list(self._acc) if self.mini_step else []}
+                "acc": ([full_like(a, p) for a, p in zip(self._acc, self.params)]
+                        if self.mini_step else [])}
 
     def load_state_dict(self, state: dict) -> None:
         self.sgd.load_state_dict(self._shard_state(state["sgd"]))

@@ -191,8 +191,10 @@ package. Phases, each of which fails the run when it fails:
    the data mesh (``make_data_mesh_for_batch``, DDP) at swin_base_384's
    widths and depth, crop 384, from phase 15's seeded zoo npz
    (``--pretrained``), float32 with TF32 off: two gloo ranks on the card,
-   2 + 2 images, against the one-device step on the 4 in phase 13 (b)'s
-   gates, and a world-size-1 NCCL step giving the one-device step's bits;
+   2 + 2 images, against the one-device step on the 4, the update within
+   twice the yardstick of the one-device step's own other summation
+   orders (2 + 2 accumulated, the batch permuted) measured in the same
+   run, and a world-size-1 NCCL step giving the one-device step's bits;
    then ``train_swin.main --pretrained`` on the two ranks under the
    launcher's variables: 2 steps, one history on both, ``swin_last.npz``
    written by rank 0 alone, no launch; (b) float32 eval forwards at each name's default input size, batch 8,
@@ -205,6 +207,21 @@ package. Phases, each of which fails the run when it fails:
    seresnet50 features, card against CPU within 1e-4 of the largest
    value. (b)'s float32 checks, (c) and (d) run while (a)'s ranks work;
    (b)'s bf16 forwards are timed after, alone.
+19. the mesh's model axis, tensor parallelism (``train --mesh
+   data=D,model=M``): (a) two gloo ranks on the card, mesh
+   data=1,model=2, vitb_hybrid at full width and depth, crop 384, phase
+   7's weights and batch: the float32 step (TF32 off) against the
+   one-device float32 per-layer step, gated at twice the yardstick of the
+   one-device step's other summation orders in the same run, on the whole
+   update and its worst tensor; the bf16 kernel step (per-layer branch,
+   bf16 export, 6 heads per rank) against the one-device bf16 per-layer
+   kernel step in phase 7's gates on the tensors phase 13 (b) gates; 12
+   K1f and 12 K1b per rank and no other launch; K1f and K1b at H = 6
+   against their plain versions on rank 0's own block inputs (a row
+   stride of 1152), each equal to the bit to what the step got; (b) four
+   ranks, data=2,model=2, vitb at 4 of its 12 blocks, float32, against
+   the one-device step on the same 4 images, (a)'s gate; (c) each rank's
+   bf16 step time, host clock and CUDA events.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object with one entry per kernel; the last line is
@@ -251,6 +268,7 @@ from acr_wsss_tpu_torch.data import device_aug  # noqa: E402
 from acr_wsss_tpu_torch.data import voc as voc_data  # noqa: E402
 from acr_wsss_tpu_torch.infer_cam import build_infer_fn, process_image  # noqa: E402
 from acr_wsss_tpu_torch.models.acr import ACR, init_random_  # noqa: E402
+from acr_wsss_tpu_torch.models import acr as acr_mod  # noqa: E402
 from acr_wsss_tpu_torch.models import vit as vit_mod  # noqa: E402
 from acr_wsss_tpu_torch.getam import grad_cam  # noqa: E402
 from acr_wsss_tpu_torch.models import convert, extras, registry, zoo  # noqa: E402
@@ -286,8 +304,9 @@ from acr_wsss_tpu_torch.utils.checkpoint import (CheckpointManager,  # noqa: E40
 from acr_wsss_tpu_torch.utils.schedule import make_optimizer, poly_factor  # noqa: E402
 from acr_wsss_tpu_torch.utils.supervisor import run_train_supervised  # noqa: E402
 from acr_wsss_tpu_torch.parallel import distributed  # noqa: E402
-from acr_wsss_tpu_torch.parallel.mesh import make_data_mesh_for_batch  # noqa: E402
-from acr_wsss_tpu_torch.parallel.sharding import full_tensors, shard_like, unwrap  # noqa: E402
+from acr_wsss_tpu_torch.parallel.mesh import make_data_mesh_for_batch, make_mesh  # noqa: E402
+from acr_wsss_tpu_torch.parallel.sharding import (full_like, full_tensors,  # noqa: E402
+                                                  shard_like, unwrap)
 from torch.nn.parallel import DistributedDataParallel  # noqa: E402
 
 WEIGHTS = os.path.join(ROOT, "bench_artifacts", "stability_r3", "stability_r3_last.npz")
@@ -564,9 +583,15 @@ CNN_TIMED = ("resnet50", "resnet50d", "seresnext26d_32x4d", "densenet121", "vgg1
 # mesh at swin_base_384's published widths and depth (phase 15's
 # configuration and seeded zoo npz, --pretrained), float32 with TF32 off:
 # at world size 1 (NCCL) the one-device step's bits; two gloo ranks on the
-# card, 2 + 2 images, against the one-device 4-image step with phase 13
-# (b)'s gates (LOSS_RTOL, UPDATE_REL: float32 sums of 2 + 2 images in
-# another order, 3.1e-05 on the hybrid). (b) float32 eval forwards (TF32
+# card, 2 + 2 images, against the one-device 4-image step: the loss parts
+# in LOSS_RTOL, the update in ORDER_SPREAD x the yardstick of the
+# one-device step's own other orders. The ranks' worst tensor, a
+# relative-position bias table at 4.15e-4, is the one-device 2 + 2
+# accumulated step's own reading: the table's update is 3.5e4 times
+# smaller than its values, so one float32 ulp of the stored parameter is
+# 3.1e-3 of the update's norm, and float32 puts that update 9.8e-4 from
+# float64's, where 2 + 2 and 4 agree to 5.8e-14 (docs/dp_split_probe.py
+# --swin, H100, 700 W). (b) float32 eval forwards (TF32
 # off) of ZOO_FORWARDS at each name's default input size, batch CLS_BATCH,
 # card against CPU within CNN_REL of the largest |logit| (phase 16 (d)'s
 # reason); their bf16 forward times. (c) phase 17 (d)'s train-mode step
@@ -583,6 +608,23 @@ CNN_ZERO_GRAD = {"efficientnet_b0": r"\.project\.bn\.bias$"}
 SURFACE_REL, SWIN_DP_RANKS = 1e-4, 2
 ASPP_CASE = (2, 2048, 32, 32)          # DeepLab's widths: 2048 in, 256 out
 ATTN_CONV_CASE = (2, 64, 64, 64)       # 64 channels, kernel 7, 8 groups
+# Phase 19, the mesh's model axis (tensor parallelism) on the one card,
+# over gloo as phase 13 (b). A float32 step on a data or model mesh sums
+# the same terms as the one-device step in other orders: the batch's
+# terms in two halves (data), the projections' and the MLP's partial
+# products and the head mean in two halves (model). The yardstick is the
+# one-device step's own spread under other orders of its sums, measured in
+# the same run: the batch as 2 + 2 accumulated micro-steps and the batch
+# permuted. ORDER_SPREAD allows a mesh's float32 step twice the larger
+# reading, on the whole update and on its worst tensor (independent
+# orders add in quadrature: sqrt(2), rounded up, as CNN_SPREAD), never
+# more than phase 7's UPDATE_REL. (The same step on the CPU is no
+# yardstick: oneDNN's and cuDNN's convolutions put vitb_hybrid's stem
+# updates 0.087 apart.) (b) runs vitb at TP_DEPTH of its 12 blocks: four
+# ranks of the whole model on one card would hold the phase's length past
+# its share of the run.
+TP_RANKS, TP_AXES, TP_DEPTH, TP_DEPTH_BACKBONE, TP_TIMED = 2, ("data", "model"), 4, "vitb_tp4", 5
+ORDER_SPREAD = 2.0
 KERNELS = (KERNEL, attn_pair.KERNEL, BWD_KERNEL, pamr_ops.KERNEL)
 
 
@@ -2300,11 +2342,12 @@ def phase_surface(device, tmp, paths, labels, card) -> None:
 
 def dp_model(cfg, weights, mesh):
     """(model, optimizer, train step) of ``cfg`` from ``weights``, on
-    ``mesh`` (DDP, or FSDP2 with ``cfg.fsdp``; None: one device)."""
+    ``mesh`` (DDP, or FSDP2 with ``cfg.fsdp``, with the model axis's cut on
+    a (data, model) mesh; None: one device)."""
     model, opt = train_mod.create_train_state(cfg, TRAIN_IMAGES // TRAIN_BATCH, init=False,
                                               mesh=mesh)
     base = unwrap(model)
-    current = base.state_dict()
+    current = base.state_dict(keep_vars=True)
     base.load_state_dict({k: shard_like(v.to(current[k].device), current[k])
                           for k, v in weights.items()})
     grid = (cfg.crop_size // 16, cfg.crop_size // 16)
@@ -3517,17 +3560,24 @@ def swin_dp_config(cfg):
         cfg.model, backbone=SWIN_MODEL, compute_dtype="float32"), device="cuda:0")
 
 
-def swin_dp_step(cfg, batch, mesh):
+def swin_dp_step(cfg, batch, mesh, micro=(slice(None),)):
     """One ``train_swin`` step as ``main`` builds it (``--pretrained`` from
-    the zoo npz of ``ACR_WSSS_ZOO``), on ``mesh`` (None: one device):
-    (None, None, loss parts, parameters before, after), launches."""
+    the zoo npz of ``ACR_WSSS_ZOO``), on ``mesh`` (None: one device), over
+    the ``micro`` rows of ``batch`` (micro-steps that ``cfg.accum_steps``
+    accumulates; the loss parts their mean): (None, None, loss parts,
+    parameters before, after), launches."""
     device = torch.device(cfg.device)
     model, opt = train_swin.create_swin_train_state(cfg, TRAIN_IMAGES // TRAIN_BATCH,
                                                     SWIN_MODEL, pretrained=True, mesh=mesh)
+    if cfg.accum_steps > 1:   # train_swin accumulates no micro-steps of its own
+        opt = make_optimizer(unwrap(model).parameters(), cfg.lr, TRAIN_IMAGES // TRAIN_BATCH,
+                             cfg.weight_decay, cfg.momentum, cfg.poly_power,
+                             accum_steps=cfg.accum_steps)
     before = {k: v.detach().clone() for k, v in unwrap(model).named_parameters()}
     step = train_swin.make_swin_train_step(model, opt, cfg, CROP, device, mesh)
     reset_counts()
-    parts = {k: float(v) for k, v in step(batch).items()}
+    steps = [step({k: v[rows] for k, v in batch.items()}) for rows in micro]
+    parts = {k: float(np.mean([float(p[k]) for p in steps])) for k in steps[0]}
     torch.cuda.synchronize()
     launches = read_counts()
     after = {k: v.detach().clone() for k, v in unwrap(model).named_parameters()}
@@ -3608,10 +3658,12 @@ def check_swin_data_parallel(device, cfg, root, tmp, meanwhile) -> None:
     """(a) ``train_swin`` over the data mesh: SWIN_DP_RANKS gloo ranks take
     their steps (2 + 2 images) and then run ``train_swin.main`` under the
     launcher's variables, while this process takes the one-device step on
-    the 4, the world-size-1 NCCL step (bit for bit against it) and then
-    ``meanwhile()``; the ranks' step against the one-device one, and their
-    ``main`` runs, once they are done. No time is read while the ranks
-    run."""
+    the 4, the same step as 2 + 2 accumulated micro-steps and on the 4
+    permuted (the yardstick of ``order_yardstick``), the world-size-1 NCCL
+    step (bit for bit against it) and then ``meanwhile()``; the ranks'
+    step against the one-device one (``check_against_yardstick``), and
+    their ``main`` runs, once they are done. No time is read while the
+    ranks run."""
     scfg = swin_dp_config(cfg)
     batch = {k: np.asarray(v) for k, v in first_batch(cfg).items() if k in ("image", "label")}
     np.savez(os.path.join(tmp, "swin_dp_batch.npz"), **batch)
@@ -3635,6 +3687,12 @@ def check_swin_data_parallel(device, cfg, root, tmp, meanwhile) -> None:
             nprocs=SWIN_DP_RANKS, join=False)
         try:
             ref, ref_launches = swin_dp_step(scfg, batch, None)
+            half = TRAIN_BATCH // 2
+            others = {"2 + 2 accumulated": swin_dp_step(
+                          dataclasses.replace(scfg, accum_steps=2), batch, None,
+                          [slice(0, half), slice(half, None)])[0],
+                      "the batch permuted": swin_dp_step(
+                          scfg, {k: v[[1, 0, 3, 2]] for k, v in batch.items()}, None)[0]}
             distributed.initialize("cuda:0",
                                    init_method=f"file://{os.path.join(tmp, 'swin_ws1')}",
                                    rank=0, world_size=1)
@@ -3668,8 +3726,8 @@ def check_swin_data_parallel(device, cfg, root, tmp, meanwhile) -> None:
     if not ref_launches == out["launches"] == ws1_launches == zero_counts():
         raise AssertionError("a Swin step launched a kernel")
     got = (None, None, out["parts"], ref[3], {k: v.to(device) for k, v in out["after"].items()})
-    compare_steps(f"{SWIN_DP_RANKS}-rank float32 Swin DDP step", got, ref,
-                  f"the {scfg.batch_size}-image one-device float32 step")
+    check_against_yardstick(f"{SWIN_DP_RANKS}-rank float32 Swin DDP step", got, ref,
+                            order_yardstick("(a)", ref, others))
     check_swin_dp_cli(tmp, weight_dir)
 
 
@@ -3787,6 +3845,330 @@ def phase_zoo_surface(device, cfg, root, tmp, card) -> None:
 
     check_swin_data_parallel(device, cfg, root, tmp, meanwhile)
     time_zoo_forwards(device, card, kept.pop("weights"))
+
+
+def tp_config(cfg, mesh_shape, fp32: bool, backbone=None):
+    """Phase 19's step configuration on the first card: the recipe's bf16
+    per-layer kernel branch with the bf16 export, or float32 on the plain
+    path (TF32 off); on the (data, model) mesh ``mesh_shape``, or on one
+    device for None."""
+    base = fp32_plain(cfg) if fp32 else cfg
+    model = dataclasses.replace(base.model, fuse_consistency=False, probs_dtype="bfloat16",
+                                backbone=backbone or base.model.backbone)
+    mesh = {} if mesh_shape is None else {"mesh_shape": mesh_shape, "mesh_axes": TP_AXES}
+    return dataclasses.replace(base, model=model, device="cuda:0", **mesh)
+
+
+def register_tp_depth_backbone() -> None:
+    """(b)'s vitb at TP_DEPTH blocks, its head on the last one."""
+    acr_mod.BACKBONES.setdefault(TP_DEPTH_BACKBONE, dataclasses.replace(
+        acr_mod.BACKBONES["vitb"], depth=TP_DEPTH, taps=(TP_DEPTH - 1,)))
+
+
+@contextlib.contextmanager
+def keep_tp_k1_io(kept: list):
+    """``keep_k1_backward_io`` with the export: each K1 call of the blocks
+    also keeps its out and probs, and the cotangent that reached its probs
+    (``de``)."""
+    kernel = vit_mod.fused_attention_qkv_cols
+
+    def keeping(qkv, scale, num_heads, export="mean", probs_dtype=torch.float32):
+        out, probs = kernel(qkv, scale, num_heads, export, probs_dtype)
+        rec = {"qkv": qkv.detach(), "scale": scale, "heads": num_heads, "out": out.detach(),
+               "probs": probs.detach(), "dtype": probs_dtype}
+        out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+        probs.register_hook(lambda d: rec.__setitem__("de", d.detach()))
+        qkv.register_hook(lambda d: rec.__setitem__("dqkv", d.detach()))
+        kept.append(rec)
+        return out, probs
+
+    vit_mod.fused_attention_qkv_cols = keeping
+    try:
+        yield
+    finally:
+        vit_mod.fused_attention_qkv_cols = kernel
+
+
+def check_tp_kernels(kept) -> dict:
+    """K1f and K1b on the (qkv, g, de) that each block of rank 0's step gave
+    them (its H / M heads): each equal to the bit to what the step got,
+    and held to its plain version with phase 3's tolerances (the bf16
+    export's, and the gradient's). Returns the largest errors and the
+    shapes."""
+    errs = {"K1f out": 0.0, "K1f probs": 0.0, "K1b": 0.0}
+    for rec in kept:
+        qkv, heads, scale = rec["qkv"], rec["heads"], rec["scale"]
+        out, probs = attention_qkv_cols_forward(qkv, scale, heads, "mean", rec["dtype"])
+        p_out, p_probs = attention_qkv_cols_plain(qkv, scale, heads, "mean", rec["dtype"])
+        dqkv = attention_qkv_cols_backward(qkv, rec["g"], rec["de"], scale, heads)
+        ref = attention_qkv_cols_backward_plain(qkv, rec["g"], rec["de"], scale, heads)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, rec["out"]) and torch.equal(probs, rec["probs"])
+                and torch.equal(dqkv, rec["dqkv"])):
+            raise AssertionError("K1f or K1b on a block's own inputs is not what the model-axis "
+                                 "step got")
+        for key, got, want, rtol, atol in (
+                ("K1f out", out, p_out, OUT_RTOL, OUT_ATOL),
+                ("K1f probs", probs, p_probs, BF16_PROBS_RTOL, PROBS_ATOL),
+                ("K1b", dqkv, ref, GRAD_RTOL, GRAD_ATOL_FRAC * ref.float().abs().max().item())):
+            err, bad = max_err_and_bad(got, want, rtol, atol)
+            if bad:
+                raise AssertionError(f"{key} at H = {heads} on a block's own inputs: {bad} "
+                                     f"elements out of tolerance, max abs err {err:.3g}")
+            errs[key] = max(errs[key], err)
+    qkv = kept[0]["qkv"]
+    errs["shape"] = (tuple(qkv.shape), kept[0]["heads"], qkv.stride(1), kept[0]["de"].dtype)
+    return errs
+
+
+def tp_params(model) -> dict:
+    """Every parameter in the one-device layout, on the host (the model
+    axis's parts gathered: an all-reduce, which gloo takes on the card)."""
+    return {k: full_like(v).detach().to("cpu", torch.float32, copy=True)
+            for k, v in unwrap(model).named_parameters()}
+
+
+def time_tp_steps(step, batch, reps=TP_TIMED) -> dict:
+    """``reps`` more steps on ``batch``: each one's host-clock time
+    (synchronized) and its CUDA-event time, in ms."""
+    host, events = [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    return {"host": host, "events": events}
+
+
+def tp_rank(rank, world, store, tmp, part, mesh_shape, cases):
+    """Phase 19's ranks: one of ``world`` gloo ranks on the card, on the
+    (data, model) mesh ``mesh_shape``; each of ``cases`` (name: config)
+    from ``tmp/tp_weights_<backbone>.pt`` on this rank's data rows of
+    ``tmp/tp_batch.npz``; rank 0 keeps its K1f and K1b inputs on a kernel
+    case and checks them, and every rank times a kernel case's next steps.
+    Each rank writes ``tmp/tp_<part>_rank<r>.pt``: loss parts, launches,
+    times, and on rank 0 the parameters after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize("cuda:0", init_method=f"file://{store}", rank=rank,
+                           world_size=world, backend="gloo")
+    register_tp_depth_backbone()
+    batch = dict(np.load(os.path.join(tmp, "tp_batch.npz")))
+    mesh = make_mesh(mesh_shape, TP_AXES, "cuda")
+    data, per = mesh["data"].get_local_rank(), TRAIN_BATCH // mesh_shape[0]
+    share = {k: v[data * per:(data + 1) * per] for k, v in batch.items()}
+    out = {}
+    for name, ccfg in cases.items():
+        kernel = ccfg.model.attn_impl == "kernel"
+        weights = torch.load(os.path.join(tmp, f"tp_weights_{ccfg.model.backbone}.pt"),
+                             weights_only=True)
+        model, _, step = dp_model(ccfg, weights, mesh)
+        del weights
+        kept = []
+        reset_counts()
+        with keep_tp_k1_io(kept) if kernel and rank == 0 else contextlib.nullcontext():
+            parts = {k: float(v) for k, v in step(share).items()}
+        torch.cuda.synchronize()
+        res = {"parts": parts, "launches": read_counts()}
+        after = tp_params(model)
+        if rank == 0:
+            res["after"] = after
+        if kept:
+            res["k1"] = check_tp_kernels(kept)
+        del kept, after
+        if kernel:
+            res["ms"] = time_tp_steps(step, share)
+        out[name] = res
+        del model, step
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"tp_{part}_rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def tp_one_device(ccfg, weights, batch) -> tuple:
+    """``step_on``'s tuple for one one-device step of ``ccfg`` on ``batch``,
+    its parameters on the host."""
+    model, opt, step = dp_model(ccfg, weights, None)
+    before = {k: v.detach().to("cpu", torch.float32, copy=True)
+              for k, v in model.named_parameters()}
+    reset_counts()
+    if ccfg.accum_steps > 1:
+        per = TRAIN_BATCH // ccfg.accum_steps
+        micro = [step({k: v[r * per:(r + 1) * per] for k, v in batch.items()})
+                 for r in range(ccfg.accum_steps)]
+        parts = {k: float(np.mean([float(m[k]) for m in micro])) for k in micro[0]}
+    else:
+        parts = {k: float(v) for k, v in step(batch).items()}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    after = {k: v.detach().to("cpu", torch.float32, copy=True)
+             for k, v in model.named_parameters()}
+    return (None, None, parts, before, after), launches
+
+
+def order_yardstick(label, ref, others) -> dict:
+    """The spread of the one-device float32 step ``ref`` under other
+    summation orders of the same sums (``others``: name -> step), as
+    relative L2 of the whole update and of its worst tensor: the larger
+    reading of each, which ORDER_SPREAD multiplies into a gate."""
+    spread = {"whole": 0.0, "tensor": 0.0}
+    for name, other in others.items():
+        rel = update_rels(ref[3], other[4], ref[4])
+        whole = rel.pop("(all parameters)")
+        worst = max(rel, key=rel.get)
+        spread = {"whole": max(spread["whole"], whole), "tensor": max(spread["tensor"], rel[worst])}
+        log(f"    {label} yardstick, {name} against the one-device step: update {whole:.3g}, "
+            f"worst {worst} {rel[worst]:.3g}")
+    return spread
+
+
+def check_against_yardstick(name, got, ref, spread) -> dict:
+    """A float32 model-axis step against the one-device step: loss parts
+    within LOSS_RTOL, the whole update and its worst tensor within
+    ORDER_SPREAD times the yardstick's readings, never above UPDATE_REL."""
+    compare_steps_losses(name, got, ref, "the one-device float32 step")
+    rel = update_rels(ref[3], got[4], ref[4])
+    whole = rel.pop("(all parameters)")
+    worst = max(rel, key=rel.get)
+    limit = {k: min(UPDATE_REL, ORDER_SPREAD * v) for k, v in spread.items()}
+    log(f"    update p1 - p0 against the one-device float32 step's, relative L2: all "
+        f"parameters {whole:.3g} (tolerance {limit['whole']:.3g}), worst tensor {worst} "
+        f"{rel[worst]:.3g} (tolerance {limit['tensor']:.3g}): {ORDER_SPREAD} x the "
+        f"yardstick, at most {UPDATE_REL}")
+    if whole > limit["whole"] or rel[worst] > limit["tensor"]:
+        raise AssertionError(f"{name}: the update disagrees with the one-device step beyond "
+                             "the float32 yardstick")
+    return {"whole": whole, "worst": worst, "worst_rel": rel[worst], "limit": limit}
+
+
+def phase_tensor_parallel(device, cfg, tmp, ref, card) -> dict:
+    """(a) TP_RANKS gloo ranks on the card, mesh data=1,model=TP_RANKS,
+    vitb_hybrid at full width and depth, crop 384, phase 7's weights and
+    batch: the float32 step (TF32 off) against the one-device float32
+    per-layer step, gated at ORDER_SPREAD x the yardstick of the
+    one-device step's other summation orders (2 + 2 accumulated, the
+    batch permuted), every tensor; the bf16 kernel step against the
+    one-device bf16 per-layer kernel step in phase 7's step gates on the
+    tensors phase 13 (b) gates (``dp_check_global``); K1f and K1b
+    TP_LAYERS times each per rank and nothing else; K1f and K1b at H / M
+    heads against their plain versions on rank 0's own block inputs.
+    (b) four ranks, data=2,model=2, vitb at TP_DEPTH blocks, float32,
+    against the one-device step on the same 4 images, (a)'s gate with its
+    own yardstick. (c) each rank's bf16 kernel step, host clock and CUDA
+    events. A model axis of 5 (no divisor of 12 heads) is refused. The
+    one-device references run while the ranks do."""
+    weights, batch, _ = ref
+    batch = {k: np.asarray(batch[k]) for k in ("image", "label")}
+    np.savez(os.path.join(tmp, "tp_batch.npz"), **batch)
+    torch.save(weights, os.path.join(tmp, f"tp_weights_{cfg.model.backbone}.pt"))
+    register_tp_depth_backbone()
+    small = tp_config(cfg, None, True, TP_DEPTH_BACKBONE)
+    small_weights = init_random_(train_mod.build_model(small.model), seed=cfg.seed).state_dict()
+    torch.save(small_weights, os.path.join(tmp, f"tp_weights_{TP_DEPTH_BACKBONE}.pt"))
+    mesh_a, mesh_b = (1, TP_RANKS), (2, 2)
+    cases_a = {"fp32": tp_config(cfg, mesh_a, True), "bf16": tp_config(cfg, mesh_a, False)}
+    cases_b = {"fp32": tp_config(cfg, mesh_b, True, TP_DEPTH_BACKBONE)}
+    perm = [1, 0, 3, 2]
+    permuted = {k: v[perm] for k, v in batch.items()}
+    depth = ref[2][0].spec.depth
+
+    t0 = time.perf_counter()
+    ranks = torch.multiprocessing.spawn(
+        tp_rank, args=(TP_RANKS, os.path.join(tmp, "tp_store_a"), tmp, "a", mesh_a, cases_a),
+        nprocs=TP_RANKS, join=False)
+    try:
+        one = tp_config(cfg, None, True)
+        fp32, fp32_launches = tp_one_device(one, weights, batch)
+        others = {"2 + 2 accumulated": tp_one_device(dataclasses.replace(one, accum_steps=2),
+                                                     weights, batch)[0],
+                  "the batch permuted": tp_one_device(one, weights, permuted)[0]}
+        bf16, bf16_launches = tp_one_device(tp_config(cfg, None, False), weights, batch)
+    finally:
+        while not ranks.join(timeout=300):
+            pass
+    outs = [torch.load(os.path.join(tmp, f"tp_a_rank{r}.pt"), weights_only=True)
+            for r in range(TP_RANKS)]
+    log(f"  (a) {TP_RANKS} gloo ranks on cuda:0, mesh data=1,model={TP_RANKS}, "
+        f"{cfg.model.backbone} at crop {cfg.crop_size}, {TRAIN_BATCH} images on each "
+        f"({time.perf_counter() - t0:.1f} s with the one-device references); one-device "
+        f"launches: float32 {fp32_launches['K1f']} K1f, bf16 {bf16_launches}")
+    spread = order_yardstick("(a)", fp32, others)
+    res = {"a": {}, "b": {}}
+    for name in cases_a:
+        parts = outs[0][name]["parts"]
+        if any(o[name]["parts"] != parts for o in outs):
+            raise AssertionError(f"(a) {name}: the model ranks' loss parts differ")
+        got = (None, None, parts, fp32[3], outs[0][name]["after"])
+        label = f"{TP_RANKS}-rank model-axis {'float32' if name == 'fp32' else 'bf16 kernel'} step"
+        launches = [o[name]["launches"] for o in outs]
+        expected = ({**zero_counts(), "K1f": depth, "K1b": depth} if name == "bf16"
+                    else zero_counts())
+        log(f"   {label}: launches per rank {launches}")
+        if any(n != expected for n in launches):
+            raise AssertionError(f"(a) {label}: launches {launches}, expected {expected}")
+        if name == "fp32":
+            res["a"]["fp32"] = check_against_yardstick(label, got, fp32, spread)
+            continue
+        dp_check_global(label, parts, got[4], bf16, update_rel(bf16, fp32))
+        k1 = outs[0][name]["k1"]
+        shape, heads, stride, de_dtype = k1["shape"]
+        log(f"    K1f and K1b on rank 0's own block inputs, qkv {shape} (row stride {stride}), "
+            f"H = {heads}, de {de_dtype}: max abs err K1f out {k1['K1f out']:.3g}, probs "
+            f"{k1['K1f probs']:.3g}, K1b {k1['K1b']:.3g} (phase 3's tolerances); each equal to "
+            "the bit to what the step got")
+        res["a"]["k1"] = k1
+        res["a"]["ms"] = [o[name]["ms"] for o in outs]
+        res["a"]["launches"] = launches[0]
+    del outs
+
+    t0 = time.perf_counter()
+    ranks = torch.multiprocessing.spawn(
+        tp_rank, args=(4, os.path.join(tmp, "tp_store_b"), tmp, "b", mesh_b, cases_b),
+        nprocs=4, join=False)
+    try:
+        one = tp_config(cfg, None, True, TP_DEPTH_BACKBONE)
+        fp32, _ = tp_one_device(one, small_weights, batch)
+        others = {"2 + 2 accumulated": tp_one_device(dataclasses.replace(one, accum_steps=2),
+                                                     small_weights, batch)[0],
+                  "the batch permuted": tp_one_device(one, small_weights, permuted)[0]}
+    finally:
+        while not ranks.join(timeout=300):
+            pass
+    outs = [torch.load(os.path.join(tmp, f"tp_b_rank{r}.pt"), weights_only=True)
+            for r in range(4)]
+    log(f"  (b) 4 gloo ranks on cuda:0, mesh data=2,model=2, vitb at {TP_DEPTH} of its 12 "
+        f"blocks, float32, 2 images each ({time.perf_counter() - t0:.1f} s with the "
+        "references)")
+    spread = order_yardstick("(b)", fp32, others)
+    parts = outs[0]["fp32"]["parts"]
+    if any(o["fp32"]["parts"] != parts for o in outs):
+        raise AssertionError("(b): the ranks' averaged loss parts differ")
+    res["b"] = check_against_yardstick("4-rank data=2,model=2 float32 step",
+                                       (None, None, parts, fp32[3], outs[0]["fp32"]["after"]),
+                                       fp32, spread)
+    del outs
+
+    refused = dataclasses.replace(cfg, mesh_shape=(1, 5), mesh_axes=TP_AXES)
+    try:
+        train_mod.check_mesh(refused)
+    except ValueError as e:
+        log(f"  a model axis of 5 on {cfg.model.backbone}: {e}")
+    else:
+        raise AssertionError("a model axis that does not divide the heads was taken")
+
+    log(f"  (c) the bf16 kernel step on each of (a)'s {TP_RANKS} ranks, {TP_TIMED} steps after "
+        "the compared one, both ranks on the one card at once:")
+    for r, ms in enumerate(res["a"]["ms"]):
+        log(f"    rank {r}: host clock median {float(np.median(ms['host'])):.2f} ms (all: "
+            + ", ".join(f"{t:.2f}" for t in ms["host"]) + "); CUDA events median "
+            f"{float(np.median(ms['events'])):.2f} ms (all: "
+            + ", ".join(f"{t:.2f}" for t in ms["events"]) + f") [{card}]")
+    return res
 
 
 def time_step(label, step, batch, images, card, reps=6) -> dict:
@@ -4143,12 +4525,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/18] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+    log(f"[1/19] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     reports = _build.build(list(KERNELS))
-    log(f"[2/18] build: {time.perf_counter() - t0:.1f} s with nvcc into "
+    log(f"[2/19] build: {time.perf_counter() - t0:.1f} s with nvcc into "
         f"{os.path.relpath(_build.BUILD_DIR, ROOT)}/, one process per source")
     for name, report in reports.items():
         kernel = ""
@@ -4166,37 +4548,37 @@ def main() -> int:
         f"{pamr_ops.affinity_blocks_per_sm(PAMR_DILATIONS)} (at its largest halo), "
         f"pamr_update_kernel<{n_dil}> {pamr_ops.update_blocks_per_sm(PAMR_DILATIONS)}")
 
-    log("[3/18] kernels against their plain versions on the card")
+    log("[3/19] kernels against their plain versions on the card")
     errs = phase_kernels(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("[4/18] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
+        log("[4/19] inference path: GETAM CAM inference, vitb_hybrid, crop 384, 2 images, "
             f"without and with --pamr {PAMR_ITERS}")
         t0 = time.perf_counter()
         (infer, paths, labels, infer_launches, pamr_launches, pamr_fn,
          pamr_input) = phase_main_path(device, tmp)
         log(f"  inference path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[5/18] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
+        log("[5/19] training path: train.train, vitb_hybrid, crop 384, batch 4, the recipe")
         t0 = time.perf_counter()
         cfg, train_launches, state = phase_train_path(device, os.path.join(tmp, "train"))
         del state
         log(f"  training path phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[6/18] resumable training: preempt and resume, --device_aug, the relaunch "
+        log("[6/19] resumable training: preempt and resume, --device_aug, the relaunch "
             "supervisor, --pretrained, COCO; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_resume(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  resume phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[7/18] one train step, kernel path against plain path, same weights and batch")
+        log("[7/19] one train step, kernel path against plain path, same weights and batch")
         t0 = time.perf_counter()
         model, opt, batch, layer_launches, step_ctx, fused = phase_step_compare(device, cfg)
         dp_ref = (step_ctx[0], batch, fused)
         del fused
         log(f"  step comparison phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[8/18] attention entries: K5a, K5b, K5c against their plain versions and "
+        log("[8/19] attention entries: K5a, K5b, K5c against their plain versions and "
             "through autograd; the per-layer branch with a bf16 export")
         t0 = time.perf_counter()
         entry_errs, entry_launches, bf16_launches = phase_attention_entries(
@@ -4204,39 +4586,38 @@ def main() -> int:
         del step_ctx
         log(f"  attention entries phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[9/18] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
+        log(f"[9/19] pipeline: train -> infer --pamr {PAMR_ITERS} -> eval, vitb_hybrid, "
             f"crop 384, the recipe")
         t0 = time.perf_counter()
         phase_pipeline(cfg, os.path.join(tmp, "train"))
         log(f"  pipeline phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[10/18] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
+        log("[10/19] CRF and pseudo masks: the device CRF at 512x512, infer_cam --out_crf "
             "on either route, pseudo_label")
         t0 = time.perf_counter()
         pseudo_dir = phase_crf(device, tmp, paths, labels, infer_launches, card)
         log(f"  CRF phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[11/18] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
+        log("[11/19] segmentation: train_seg on pseudo masks, vitb_hybrid, crop 384, batch "
             f"{SEG_BATCH}; one bf16 seg step, kernel path against plain path")
         t0 = time.perf_counter()
         seg = phase_seg(device, cfg, tmp, pseudo_dir, card)
         log(f"  segmentation phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[12/18] serving and the reference import: the serving export, the convert "
+        log("[12/19] serving and the reference import: the serving export, the convert "
             "CLI; vitb_hybrid, crop 384")
         t0 = time.perf_counter()
         phase_surface(device, tmp, paths, labels, card)
         log(f"  serving phase: {time.perf_counter() - t0:.1f} s")
 
-        log("[13/18] parallel: DDP, FSDP and --dp on one card; vitb_hybrid, crop 384, "
+        log("[13/19] parallel: DDP, FSDP and --dp on one card; vitb_hybrid, crop 384, "
             "batch 4, the recipe")
         t0 = time.perf_counter()
         names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
         phase_parallel(device, cfg, tmp, names, labels, dp_ref, card)
-        del dp_ref
         log(f"  parallel phase: {time.perf_counter() - t0:.1f} s")
 
-        log(f"[14/18] timing on {card}")
+        log(f"[14/19] timing on {card}")
         image_ms = time_image(infer, paths[0], labels[0])
         log(f"  per-image latency (process_image, {IMAGE_SIZES[0][0]}x{IMAGE_SIZES[0][1]}, "
             f"{int(labels[0].sum())} labels, median of 5 after a warm-up): {image_ms:.2f} ms "
@@ -4258,14 +4639,14 @@ def main() -> int:
         del model, opt
         torch.cuda.empty_cache()
 
-        log(f"[15/18] Swin and PiT: train_swin at {SWIN_MODEL}, crop {CROP}, batch "
+        log(f"[15/19] Swin and PiT: train_swin at {SWIN_MODEL}, crop {CROP}, batch "
             f"{TRAIN_BATCH}, the recipe; pit_b forwards on K1f at crop {PIT_CROP}")
         t0 = time.perf_counter()
         swin_pit = phase_swin_pit(device, cfg, os.path.join(tmp, "train"), card)
         log(f"  Swin and PiT phase: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
-        log(f"[16/18] the classifier zoo: ViT and DeiT classifiers on K1n at batch "
+        log(f"[16/19] the classifier zoo: ViT and DeiT classifiers on K1n at batch "
             f"{CLS_BATCH}, K1f and K1n at head dims {CLS_HEAD_DIMS}, the PiT names on K1f, "
             "ResNetV2 and BiT, features_only, checkpoint_path")
         t0 = time.perf_counter()
@@ -4273,7 +4654,7 @@ def main() -> int:
         log(f"  classifier phase: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
-        log(f"[17/18] fine-tuning on the kernels: the backward kernels at head dims "
+        log(f"[17/19] fine-tuning on the kernels: the backward kernels at head dims "
             f"{BWD_HEAD_DIMS}, a bf16 SGD step of {', '.join(n for n, _, _ in FT_CASES)}, the "
             "ViT names on a ResNet-D stem, the CNNs' train-mode step and forwards")
         t0 = time.perf_counter()
@@ -4281,13 +4662,22 @@ def main() -> int:
         log(f"  fine-tuning phase: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
-        log(f"[18/18] the zoo and the WSSS surface: train_swin on the data mesh ({SWIN_MODEL}, "
+        log(f"[18/19] the zoo and the WSSS surface: train_swin on the data mesh ({SWIN_MODEL}, "
             f"crop {CROP}, batch {TRAIN_BATCH}), {len(ZOO_FORWARDS)} EfficientNet, MobileNetV3, "
             "RegNet and attention-ResNet forwards, their train-mode step, ASPP, AttentionConv, "
             "grad_cam")
         t0 = time.perf_counter()
         phase_zoo_surface(device, cfg, os.path.join(tmp, "train"), tmp, card)
         log(f"  zoo and surface phase: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        log(f"[19/19] the mesh's model axis: {TP_RANKS} ranks at data=1,model={TP_RANKS} "
+            f"({cfg.model.backbone}, crop {CROP}, batch {TRAIN_BATCH}) and 4 at "
+            f"data=2,model=2 (vitb at {TP_DEPTH} blocks), gloo on the one card")
+        t0 = time.perf_counter()
+        phase_tensor_parallel(device, cfg, tmp, dp_ref, card)
+        del dp_ref
+        log(f"  model-axis phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     timing = phase_kernel_timing(device, card)
 

@@ -17,7 +17,15 @@ convolutions, the rest of the model and the qkv weights:
 * float32 on the plain path with TF32 off, and with cuDNN's TF32 on
   (PyTorch's default for convolutions): on the 4 images and as 2 + 2.
 
-    python docs/dp_split_probe.py      # from the repository's root, one GPU
+With ``--swin``, the question behind phase 18 (a) instead: ``train_swin``'s
+float32 step (swin_base_384, crop 384, batch 4, TF32 off, from
+``chip_smoke``'s seeded trained-like zoo npz) on the 4 images (twice), as
+2 + 2 accumulated micro-steps, on the 4 permuted, and in float64 (the
+model's parameters and every operation, its float32 casts kept at float64)
+on the 4 and as 2 + 2; the distances as above, over the relative-position
+bias tables and the rest, and the worst tables' update norms.
+
+    python docs/dp_split_probe.py [--swin]   # from the repository's root, one GPU
 """
 
 import dataclasses
@@ -50,12 +58,111 @@ PAIRS = [("bf16 4 again", "bf16 4"), ("bf16 2+2", "bf16 4"), ("bf16 4 twice", "b
          ("bf16 2+2", "fp32 2+2")]
 
 
+SWIN_GROUPS = {
+    "bias tables": lambda k: "relative_position_bias_table" in k,
+    "the rest": lambda k: "relative_position_bias_table" not in k,
+}
+SWIN_PAIRS = [("fp32 4 again", "fp32 4"), ("fp32 2+2", "fp32 4"), ("fp32 4 permuted", "fp32 4"),
+              ("fp32 4", "fp64 4"), ("fp32 2+2", "fp64 4"), ("fp64 2+2", "fp64 4")]
+
+
+def report(after, p0, pairs, groups, gate=GATE) -> None:
+    """For each pair (a, b): per group the largest relative L2 distance of a
+    tensor's update in ``a`` from its update in ``b``, the tensors over
+    ``gate``, and the worst three."""
+    for a, b in pairs:
+        rel = {}
+        for k, ref in after[b].items():
+            u = ref - p0[k]
+            rel[k] = float((after[a][k] - p0[k] - u).norm() / u.norm().clamp_min(1e-30))
+        over = [k for k in rel if rel[k] > gate]
+        print(f"{a} against {b}: "
+              + ", ".join(f"{g} {max(v for k, v in rel.items() if f(k)):.3g}"
+                          for g, f in groups.items())
+              + f"; {len(over)} of {len(rel)} tensors over {gate} "
+              f"({sum('.backbone.' in k for k in over)} in the stem); worst "
+              + ", ".join(f"{k} {rel[k]:.3g}" for k in sorted(rel, key=rel.get)[::-1][:3]),
+              flush=True)
+
+
+def swin_main() -> int:
+    """The Swin probe (``--swin``)."""
+    from acr_wsss_tpu_torch import train_swin
+
+    tmp = tempfile.mkdtemp()
+    root = os.path.join(tmp, "train")
+    cfg = cs.make_train_fixture(root, seed=0)
+    os.environ["ACR_WSSS_ZOO"] = cs.swin_zoo(root, cfg.seed + 11)
+    scfg = cs.swin_dp_config(cfg)
+    batch = {k: np.asarray(v) for k, v in cs.first_batch(cfg).items() if k in ("image", "label")}
+    halves = [slice(0, 2), slice(2, 4)]
+    permuted = {k: v[[1, 0, 3, 2]] for k, v in batch.items()}
+    as_float = torch.Tensor.float
+
+    def step(dtype, rows, data):
+        ccfg = dataclasses.replace(scfg, accum_steps=len(rows), model=dataclasses.replace(
+            scfg.model, compute_dtype=dtype))
+        model, opt = train_swin.create_swin_train_state(ccfg, 4, cs.SWIN_MODEL, pretrained=True)
+        opt = cs.make_optimizer(model.parameters(), ccfg.lr, 4, ccfg.weight_decay,
+                                ccfg.momentum, ccfg.poly_power, accum_steps=len(rows))
+        if dtype == "float64":
+            model.double()
+            torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else \
+                as_float(t, *a, **k)
+        try:
+            p0 = {k: v.detach().to("cpu", torch.float64, copy=True)
+                  for k, v in model.named_parameters()}
+            fn = train_swin.make_swin_train_step(model, opt, ccfg, cs.CROP, torch.device(
+                ccfg.device))
+            for r in rows:
+                fn({k: v[r] for k, v in data.items()})
+            torch.cuda.synchronize()
+        finally:
+            torch.Tensor.float = as_float
+        return p0, {k: v.detach().to("cpu", torch.float64, copy=True)
+                    for k, v in model.named_parameters()}
+
+    runs = {"fp32 4": ("float32", [slice(None)], batch),
+            "fp32 4 again": ("float32", [slice(None)], batch),
+            "fp32 2+2": ("float32", halves, batch),
+            "fp32 4 permuted": ("float32", [slice(None)], permuted),
+            "fp64 4": ("float64", [slice(None)], batch),
+            "fp64 2+2": ("float64", halves, batch)}
+    after = {}
+    for name, (dtype, rows, data) in runs.items():
+        t0 = time.perf_counter()
+        p0, after[name] = step(dtype, rows, data)
+        print(f"{name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    p0 = {k: v.float().double() for k, v in p0.items()}   # the float32 weights, exactly
+    report(after, p0, SWIN_PAIRS, SWIN_GROUPS)
+    tables = [k for k in p0 if "relative_position_bias_table" in k]
+    u64 = {k: after["fp64 4"][k] - p0[k] for k in tables}
+    ranked = sorted(tables, key=lambda k: float(
+        (after["fp32 2+2"][k] - after["fp32 4"][k]).norm() / u64[k].norm()), reverse=True)
+    for k in ranked[:3]:
+        # One float32 ulp of every stored value: how far two correct float32
+        # steps' p1 may lie apart, over the update's norm.
+        ulp = torch.from_numpy(np.spacing(after["fp32 4"][k].float().numpy())).double()
+        print(f"{k}: one float32 ulp of p1 over |update|: "
+              f"{float(ulp.norm() / u64[k].norm()):.3g}; |update| {float(u64[k].norm()):.4g} "
+              f"(float64), |p0| "
+              f"{float(p0[k].norm()):.4g}; |fp32 2+2 - fp32 4| "
+              f"{float((after['fp32 2+2'][k] - after['fp32 4'][k]).norm()):.4g}, "
+              f"|fp32 4 - fp64 4| {float((after['fp32 4'][k] - after['fp64 4'][k]).norm()):.4g}, "
+              f"|fp64 2+2 - fp64 4| "
+              f"{float((after['fp64 2+2'][k] - after['fp64 4'][k]).norm()):.4g}", flush=True)
+    print(cs.card_line(), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("dp_split_probe: needs a GPU", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--swin" in sys.argv[1:]:
+        return swin_main()
     _build.build(list(cs.KERNELS))
     tmp = tempfile.mkdtemp()
     cfg = cs.make_train_fixture(os.path.join(tmp, "train"), seed=0)
@@ -94,19 +201,7 @@ def main() -> int:
         print(f"{name}: {time.perf_counter() - t0:.2f} s", flush=True)
         del model, opt
     p0 = {k: v.float() for k, v in weights.items()}
-    for a, b in PAIRS:
-        rel = {}
-        for k, ref in after[b].items():
-            u = ref - p0[k]
-            rel[k] = float((after[a][k] - p0[k] - u).norm() / u.norm().clamp_min(1e-30))
-        over = [k for k in rel if rel[k] > GATE]
-        print(f"{a} against {b}: "
-              + ", ".join(f"{g} {max(v for k, v in rel.items() if f(k)):.3g}"
-                          for g, f in GROUPS.items())
-              + f"; {len(over)} of {len(rel)} tensors over {GATE} "
-              f"({sum('.backbone.' in k for k in over)} in the stem); worst "
-              + ", ".join(f"{k} {rel[k]:.3g}" for k in sorted(rel, key=rel.get)[::-1][:3]),
-              flush=True)
+    report(after, p0, PAIRS, GROUPS)
     print(cs.card_line(), flush=True)
     return 0
 

@@ -2,8 +2,9 @@
 
 * ``make_mesh`` and ``make_data_mesh_for_batch``: the shapes, the ``-1``
   and the errors of JAX's on the 8 virtual CPU devices of
-  ``tests/conftest.py`` (the port's over 8 ranks); the model, seq and
-  pipe axes refused.
+  ``tests/conftest.py`` (the port's over 8 ranks); the seq and pipe axes
+  refused, and a model axis that does not divide the heads
+  (``tests/test_torch_tensor_parallel.py`` holds that axis).
 * One vitb train step on 2 ranks (gloo, spawned, a ``file://`` store),
   DDP and FSDP2, each rank on 4 of a batch of 8, from the numpy weights
   of ``tests/torch_port_helpers.py``: against JAX's step on a data mesh of
@@ -36,7 +37,9 @@ Crop 32 in float32, lr 0.01, alpha 1 (JAX's data-mesh test). JAX steps
 its per-layer branch on plain attention; the port its default, the fused
 branch, whose pair-consistency entry takes its plain version on the CPU.
 The ranks run in one module-scoped job, which also runs the one-process
-steps once its group is closed, while JAX compiles.
+steps once its group is closed, while JAX compiles; each job runs once
+per test run, whichever pytest-xdist workers run its tests
+(``torch_port_helpers.run_once``), and what the tests hold is kept.
 """
 
 import os
@@ -61,7 +64,7 @@ from acr_wsss_tpu_torch.configs import ModelConfig, TrainConfig
 from acr_wsss_tpu_torch.models.convert import state_dict_to_flax
 from acr_wsss_tpu_torch.parallel import mesh as port_mesh
 from tests import torch_parallel_workers as workers
-from tests.torch_port_helpers import build_acr_pair, flatten_params
+from tests.torch_port_helpers import build_acr_pair, flatten_params, run_once
 
 CROP, BATCH, LR, MAX_STEP = 32, 8, 0.01, workers.MAX_STEP
 TOL = 1e-4          # JAX's between its sharded and single-device steps
@@ -92,12 +95,23 @@ def test_data_mesh_for_batch_matches_jax(batch):
     assert port_mesh.data_extent(batch, len(jax.devices())) == jax_data_mesh(batch).devices.size
 
 
-@pytest.mark.parametrize("axes", [("data", "model"), ("data", "seq"), ("data", "pipe")])
+@pytest.mark.parametrize("axes", [("data", "seq"), ("data", "pipe"), ("data", "model", "seq")])
 def test_other_axes_are_refused(axes):
     with pytest.raises(ValueError, match="not ported"):
-        port_mesh.make_mesh((-1, 2), axes, "cpu")
+        port_mesh.make_mesh((-1, 2) + (2,) * (len(axes) - 2), axes, "cpu")
     with pytest.raises(ValueError, match="not ported"):
-        port_train.train(TrainConfig(mesh_shape=(-1, 2), mesh_axes=axes, device="cpu"))
+        port_train.train(TrainConfig(mesh_shape=(-1, 2) + (2,) * (len(axes) - 2),
+                                     mesh_axes=axes, device="cpu"))
+
+
+@pytest.mark.parametrize("backbone, model", [("vitb_hybrid", 5), ("vit_small", 4)])
+def test_a_model_axis_must_divide_the_heads(backbone, model):
+    """``train`` refuses a model axis that does not divide the backbone's
+    heads (12, 6) or its MLP hidden width, before it joins a group."""
+    cfg = TrainConfig(model=ModelConfig(backbone=backbone), mesh_shape=(-1, model),
+                      mesh_axes=("data", "model"), device="cpu")
+    with pytest.raises(ValueError, match=f"{model} ranks must divide the"):
+        port_train.train(cfg)
 
 
 def _batches():
@@ -126,13 +140,13 @@ def _jax_steps(backbone):
     return port.state_dict(), state0, step_fn
 
 
-@pytest.fixture(scope="module")
-def job(tmp_path_factory):
+def _build_job(tmp):
     """The 2-rank step job (``torch_parallel_workers.step_job``: the
     2-rank steps, then the one-process steps and resumes) and the JAX
     side, which runs meanwhile: vitb's data-mesh and FSDP steps on batch
-    0, and two vit_small single-device steps (batch 0, then batch 1)."""
-    tmp = tmp_path_factory.mktemp("parallel")
+    0, and two vit_small single-device steps (batch 0, then batch 1).
+    ``summary.pt`` keeps what the tests hold; the rest (about 1.5 GB of
+    weights, parameters and checkpoints) goes."""
     batches = _batches()
     np.savez(tmp / "batches.npz", **batches)
     jax_side = {backbone: _jax_steps(backbone) for backbone in ("vitb", "vit_small")}
@@ -164,14 +178,46 @@ def job(tmp_path_factory):
 
     while not ctx.join(timeout=600):
         pass
-    yield tmp, jax_out
-    # about 1.5 GB of weights, parameters and checkpoints
-    shutil.rmtree(tmp, ignore_errors=True)
+    summary = {}
+    for case in ("ddp", "fsdp"):
+        out = torch.load(tmp / f"{case}.pt", weights_only=True)
+        loss, jparams = jax_out[case]
+        summary[case] = {"loss_err": abs(out["history"][0]["loss"] - loss),
+                         "params": _params_err(_flax(out["params"], "vitb"), jparams),
+                         "qkv": (out["qkv_local"], out["qkv_numel"])}
+    for case in workers.ONE_PROCESS:
+        summary[f"one_{case}"] = {
+            "ranks": torch.load(tmp / f"{case}.pt", weights_only=True)["history"],
+            **torch.load(tmp / f"one_{case}.pt", weights_only=True)}
+    for case in ("ddp", "fsdp"):
+        out = torch.load(tmp / f"resumed_{case}_resume.pt", weights_only=True)
+        summary[f"resumed_{case}"] = {
+            "steps": (out["restored_step"], out["updates"]),
+            "params": _params_err(_flax(out["params"], "vit_small"), jax_out["two_steps"])}
+    for f in list(tmp.iterdir()):
+        if f.is_dir():
+            shutil.rmtree(f)
+        else:
+            f.unlink()
+    torch.save(summary, tmp / "summary.pt")
 
 
-def _assert_params(got, ref, tol):
-    assert got.keys() == ref.keys()
-    worst = max(float(np.max(np.abs(np.asarray(got[k]) - np.asarray(ref[k])))) for k in ref)
+@pytest.fixture(scope="module")
+def job(tmp_path_factory):
+    """``_build_job``'s summary, built once per test run."""
+    return torch.load(run_once(tmp_path_factory, "data_parallel_job", _build_job) / "summary.pt",
+                      weights_only=True)
+
+
+def _params_err(got, ref):
+    """(whether the keys agree, the largest |got - ref| over every tensor)."""
+    return got.keys() == ref.keys(), max(
+        float(np.max(np.abs(np.asarray(got[k]) - np.asarray(ref[k])))) for k in ref if k in got)
+
+
+def _assert_params(err, tol):
+    same, worst = err
+    assert same
     assert worst < tol, worst
 
 
@@ -184,23 +230,20 @@ def _flax(state_dict, backbone):
 
 @pytest.mark.parametrize("case", ["ddp", "fsdp"])
 def test_two_rank_step_matches_jax(job, case):
-    tmp, jax_out = job
-    out = torch.load(tmp / f"{case}.pt", weights_only=True)
-    loss, jparams = jax_out[case]
-    assert abs(out["history"][0]["loss"] - loss) < TOL
-    _assert_params(_flax(out["params"], "vitb"), jparams, TOL)
+    out = job[case]
+    assert out["loss_err"] < TOL
+    _assert_params(out["params"], TOL)
     if case == "fsdp":
-        assert out["qkv_local"] * 2 == out["qkv_numel"]
+        local, numel = out["qkv"]
+        assert local * 2 == numel
 
 
 @pytest.mark.parametrize("case", workers.ONE_PROCESS)
 def test_two_rank_step_matches_one_process(job, case):
     """Loss parts of each micro-step, every updated parameter and each
     tensor's update."""
-    tmp, _ = job
-    ranks = torch.load(tmp / f"{case}.pt", weights_only=True)["history"]
-    one = torch.load(tmp / f"one_{case}.pt", weights_only=True)
-    for got, ref in zip(ranks, one["history"], strict=True):
+    one = job[f"one_{case}"]
+    for got, ref in zip(one["ranks"], one["history"], strict=True):
         for k in ref:
             np.testing.assert_allclose(got[k], ref[k], rtol=PORT_TOL, err_msg=k)
     assert one["worst"] < PORT_TOL, one["worst"]
@@ -213,10 +256,9 @@ def test_two_rank_step_matches_one_process(job, case):
 def test_elastic_resume_matches_two_jax_steps(job, case):
     """2 ranks -> checkpoint -> 1 process: the restored step continues the
     schedule and the momentum."""
-    tmp, jax_out = job
-    out = torch.load(tmp / f"resumed_{case}_resume.pt", weights_only=True)
-    assert (out["restored_step"], out["updates"]) == (0, 2)
-    _assert_params(_flax(out["params"], "vit_small"), jax_out["two_steps"], TOL)
+    out = job[f"resumed_{case}"]
+    assert out["steps"] == (0, 2)
+    _assert_params(out["params"], TOL)
 
 
 # --- train_swin over the data mesh ---------------------------------------------
@@ -249,25 +291,21 @@ def _swin_voc(root, n=4):
             "--session_name", "sw", "--device", "cpu"]
 
 
-@pytest.fixture(scope="module")
-def swin_job(tmp_path_factory):
+def _build_swin_job(tmp):
     """The 2-rank Swin job (``torch_parallel_workers.swin_job``, which also
     takes the port's one-process step) and, while it runs, JAX's data-mesh
-    step."""
+    step, whose loss parts and parameters go to ``tmp/swin_jax.pt``."""
     from acr_wsss_tpu import train_swin as jax_train_swin
     from acr_wsss_tpu.models import swin as jax_swin
     from acr_wsss_tpu.train import TrainState as JaxTrainState
-    from acr_wsss_tpu_torch.models import swin
     from acr_wsss_tpu_torch.models.convert import flax_to_state_dict
     from tests.torch_port_helpers import jit_o0, random_flax_params, unflatten_params
 
-    tmp = tmp_path_factory.mktemp("swin_parallel")
     crop, batch_size = workers.SWIN_CROP, workers.SWIN_BATCH
     kw = {k: v for k, v in workers.SWIN_KW.items() if k != "img_size"}
     jm = jax_swin.SwinTransformer(dtype=jnp.float32, **kw)
     flat = random_flax_params(jm, jnp.zeros((1, crop, crop, 3)), seed=6)
-    pm = swin.SwinTransformer(**workers.SWIN_KW, dtype=torch.float32)
-    weights = flax_to_state_dict(flat, pm.state_dict())
+    weights = flax_to_state_dict(flat, _small_swin().state_dict())
     torch.save(weights, tmp / "swin_weights.pt")
     rng = np.random.default_rng(7)
     batch = {"image": (rng.normal(size=(batch_size, crop, crop, 3))
@@ -289,13 +327,29 @@ def swin_job(tmp_path_factory):
     step = jit_o0(jax_train_swin.make_swin_train_step(jm, jcfg, crop))
     state, parts = step(state, {k: jax.device_put(jnp.asarray(v), batch_sharding(mesh))
                                 for k, v in batch.items()})
-    jax_out = ({k: float(v) for k, v in parts.items()},
-               flatten_params(jax.device_get(state.params)))
+    torch.save({"parts": {k: float(v) for k, v in parts.items()},
+                "params": {k: torch.from_numpy(np.array(v)) for k, v in
+                           flatten_params(jax.device_get(state.params)).items()}},
+               tmp / "swin_jax.pt")
     while not ctx.join(timeout=600):
         pass
+
+
+def _small_swin():
+    from acr_wsss_tpu_torch.models import swin
+
+    return swin.SwinTransformer(**workers.SWIN_KW, dtype=torch.float32)
+
+
+@pytest.fixture(scope="module")
+def swin_job(tmp_path_factory):
+    """(the job's directory, JAX's loss parts and parameters, the port's
+    one-process step's, the small Swin); the job built once per test run."""
+    tmp = run_once(tmp_path_factory, "swin_parallel_job", _build_swin_job)
+    jax_out = torch.load(tmp / "swin_jax.pt", weights_only=True)
     one = torch.load(tmp / "swin_one.pt", weights_only=True)
-    yield tmp, jax_out, (one["parts"], one["params"]), pm
-    shutil.rmtree(tmp, ignore_errors=True)
+    return (tmp, (jax_out["parts"], {k: v.numpy() for k, v in jax_out["params"].items()}),
+            (one["parts"], one["params"]), _small_swin())
 
 
 def test_two_rank_swin_step_matches_jax(swin_job):

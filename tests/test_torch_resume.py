@@ -33,6 +33,7 @@ from acr_wsss_tpu.utils.schedule import poly_schedule
 from acr_wsss_tpu_torch import train as train_mod
 from acr_wsss_tpu_torch.configs import ModelConfig, TrainConfig
 from acr_wsss_tpu_torch.utils.checkpoint import CheckpointManager
+from tests.torch_port_helpers import run_once
 
 
 @pytest.fixture(autouse=True)
@@ -43,10 +44,8 @@ def _remove_tmp_path(tmp_path):
     shutil.rmtree(tmp_path, ignore_errors=True)
 
 
-@pytest.fixture(scope="module")
-def tiny_voc(tmp_path_factory):
-    root = tmp_path_factory.mktemp("torch_resume")
-    (root / "img").mkdir()
+def _write_tiny_voc(root):
+    (root / "img").mkdir(parents=True)
     rng = np.random.default_rng(0)
     names, labels = [], {}
     for i in range(8):
@@ -61,6 +60,11 @@ def tiny_voc(tmp_path_factory):
     (root / "train.txt").write_text("\n".join(names) + "\n")
     (root / "val.txt").write_text("\n".join(names[:2]) + "\n")
     return root
+
+
+@pytest.fixture(scope="module")
+def tiny_voc(tmp_path_factory):
+    return _write_tiny_voc(tmp_path_factory.mktemp("torch_resume"))
 
 
 def _fields(root, weight_dir):
@@ -82,13 +86,14 @@ def _records(cfg):
         return [json.loads(line) for line in f]
 
 
-@pytest.fixture(scope="module")
-def resumed_run(tiny_voc, tmp_path_factory):
+def _build_resumed_run(root):
     """A full run with the profiler window on steps 1-2, then a relaunch
     of the same config, which restores every parameter and so must not
-    draw the seeded init first."""
-    weight = tmp_path_factory.mktemp("resume_weight")
-    cfg = _cfg(tiny_voc, weight, profile_dir=str(weight / "profile"))
+    draw the seeded init first. ``summary.pt`` keeps what the tests hold
+    and ``trace.json`` the trace; the checkpoints (about 0.7 GB each) and
+    the npz go."""
+    weight = root / "weight"
+    cfg = _cfg(_write_tiny_voc(root / "voc"), weight, profile_dir=str(weight / "profile"))
     window = train_mod.PROFILE_WINDOW
     train_mod.PROFILE_WINDOW = (1, 2)
     try:
@@ -106,27 +111,42 @@ def resumed_run(tiny_voc, tmp_path_factory):
         second = train_mod.train(dataclasses.replace(cfg, profile_dir=None))
     finally:
         train_mod.init_random_ = init
-    yield cfg, first, second, records
-    shutil.rmtree(weight, ignore_errors=True)
+    npz = os.path.exists(os.path.join(cfg.checkpoint_dir, "tinytrain_last.npz"))
+    ckpt_steps = CheckpointManager(os.path.join(cfg.checkpoint_dir, cfg.session_name)).steps()
+    shutil.copy(os.path.join(cfg.checkpoint_dir, "profile", "tinytrain_trace.json"),
+                root / "trace.json")
+    torch.save({"first": (first.step, first.steps, first.optimizer.updates),
+                "second": (second.step, second.steps, second.optimizer.updates),
+                "second_history": second.history, "npz": npz, "ckpt_steps": ckpt_steps,
+                "records": records}, root / "summary.pt")
+    shutil.rmtree(weight)
+
+
+@pytest.fixture(scope="module")
+def resumed_run(tmp_path_factory):
+    """``_build_resumed_run``'s directory and summary, built once per test
+    run."""
+    root = run_once(tmp_path_factory, "torch_resumed_run", _build_resumed_run)
+    return root, torch.load(root / "summary.pt", weights_only=True)
 
 
 def test_train_checkpoints_and_resumes_like_jax(resumed_run):
-    cfg, first, second, _ = resumed_run
+    _, out = resumed_run
     # 5 optimizer applications (loop steps 0..4), as JAX's state.step
-    assert (first.step, first.steps, first.optimizer.updates) == (5, 5, 5)
-    assert os.path.exists(os.path.join(cfg.checkpoint_dir, "tinytrain_last.npz"))
-    ckpt = CheckpointManager(os.path.join(cfg.checkpoint_dir, cfg.session_name))
-    assert ckpt.steps() == [3]
+    assert out["first"] == (5, 5, 5)
+    assert out["npz"]
+    assert out["ckpt_steps"] == [3]
     # the relaunch restores step 3 and runs loop step 4 only
-    assert (second.step, second.steps, second.optimizer.updates) == (4, 1, 5)
-    assert len(second.history) == 1 and np.isfinite(second.history[0]["loss"])
+    assert out["second"] == (4, 1, 5)
+    history = out["second_history"]
+    assert len(history) == 1 and np.isfinite(history[0]["loss"])
 
 
 def test_metrics_stream_matches_the_jax_loop(resumed_run, tiny_voc, tmp_path):
     """Same steps and keys as the JAX loop's JSONL on the same fixture."""
     from acr_wsss_tpu.train import train as jax_train
 
-    cfg, _, _, records = resumed_run
+    records = resumed_run[1]["records"]
     jax_cfg = JaxTrainConfig(model=JaxModelConfig(backbone="vitb", attn_impl="xla",
                                                   compute_dtype="float32"),
                              **{**_fields(tiny_voc, tmp_path), "checkpoint_every": 10 ** 6})
@@ -138,9 +158,7 @@ def test_metrics_stream_matches_the_jax_loop(resumed_run, tiny_voc, tmp_path):
 
 
 def test_profiler_window_writes_a_trace(resumed_run):
-    cfg, _, _, _ = resumed_run
-    path = os.path.join(cfg.checkpoint_dir, "profile", "tinytrain_trace.json")
-    with open(path) as f:
+    with open(resumed_run[0] / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
 

@@ -1,7 +1,8 @@
 """Rank functions of the port's data-parallel CPU tests.
 
-Spawned by ``torch.multiprocessing.spawn`` from ``tests/test_torch_parallel.py``
-and ``tests/test_torch_multiprocess.py``; this module imports nothing of JAX,
+Spawned by ``torch.multiprocessing.spawn`` from ``tests/test_torch_parallel.py``,
+``tests/test_torch_tensor_parallel.py`` and ``tests/test_torch_multiprocess.py``;
+this module imports nothing of JAX,
 so a rank starts with torch and the port alone. Ranks meet over gloo at a
 ``file://`` store: no TCP port, so that test workers running side by side
 cannot collide.
@@ -17,8 +18,9 @@ import torch
 
 from acr_wsss_tpu_torch import train as train_mod
 from acr_wsss_tpu_torch.parallel import distributed
-from acr_wsss_tpu_torch.parallel.mesh import make_data_mesh_for_batch
-from acr_wsss_tpu_torch.parallel.sharding import full_tensors, shard_like, unwrap
+from acr_wsss_tpu_torch.parallel.mesh import make_data_mesh_for_batch, make_mesh
+from acr_wsss_tpu_torch.parallel.sharding import full_like, full_tensors, shard_like, unwrap
+from acr_wsss_tpu_torch.utils import schedule
 from acr_wsss_tpu_torch.utils.checkpoint import CheckpointManager
 
 # The 2-rank step job: (name, backbone, TrainConfig overrides). JAX_CASES
@@ -48,9 +50,10 @@ def _join(rank, world, store):
 
 
 def load_full(model, state_dict):
-    """The one-device ``state_dict`` into ``model``, sharded where FSDP's is."""
+    """The one-device ``state_dict`` into ``model``, sharded where FSDP's or
+    the model axis's is."""
     base = unwrap(model)
-    current = base.state_dict()
+    current = base.state_dict(keep_vars=True)
     base.load_state_dict({k: shard_like(v, current[k]) for k, v in state_dict.items()})
 
 
@@ -95,8 +98,12 @@ def _case(tmp, cfg, backbone, overrides, mesh=None):
                                **overrides)
     model, opt = train_mod.create_train_state(ccfg, MAX_STEP, init=False, mesh=mesh)
     path = weights_file(tmp, backbone)
-    weights = (torch.load(path, weights_only=True) if os.path.exists(path)
-               else seeded_state_dict(unwrap(model), SEED))
+    if os.path.exists(path):
+        weights = torch.load(path, weights_only=True)
+    else:   # drawn over the one-device shapes, whatever the mesh cut
+        with torch.device("meta"):
+            shapes = train_mod.build_model(ccfg.model)
+        weights = seeded_state_dict(shapes, SEED)
     load_full(model, weights)
     return ccfg, model, opt, weights
 
@@ -220,6 +227,108 @@ def train_job(rank, world, store, cfg, sigterm_rank, sigterm_step):
         results.append(str(e))
     torch.save(results, os.path.join(cfg.checkpoint_dir, f"rank{rank}.pt"))
     distributed.shutdown()
+
+
+# The 4-rank tensor-parallel job on a (data, model) = TP_MESH mesh: (name,
+# backbone, TrainConfig overrides). TP_JAX cases are held against JAX's
+# step on the same mesh; TP_ONE ones against the port's one-process step
+# on the whole batch (per-layer branch, the one the model axis takes);
+# TP_RESUMED's checkpoint is resumed in one process and held against two
+# JAX single-device steps. "tp_fsdp" is --fsdp on the model mesh: FSDP
+# over the data axis, no cut, the model ranks replicas (JAX's rule).
+TP_MESH, TP_AXES = (2, 2), ("data", "model")
+TP_CASES = (("tp", "vitb", {}), ("tp_fsdp", "vitb", {"fsdp": True}),
+            ("tp_hybrid", "vitb_hybrid", {}),
+            ("tp_clip_accum", "vit_small", {"accum_steps": 2, "clip_grad_norm": 1.0}))
+TP_JAX, TP_ONE, TP_RESUMED = ("tp", "tp_fsdp"), ("tp", "tp_hybrid", "tp_clip_accum"), "tp"
+
+
+def _recorded_norms():
+    """The global norms that the optimizer's clipping takes, in order."""
+    norms = []
+    norm = schedule.global_norm
+
+    def record(*args, **kwargs):
+        norms.append(norm(*args, **kwargs))
+        return norms[-1]
+
+    schedule.global_norm = record
+    return norms
+
+
+def tp_job(rank, world, store, tmp, cfg):
+    """The TP_MESH ranks: each case of TP_CASES on this rank's data rows of
+    ``tmp/batches.npz`` (the rows of its data coordinate); rank 0 writes
+    ``tmp/<case>.pt``: the loss parts of each micro-step, the norms that
+    clipping took, the cut parameters (name: dimension, groups, local
+    shape), the qkv weight's local size and, for TP_JAX cases, the
+    parameters after in the one-device layout; TP_RESUMED's one-device
+    checkpoint goes under ``tmp/<case>_ckpt``. Then, with the group
+    closed, the one-process work split over the ranks: ``one_<case>.pt``
+    (loss parts, norms and, per tensor, the relative distance of the
+    ranks' update from its own) and ``resumed_<case>.pt`` (the checkpoint
+    restored, one step on batch 1)."""
+    _join(rank, world, store)
+    norms = _recorded_norms()
+    batches = np.load(os.path.join(tmp, "batches.npz"))
+    tasks = [("one", name) for name in TP_ONE] + [("resumed", TP_RESUMED)]
+    mine = tasks[rank::world]
+    after = {}
+    for name, backbone, overrides in TP_CASES:
+        mesh = make_mesh(TP_MESH, TP_AXES, "cpu")
+        base = dataclasses.replace(cfg, mesh_shape=TP_MESH, mesh_axes=TP_AXES)
+        ccfg, model, opt, _ = _case(tmp, base, backbone, overrides, mesh)
+        per = ccfg.batch_size // TP_MESH[0]
+        data = mesh["data"].get_local_rank()
+        norms.clear()
+        history = _steps(model, opt, ccfg, mesh, batches, slice(data * per, (data + 1) * per),
+                         ccfg.accum_steps)
+        named = dict(unwrap(model).named_parameters())
+        qkv = named["trunk.blocks.0.attn.qkv.weight"]
+        out = {"history": history, "norms": list(norms),
+               "cut": {k: (p.tp.dim, p.tp.groups, tuple(p.shape)) for k, p in named.items()
+                       if getattr(p, "tp", None) is not None},
+               "qkv_local": (qkv.to_local() if hasattr(qkv, "to_local") else qkv).numel()}
+        params = {k: full_like(p).detach() for k, p in named.items()}   # a collective
+        if name in TP_JAX:
+            out["params"] = params
+        if ("one", name) in mine:
+            after[name] = params
+        state = train_mod.checkpoint_state(0, model, opt) if name == TP_RESUMED else None
+        if rank == 0:
+            torch.save(out, os.path.join(tmp, f"{name}.pt"))
+            if state is not None:
+                ckpt = CheckpointManager(os.path.join(tmp, f"{name}_ckpt"))
+                ckpt.save(0, state)
+                ckpt.close()
+        del model, opt, state, out, params, named, qkv
+    torch.distributed.barrier()
+    distributed.shutdown()
+
+    cases = {name: (backbone, overrides) for name, backbone, overrides in TP_CASES}
+    for kind, name in mine:
+        backbone, overrides = cases[name]
+        one_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, fuse_consistency=kind == "resumed"))
+        ccfg, model, opt, weights = _case(tmp, one_cfg, backbone,
+                                          overrides if kind == "one" else {})
+        norms.clear()
+        if kind == "one":
+            history = _steps(model, opt, ccfg, None, batches, slice(None), ccfg.accum_steps)
+            one = {k: v.detach() for k, v in model.named_parameters()}
+            torch.save({"history": history, "norms": list(norms),
+                        "update_rel": update_rel(after.pop(name), one, weights)},
+                       os.path.join(tmp, f"one_{name}.pt"))
+        else:
+            ckpt = CheckpointManager(os.path.join(tmp, f"{name}_ckpt"))
+            restored = train_mod.restore_checkpoint(ckpt, model, opt)
+            ckpt.close()
+            batch1 = {"image0": batches["image1"], "label0": batches["label1"]}
+            _steps(model, opt, ccfg, None, batch1, slice(None), 1)
+            torch.save({"restored_step": restored, "updates": opt.updates,
+                        "params": model.state_dict()}, os.path.join(tmp, f"resumed_{name}.pt"))
+            shutil.rmtree(ckpt.directory)
+        del model, opt
 
 
 # The 2-rank Swin job: a small Swin (width 32, depths (2, 2), window 4, crop

@@ -6,11 +6,15 @@ sides: to JAX as a param tree, to the port through its converter.
 ``write_coco`` writes a tiny synthetic COCO layout (images, bbox txts).
 ``dpt_flax_params`` and ``jax_dpt_apply`` are cached per process, so the
 segmentation test files that one worker runs trace and compile JAX's DPT
-model once per backbone (and dtype).
+model once per backbone (and dtype). ``run_once`` builds a directory once
+per test run, across pytest-xdist's workers.
 """
 
+import fcntl
 import functools
+import os
 import re
+import shutil
 
 import numpy as np
 from PIL import Image
@@ -147,6 +151,31 @@ CNN_REL = 1e-5
 # input, float32 sums over every pixel that cancel to a small difference
 # (2.2e-5 of the largest |gradient| seen) -> 1e-4 of the largest.
 CNN_GRAD_REL = 1e-4
+
+
+def run_once(tmp_path_factory, name, build):
+    """``build(directory)`` once per test run, and the directory. Under
+    pytest-xdist every worker that runs a test of a module runs its
+    module-scoped fixtures, so a costly one (a spawned job of ranks)
+    would run once per such worker: here the first worker builds under
+    a file lock, in a directory that the run's workers share, and the
+    others wait for it and read what it left. A failed build leaves no
+    mark, and the next worker builds again."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    path = root / name
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not (path / ".built").exists():
+                shutil.rmtree(path, ignore_errors=True)
+                path.mkdir()
+                build(path)
+                (path / ".built").touch()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return path
 
 
 def jit_o0(fn):
